@@ -9,19 +9,34 @@ Phases, each printing its wall time:
 1. device    the card's name and power limit;
 2. build     the CUDA kernels under src/repro_torch/csrc/, compiled with
              nvcc in parallel, with ptxas' register/spill report;
-3. kernels   each kernel against its plain torch version on the card, at
-             the shapes the engine gives it, timed with CUDA events beside
-             its byte bound and one library call;
-4. engine    Reach, CC and SSSP with the port's Engine on the card over a
+3. kernels   each engine kernel against its plain torch version on the
+             card, at the shapes the engine gives it, timed with CUDA
+             events beside its byte bound and one library call;
+4. attention the attention kernels against their plain versions at the
+             LM shapes (qwen3-1.7b prefill at 4096 tokens in bf16 and f32,
+             a chunked prefill, gemma's d = 256, chatglm3's GQA 16:1,
+             decode over a 32768-position cache), timed beside their
+             bounds and scaled_dot_product_attention;
+5. engine    Reach, CC and SSSP with the port's Engine on the card over a
              Graph500 Kronecker graph (scale 22, edge factor 16, A, B, C =
              0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph;
-5. wide      Reach again under force_multiword(), so every key is two
+6. wide      Reach again under force_multiword(), so every key is two
              words and every probe takes the multi-word kernel;
-6. launches  each kernel's launch count over phases 4-5; a zero fails.
+7. serve     qwen3-1.7b at full width through repro_torch.launch.serve:
+             random bf16 weights from --seed, 8 requests of 2048 prompt
+             tokens, 64 greedy tokens, twice: a run that captures the
+             attention inputs of the first and last layer, then a run
+             with nothing wrapped, timed and counted, which must give
+             the same tokens; the kernels held against their plain
+             versions on the captured inputs in bf16 and f32 (these give
+             the kernel line's times), and a short run against the same
+             run through the plain versions;
+8. launches  each kernel's launch count over phases 5-7; a zero fails.
 
-With ``--profile``, each of Reach, CC and SSSP then runs once more under
-torch.profiler, which prints device time by kernel family and the
-device's busy share of the run's wall time (not part of the checks).
+With ``--profile``, each of Reach, CC and SSSP, the serve prefill and
+four decode steps then run once more under torch.profiler, which prints
+device time by kernel family, the device's busy share of the run's wall
+time and the busiest host ops (not part of the checks).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}, printed only if every phase
@@ -32,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -364,6 +380,10 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for family, marks in (("probe (ours)", ("probe_kernel",)),
                           ("segment_reduce (ours)", ("segment_reduce",)),
+                          ("attention (ours)", ("attn_kernel",
+                                                "decode_split",
+                                                "decode_combine")),
+                          ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
                           ("sort", ("sort", "radix")),
                           ("memcpy/memset", ("memcpy", "memset")),
                           ("index/scatter/gather",
@@ -373,26 +393,24 @@ def kernel_family(name: str) -> str:
     return "other elementwise/reduce"
 
 
-def profile_engine(torch, name, text, edbs, n, edge_cap):
-    """One warm run under torch.profiler: device time per kernel family
-    and busy share (sum of kernel time over the run's wall time)."""
+def profile_run(torch, name, fn):
+    """``fn()`` once under torch.profiler: device time per kernel family,
+    the device's busy share (kernel time over the run's wall time), and
+    the host ops with the most self CPU time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.optimizer import compile_program
-    from repro_torch.engine import Engine, EngineConfig
-    engine = Engine(compile_program(text), EngineConfig(
-        idb_cap=n, intermediate_cap=edge_cap, device="cuda"))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run(edbs)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     families: dict = {}
-    top = []
+    top, host = [], []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
+            host.append((e.self_cpu_time_total / 1e3, e.count, e.key[:60]))
             continue
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0))
@@ -412,7 +430,19 @@ def profile_engine(torch, name, text, edbs, n, edge_cap):
               f"({100 * ms / wall_ms:.1f}% of wall)")
     for ms, count, key in sorted(top, reverse=True)[:8]:
         print(f"    {ms:9.1f} ms  x{count:<5d} {key}")
+    print("  host, most self CPU time:")
+    for ms, count, key in sorted(host, reverse=True)[:6]:
+        print(f"    {ms:9.1f} ms  x{count:<5d} {key}")
     sys.stdout.flush()
+
+
+def profile_engine(torch, name, text, edbs, n, edge_cap):
+    """One warm engine run under torch.profiler."""
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import Engine, EngineConfig
+    engine = Engine(compile_program(text), EngineConfig(
+        idb_cap=n, intermediate_cap=edge_cap, device="cuda"))
+    profile_run(torch, name, lambda: engine.run(edbs))
 
 
 def run_engine_phases(torch, seed, scale, profile=False):
@@ -464,6 +494,290 @@ def run_engine_phases(torch, seed, scale, profile=False):
     return totals
 
 
+# -- attention kernels and the LM serving path --------------------------------
+
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor peak, data sheet
+F32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores, data sheet
+# (rtol, atol). The kernels and their plain versions compute in float32
+# and round once to the output's dtype, so bfloat16 outputs differ by at
+# most one unit in the last place: 2**-7 of the value at worst.
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-4)}
+
+
+def attention_work(q, k, causal=True, kv_len=None):
+    """(flops, bytes) that attention needs on these inputs: 4 d flops per
+    visible (query, key) pair (QK^T and PV), q, k and v read once and the
+    output written once; for decode only the valid K/V rows count."""
+    import numpy as np
+    b, hq, d = q.shape[0], q.shape[1], q.shape[-1]
+    hkv, skv = k.shape[1], k.shape[2]
+    es = q.element_size()
+    if kv_len is None:
+        sq = q.shape[2]
+        if causal:   # row i sees min(skv, max(0, i + skv - sq + 1)) keys
+            rows = np.arange(sq, dtype=np.int64) + (skv - sq + 1)
+            visible = int(np.clip(rows, 0, skv).sum())
+        else:
+            visible = sq * skv
+        return 4 * d * b * hq * visible, (2 * q.numel() + 2 * k.numel()) * es
+    total = int(kv_len.clamp(0, skv).sum())
+    return 4 * d * hq * total, (2 * q.numel() + 2 * hkv * total * d) * es
+
+
+def attention_bound(q, k, causal=True, kv_len=None):
+    """(bound ms, 'bytes' or 'operations'): the larger of the byte time
+    at 3.35 TB/s and the flop time at the peak for the inputs' type."""
+    flops, nbytes = attention_work(q, k, causal, kv_len)
+    peak = (BF16_FLOPS_PER_S if str(q.dtype).endswith("bfloat16")
+            else F32_FLOPS_PER_S)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def sdpa(torch, q, k, v, causal=True, kv_len=None):
+    """The library yardstick: one scaled_dot_product_attention call on
+    the same inputs (GQA without repeat; never called by the port)."""
+    F = torch.nn.functional
+    if kv_len is None:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    pos = torch.arange(k.shape[2], device=q.device)
+    mask = (pos[None, :] < kv_len[:, None].long())[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+
+def check_attention(torch, label, q, k, v, causal=True, kv_len=None,
+                    timed=True, library=True):
+    """The kernel against its plain version on the same inputs, within
+    ATTN_TOL; with ``timed``, CUDA-event times of the kernel, the plain
+    version and SDPA beside the bound."""
+    from repro_torch.kernels import flash_attention as FA
+    if kv_len is None:
+        kernel = functools.partial(FA.flash_attention, q, k, v, causal)
+        plain = functools.partial(FA.flash_attention_plain, q, k, v, causal)
+    else:
+        kernel = functools.partial(FA.flash_decode, q, k, v, kv_len)
+        plain = functools.partial(FA.flash_decode_plain, q, k, v, kv_len)
+    out, want = kernel().float(), plain().float()
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    err = float((out - want).abs().max())
+    tol = (f"max |want| {float(want.abs().max())}, rtol {rtol} atol "
+           f"{atol}")
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{label}: {m}")
+    if not timed:
+        print(f"{label}: max abs err {err} ({tol})", flush=True)
+        return dict(max_abs_err=err)
+    ms = cuda_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, plain, reps=2, warmup=1)
+    library_ms = (cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal, kv_len))
+                  if library else None)
+    b_ms, bound_by = attention_bound(q, k, causal, kv_len)
+    print(f"{label}: max abs err {err} ({tol}); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA {library_ms} ms, bound "
+          f"{b_ms:.4f} ms by {bound_by} ({100 * b_ms / ms:.1f}% of it)",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def run_attention_checks(torch, seed, dev):
+    """Both attention kernels at the model's shapes: qwen3-1.7b prefill
+    (hq 16, hkv 8, d 128) at 4096 tokens in bf16 and f32, a chunk of 1000
+    queries at the end of 4096 keys, gemma's d = 256, chatglm3's GQA
+    16:1, and decode over a 32768-position cache with ragged lengths."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
+        q = rnd((1, 16, 4096, 128), dtype)
+        k, v = rnd((1, 8, 4096, 128), dtype), rnd((1, 8, 4096, 128), dtype)
+        check_attention(torch, f"flash_attention {str(dtype)[6:]} b=1 hq=16 "
+                        f"hkv=8 sq=skv=4096 d=128 causal", q, k, v)
+    # SDPA's causal mask is top-left aligned: no yardstick when sq < skv
+    q = rnd((1, 16, 1000, 128), bf16)
+    k, v = rnd((1, 8, 4096, 128), bf16), rnd((1, 8, 4096, 128), bf16)
+    check_attention(torch, "flash_attention bfloat16 chunk sq=1000 "
+                    "skv=4096 causal", q, k, v, library=False)
+    q, k, v = (rnd((1, 16, 1024, 256), bf16) for _ in range(3))
+    check_attention(torch, "flash_attention bfloat16 gemma d=256 hq=hkv=16 "
+                    "sq=skv=1024 causal", q, k, v)
+    q = rnd((1, 32, 1024, 128), bf16)
+    k, v = rnd((1, 2, 1024, 128), bf16), rnd((1, 2, 1024, 128), bf16)
+    check_attention(torch, "flash_attention bfloat16 chatglm3 GQA 16:1 "
+                    "sq=skv=1024 causal", q, k, v)
+    S = 32768
+    kv_len = torch.tensor([1, 10923, 32767, 32768] * 2, dtype=torch.int32,
+                          device=dev)
+    for dtype in (bf16, f32):
+        q = rnd((8, 16, 128), dtype)
+        k, v = rnd((8, 8, S, 128), dtype), rnd((8, 8, S, 128), dtype)
+        check_attention(torch, f"flash_decode {str(dtype)[6:]} b=8 hq=16 "
+                        f"hkv=8 S=32768 kv_len {{1, 10923, 32767, 32768}}",
+                        q, k, v, kv_len=kv_len)
+        del q, k, v
+
+
+@contextlib.contextmanager
+def attention_swapped(FA, flash_attention, flash_decode):
+    """Route the model's attention calls through other functions."""
+    saved = FA.flash_attention, FA.flash_decode
+    FA.flash_attention, FA.flash_decode = flash_attention, flash_decode
+    try:
+        yield
+    finally:
+        FA.flash_attention, FA.flash_decode = saved
+
+
+def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
+                    gen_tokens=64, arch="qwen3-1.7b", smoke=False,
+                    device="cuda", profile=False):
+    """qwen3-1.7b (``arch``) at full width (``smoke`` False) through
+    repro_torch.launch.serve: random bf16 weights from ``seed``,
+    ``requests`` prompts of ``prompt_len`` tokens, ``gen_tokens`` greedy
+    tokens. A first run captures the attention inputs of the first and
+    last layer at the prefill and at the last decode step; a second run,
+    with nothing wrapped, is the timed and counted one and must give the
+    same tokens. The kernels' outputs on the captured inputs are held
+    against the plain versions, in bf16 and again in f32; then a short
+    run through the kernels is held against the same run through the
+    plain versions. Returns (launch counts of the timed run, measured
+    numbers per kernel at the captured shapes)."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    model, cfg = serve.build(arch, smoke, device, seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters in "
+          f"{cfg.dtype} from seed {seed} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(requests, prompt_len))
+    L, cap = cfg.n_layers, prompt_len + gen_tokens
+    keep = (0, L - 1)
+    captured = {}
+    calls = {"prefill": 0, "decode": 0}
+    kernel_fa, kernel_fd = FA.flash_attention, FA.flash_decode
+
+    def fa(q, k, v, causal=True):
+        i = calls["prefill"]
+        calls["prefill"] += 1
+        out = kernel_fa(q, k, v, causal=causal)
+        if i in keep:
+            captured[("prefill", i)] = (q.clone(), k.clone(), v.clone())
+        return out
+
+    def fd(q, k, v, kv_len):
+        step, layer = divmod(calls["decode"], L)
+        calls["decode"] += 1
+        out = kernel_fd(q, k, v, kv_len)
+        if step == gen_tokens - 1 and layer in keep:
+            captured[("decode", layer)] = (q.clone(), k.clone(), v.clone(),
+                                           kv_len.clone())
+        return out
+
+    with attention_swapped(FA, fa, fd):
+        g = serve.generate(model, prompts, gen_tokens)
+    steps = g.registry.percentiles("serve.decode_step_s")
+    print(f"serve, capturing run: prefill_s {g.prefill_s}, decode step "
+          f"p50 {steps['p50'] * 1e3} ms, p99 {steps['p99'] * 1e3} ms",
+          flush=True)
+    captured_tokens = g.tokens
+    del g
+
+    measured = {}
+    for (kind, layer), args in sorted(captured.items()):
+        name = "flash_attention" if kind == "prefill" else "flash_decode"
+        label = (f"serve {kind} layer {layer}: {name} "
+                 f"{list(args[0].shape)} over {list(args[1].shape)}")
+        qkv, kv_len = args[:3], (args[3] if kind == "decode" else None)
+        r = check_attention(torch, label, *qkv, kv_len=kv_len,
+                            timed=layer == 0)
+        check_attention(torch, label + " in float32",
+                        *(t.float() for t in qkv), kv_len=kv_len,
+                        timed=False)
+        if layer == 0:
+            measured[name] = r
+        else:
+            measured[name]["max_abs_err"] = max(
+                measured[name]["max_abs_err"], r["max_abs_err"])
+    captured.clear()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    g = serve.generate(model, prompts, gen_tokens)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = g.registry.percentiles("serve.decode_step_s")
+    print(f"serve: {serve.summary(g, requests, gen_tokens)}")
+    print(f"serve (unrounded): prefill_s {g.prefill_s}, decode_s "
+          f"{g.decode_s}, decode step p50 {steps['p50'] * 1e3} ms, p99 "
+          f"{steps['p99'] * 1e3} ms, tokens/s "
+          f"{requests * gen_tokens / g.decode_s}, prefill tokens/s "
+          f"{requests * prompt_len / g.prefill_s}, peak device memory "
+          f"{peak} B, launches {counts}", flush=True)
+    want = {"flash_attention": L, "flash_decode": L * gen_tokens,
+            "flash_decode_combine": L * gen_tokens}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"serve: launches {got}, expected {want}")
+    if not bool(torch.isfinite(g.logits.float()).all()):
+        raise AssertionError("serve: non-finite logits")
+    if not (g.tokens.shape == (requests, gen_tokens)
+            and ((g.tokens >= 0) & (g.tokens < cfg.vocab)).all()):
+        raise AssertionError(f"serve: tokens out of range {g.tokens}")
+    if g.cache.length.tolist() != [cap] * requests:
+        raise AssertionError(f"serve: cache lengths {g.cache.length}")
+    if not np.array_equal(g.tokens, captured_tokens):
+        raise AssertionError("serve: the capturing run gave other tokens")
+
+    # a short run through the kernels against the same run through the
+    # plain versions: the same greedy token, logits within 2e-2 of scale
+    short = prompts[:2, :96]
+    a = serve.generate(model, short, 2)
+    with attention_swapped(FA, FA.flash_attention_plain,
+                           FA.flash_decode_plain):
+        b = serve.generate(model, short, 2)
+    diff = float((a.logits.float() - b.logits.float()).abs().max())
+    scale = float(b.logits.float().abs().max())
+    print(f"serve reference (2 x 96 tokens, 2 steps): tokens "
+          f"{a.tokens.tolist()} vs plain {b.tokens.tolist()}, logits max "
+          f"abs diff {diff} of scale {scale}", flush=True)
+    if not (np.array_equal(a.tokens, b.tokens) and diff <= 2e-2 * scale):
+        raise AssertionError("serve: kernels and plain versions disagree")
+    if profile:     # warm: the prefill, then 4 decode steps alone
+        profile_run(torch, "serve prefill", lambda: model.prefill(
+            torch.as_tensor(prompts, device=model.device), capacity=cap))
+        _, cache = model.prefill(torch.as_tensor(prompts, device=model.device),
+                                 capacity=cap)
+        tok = torch.zeros((requests, 1), dtype=torch.int32,
+                          device=model.device)
+
+        def steps():
+            c = cache
+            for _ in range(4):
+                _, c = model.decode_step(tok, c)
+                torch.cuda.synchronize()
+        profile_run(torch, "serve 4 decode steps", steps)
+    del model, g, a, b
+    torch.cuda.empty_cache()
+    return counts, measured
+
+
 KERNELS = [
     ("merge_probe", "probe", "src/repro_torch/csrc/merge_probe.cu",
      "src/repro/kernels/merge_probe.py:53", None),
@@ -474,6 +788,12 @@ KERNELS = [
      "src/repro_torch/csrc/segment_reduce.cu",
      "src/repro/kernels/segment_reduce.py:50",
      "src/repro/kernels/segment_reduce.py:79"),
+    ("flash_attention", "flash_attention",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:27", None),
+    ("flash_decode", "flash_decode",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:122", None),
 ]
 
 
@@ -483,7 +803,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=22,
                     help="Graph500 scale (2**scale vertices)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Reach, CC and SSSP on the card")
+                    help="also profile Reach, CC, SSSP and the serve "
+                         "path on the card")
     args = ap.parse_args(argv)
 
     import torch
@@ -515,7 +836,17 @@ def main(argv=None) -> int:
     with phase("kernels"):
         measured = run_kernel_checks(torch, args.seed, torch.device("cuda"))
         torch.cuda.empty_cache()
+    with phase("attention"):
+        run_attention_checks(torch, args.seed, torch.device("cuda"))
+        torch.cuda.empty_cache()
     totals = run_engine_phases(torch, args.seed, args.scale, args.profile)
+    torch.cuda.empty_cache()
+    with phase("serve"):
+        counts, serve_measured = run_serve_phase(torch, args.seed,
+                                                 profile=args.profile)
+        measured.update(serve_measured)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
     with phase("launches"):
         print("kernels " + json.dumps(totals), flush=True)
         missing = [k for k, v in totals.items() if v == 0]
@@ -529,6 +860,8 @@ def main(argv=None) -> int:
         e.update(measured[name])
         if also:
             e["also_replaces"] = also
+        if name == "flash_decode":
+            e["combine_launches"] = totals["flash_decode_combine"]
         entries.append(e)
     print(f"total {time.perf_counter() - t_all:.3f} s")
     print(nvidia_smi_line())

@@ -1,0 +1,27 @@
+"""Architecture registry, after ``repro.configs``: ``get_arch(name)``
+-> ArchSpec.
+
+Only the dense LM configs are ported; the other names of the
+reference's registry raise ``NotImplementedError``."""
+from __future__ import annotations
+
+import importlib
+
+_ARCH_MODULES = {
+    "gemma-7b": "repro_torch.configs.gemma_7b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+}
+# in the reference's registry, not ported yet (ROADMAP.md Queue 1)
+NOT_PORTED = ("granite-moe-3b-a800m", "granite-moe-1b-a400m", "gatedgcn",
+              "dimenet", "nequip", "gat-cora", "fm")
+
+def get_arch(name: str):
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet; see "
+            f"ROADMAP.md")
+    if name not in _ARCH_MODULES:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[name]).ARCH

@@ -1,17 +1,21 @@
-"""Hand-written CUDA kernels of the engine and their plain versions.
+"""Hand-written CUDA kernels of the engine and of the LM serving path,
+and their plain versions.
 
 Each wrapper runs its plain torch version on CPU tensors and launches
 its CUDA kernel on CUDA tensors, counting launches in its module's
 ``LAUNCHES``."""
-from repro_torch.kernels import merge_probe, segment_reduce
+from repro_torch.kernels import flash_attention, merge_probe, segment_reduce
+
+_COUNTS = (merge_probe.LAUNCHES, segment_reduce.LAUNCHES,
+           flash_attention.LAUNCHES)
 
 
 def launch_counts() -> dict:
     """Kernel name -> launches since the last ``reset_launch_counts``."""
-    return {**merge_probe.LAUNCHES, **segment_reduce.LAUNCHES}
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (merge_probe.LAUNCHES, segment_reduce.LAUNCHES):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

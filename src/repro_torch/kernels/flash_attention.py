@@ -1,0 +1,164 @@
+"""Attention kernels of the LM serving path.
+
+The wrappers of ``csrc/flash_attention.cu``: ``flash_attention``
+replaces ``_attn_kernel`` and ``flash_decode`` replaces
+``_decode_kernel`` of ``repro.kernels.flash_attention``. On CPU tensors
+they run the plain torch versions (``kernels/ref.py``); on CUDA tensors
+they launch the kernels or raise.
+
+Contract (the shapes of ``repro.kernels.ops.flash_attention`` and
+``flash_decode``):
+- ``flash_attention(q, k, v, causal)``: q [b, hq, sq, d], k and v
+  [b, hkv, skv, d], hq % hkv == 0, float32 or bfloat16, output in q's
+  dtype. The causal mask is aligned to the end; any sq and skv.
+- ``flash_decode(q, k, v, kv_len)``: q [b, hq, d], k and v
+  [b, hkv, S, d], kv_len an int or [b] int32; positions >= kv_len are
+  masked, and kv_len = 0 gives 0.
+The kernels take d in {64, 128, 256}.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+LAUNCHES = {"flash_attention": 0, "flash_decode": 0,
+            "flash_decode_combine": 0}
+HEAD_DIMS = (64, 128, 256)
+SMEM_LIMIT = 232448        # dynamic shared memory a block may opt into
+
+flash_attention_plain = ref.attention_ref
+flash_decode_plain = ref.decode_attention_ref
+
+
+def _check(name: str, tensors, d: int, hq: int, hkv: int) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs on "
+                         f"{[str(t.device) for t in tensors]}; the kernel "
+                         f"takes one CUDA device")
+    dtype = tensors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != dtype for t in tensors):
+        raise TypeError(f"{name}: dtypes {[t.dtype for t in tensors]}; "
+                        f"the kernel takes float32 or bfloat16, all alike")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d}; the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if hkv <= 0 or hq % hkv:
+        raise ValueError(f"{name}: {hq} query heads over {hkv} KV heads")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _scale_log2(d: int) -> float:
+    return (1.0 / math.sqrt(d)) * math.log2(math.e)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """[b, hq, sq, d] attention of q over k, v (GQA by head index)."""
+    if q.device.type == "cpu" and k.device.type == "cpu" and (
+            v.device.type == "cpu"):
+        return flash_attention_plain(q, k, v, causal=causal)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _check("flash_attention", (q, k, v), d, hq, hkv)
+    if k.shape != (b, hkv, skv, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    out = torch.empty_like(q)
+    if out.numel():
+        lib = _lib()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            rc = lib.flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, d,
+                int(causal), _scale_log2(d), stream)
+        _build.check(rc, "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_splits(batch: int, hkv: int, S: int) -> tuple[int, int]:
+    """(n_splits, split_len): cut the cache length so that the split
+    kernel has about 8 CTAs per SM of the H100's 132, with at least 256
+    positions per split; split_len is a multiple of 32 (the kernel's
+    key tile)."""
+    want = max(1, -(-8 * 132 // max(batch * hkv, 1)))
+    n = max(1, min(want, -(-S // 256)))
+    split_len = -(-S // n)
+    split_len = -(-split_len // 32) * 32
+    return -(-S // split_len) if S else 1, split_len
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len) -> torch.Tensor:
+    """[b, hq, d] attention of one query token per sequence over the
+    first kv_len positions of a [b, hkv, S, d] cache."""
+    if q.device.type == "cpu" and k.device.type == "cpu" and (
+            v.device.type == "cpu"):
+        return flash_decode_plain(q, k, v, kv_len)
+    b, hq, d = q.shape
+    hkv, S = k.shape[1], k.shape[2]
+    _check("flash_decode", (q, k, v), d, hq, hkv)
+    if k.shape != (b, hkv, S, d) or v.shape != k.shape:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if isinstance(kv_len, int):
+        kv_len = torch.full((b,), kv_len, dtype=torch.int32,
+                            device=q.device)
+    if (kv_len.dtype != torch.int32 or kv_len.shape != (b,)
+            or kv_len.device != q.device or not kv_len.is_contiguous()):
+        raise ValueError(f"flash_decode: kv_len must be [b] int32 on "
+                         f"{q.device}")
+    lib = _lib()
+    smem = lib.flash_decode_smem(d, hq // hkv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_decode: {hq // hkv} query heads per KV "
+                         f"head need {smem} B of shared memory")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    n_splits, split_len = decode_splits(b, hkv, S)
+    part_m = torch.empty((b, hq, n_splits), dtype=torch.float32,
+                         device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, hq, n_splits, d), dtype=torch.float32,
+                           device=q.device)
+    bf16 = int(q.dtype == torch.bfloat16)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_decode_split(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), bf16,
+            b, hq, hkv, S, d, n_splits, split_len, _scale_log2(d), stream)
+        _build.check(rc, "flash_decode_split")
+        LAUNCHES["flash_decode"] += 1
+        rc = lib.flash_decode_combine(
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            out.data_ptr(), bf16, b * hq, d, n_splits, stream)
+        _build.check(rc, "flash_decode_combine")
+        LAUNCHES["flash_decode_combine"] += 1
+    return out
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    if lib.flash_attention.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
+                                        F, P]
+        lib.flash_attention.restype = I
+        lib.flash_decode_smem.argtypes = [I, I]
+        lib.flash_decode_smem.restype = ctypes.c_int64
+        lib.flash_decode_split.argtypes = [P, P, P, P, P, P, P, I, I, I, I,
+                                           I, I, I, I, F, P]
+        lib.flash_decode_split.restype = I
+        lib.flash_decode_combine.argtypes = [P, P, P, P, I, I, I, I, P]
+        lib.flash_decode_combine.restype = I
+    return lib

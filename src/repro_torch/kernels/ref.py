@@ -120,3 +120,61 @@ def expand_indices_ref(offsets: torch.Tensor, out_cap: int):
     within = j - prev
     valid = j < total
     return i, within, valid, total
+
+
+# -- attention (the LM serving path) ------------------------------------------
+
+def _attn_scale(d: int) -> torch.Tensor:
+    """1 / sqrt(d) in float32, as the JAX reference computes it."""
+    return 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+
+
+def _softmax_or_zero(logits: torch.Tensor, visible: torch.Tensor):
+    """f32 softmax over the last axis; a row with no visible entry gives
+    0 (the kernels' contract; the JAX reference gives NaN there)."""
+    logits = logits.masked_fill(~visible, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.where(visible.any(dim=-1, keepdim=True), w,
+                       torch.zeros((), dtype=w.dtype, device=w.device))
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, scale=None) -> torch.Tensor:
+    """q [b, hq, sq, d]; k, v [b, hkv, skv, d]; GQA: hq % hkv == 0, by
+    repeating KV heads. f32 softmax; the causal mask is aligned to the
+    end (query row i sees keys j <= i + skv - sq). Output in q's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    scale = _attn_scale(d) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if causal:
+        visible = torch.ones((sq, skv), dtype=torch.bool,
+                             device=q.device).tril(skv - sq)
+    else:
+        visible = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    w = _softmax_or_zero(logits, visible)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len, scale=None) -> torch.Tensor:
+    """One query token per sequence: q [b, hq, d]; k, v [b, hkv, S, d];
+    positions >= kv_len (an int or [b] int32) are masked; kv_len = 0
+    gives 0. Output in q's dtype."""
+    b, hq, d = q.shape
+    hkv, S = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    scale = _attn_scale(d) if scale is None else scale
+    logits = torch.einsum("bhd,bhsd->bhs", q.float(), kk) * scale
+    pos = torch.arange(S, device=q.device)
+    if isinstance(kv_len, int):
+        visible = (pos < kv_len)[None, None, :]
+    else:
+        visible = pos[None, None, :] < kv_len.to(q.device)[:, None, None]
+    w = _softmax_or_zero(logits, visible.expand(b, hq, S))
+    return torch.einsum("bhs,bhsd->bhd", w, vv).to(q.dtype)

@@ -1,0 +1,2 @@
+"""Models of the port: the decoder-only transformer LM (``transformer``)
+and its building blocks (``common``)."""

@@ -1,0 +1,352 @@
+"""Decoder-only transformer LM, after ``repro.models.transformer``.
+
+Covers the dense LM configs: GQA KV-head count, head_dim override
+(gemma's 256), GeGLU/SwiGLU, qk-norm (qwen3), partial rotary (chatglm3's
+2d RoPE), tied or untied embeddings. A ``Transformer`` is an
+``nn.Module`` of per-layer ``Block``s with three entry points,
+``forward`` (logits for every position), ``prefill`` (last-position
+logits and the KV cache) and ``decode_step`` (one token against the
+cache).
+
+Attention runs through ``kernels.flash_attention`` (prefill) and
+``kernels.flash_decode`` (decode): the hand-written CUDA kernels on a
+CUDA device, their plain torch versions on the CPU. The projections, the
+FFN and the unembedding are plain matmuls (``x @ w`` on ``[in, out]``
+weights, the reference's layout).
+
+``TransformerConfig`` keeps the fields that define the model. The
+reference's ``attn_backend`` is gone (the device picks the kernel), and
+so are ``scan_layers``, ``remat``, ``seq_parallel``, ``batch_shard_all``
+and ``moe_groups`` (TPU compile and mesh plumbing). A config with
+``moe`` set raises ``NotImplementedError``: the MoE FFN
+(``models/moe.py``) is not ported yet (ROADMAP.md).
+
+Unlike the reference, whose functions return new arrays, ``decode_step``
+writes the new token's K and V into the cache in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.models.common import (
+    act_fn, apply_rope, normal_init, rms_norm, rope_angles,
+)
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None           # default d_model // n_heads
+    act: str = "silu"
+    glu: bool = True
+    qk_norm: bool = False
+    rope_fraction: float = 1.0               # chatglm3: 0.5 ('RoPE 2d')
+    rope_theta: float = 10000.0
+    moe: Optional[object] = None             # not ported: raises
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    logit_softcap: float = 0.0               # gemma-style soft capping
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding rows padded to a 128 multiple; logits beyond
+        ``vocab`` are masked."""
+        return ((self.vocab + 127) // 128) * 128
+
+    @property
+    def rot_dim(self) -> int:
+        r = int(self.hd * self.rope_fraction)
+        return r - (r % 2)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    def param_count(self) -> int:
+        d, hd = self.d_model, self.hd
+        attn = d * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ff = d * self.d_ff * (3 if self.glu else 2)
+        per_layer = attn + ff + 2 * d
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed + d
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # [L, B, hkv, S, hd]
+    v: torch.Tensor
+    length: torch.Tensor  # [B] int32
+
+
+def _no_moe(cfg: TransformerConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN (models/moe.py) is not ported to "
+            f"repro_torch yet; see ROADMAP.md")
+
+
+def _layer_shapes(cfg: TransformerConfig) -> dict:
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    shapes = {
+        "wq": ((d, cfg.n_heads * hd), d ** -0.5),
+        "wk": ((d, cfg.n_kv_heads * hd), d ** -0.5),
+        "wv": ((d, cfg.n_kv_heads * hd), d ** -0.5),
+        "wo": ((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
+        "ln1": ((d,), None),
+        "ln2": ((d,), None),
+    }
+    if cfg.qk_norm:
+        shapes["qnorm"] = ((hd,), None)
+        shapes["knorm"] = ((hd,), None)
+    shapes["w_in"] = ((d, f), d ** -0.5)
+    shapes["w_out"] = ((f, d), f ** -0.5)
+    if cfg.glu:
+        shapes["w_gate"] = ((d, f), d ** -0.5)
+    return shapes
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """The reference's parameter tree with its distributions and scales:
+    every per-layer leaf stacked [L, ...]; norms zero (they scale by
+    1 + gamma); the embedding N(0, 1), [vocab_padded, d]."""
+    _no_moe(cfg)
+    device = generator.device if device is None else torch.device(device)
+    dt, L, d = cfg.compute_dtype, cfg.n_layers, cfg.d_model
+
+    def draw(shape, std):
+        if std is None:
+            return torch.zeros(shape, dtype=dt, device=device)
+        return normal_init(shape, std, dt, generator, device)
+
+    layers = {name: draw((L,) + shape, std)
+              for name, (shape, std) in _layer_shapes(cfg).items()}
+    params = {"embed": draw((cfg.vocab_padded, d), 1.0),
+              "ln_f": draw((d,), None), "layers": layers}
+    if not cfg.tie_embeddings:
+        params["unembed"] = draw((d, cfg.vocab_padded), d ** -0.5)
+    return params
+
+
+def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """numpy array (bfloat16 from ml_dtypes included, which is read as
+    its 2-byte payload, so ml_dtypes need not be installed) -> tensor."""
+    a = np.array(a)         # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(tree: dict, cfg: TransformerConfig,
+                      device="cuda") -> dict:
+    """The reference's parameter tree as numpy arrays (stacked [L, ...]
+    layer leaves) -> the tree of tensors a ``Transformer`` takes, in the
+    config's dtype on ``device``."""
+    _no_moe(cfg)
+    if "moe" in tree.get("layers", {}):
+        raise NotImplementedError("MoE parameters: not ported (ROADMAP.md)")
+    dt = cfg.compute_dtype
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor_from_numpy(x, dt, device)
+
+    return conv(tree)
+
+
+def _resolve_device(spec) -> torch.device:
+    device = torch.device(spec)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"Transformer(device={str(spec)!r}) but no CUDA device is "
+            f"available; pass device='cpu' to run the plain torch path")
+    return device
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Block(nn.Module):
+    """One pre-norm decoder layer: attention, then the (gated) FFN."""
+
+    def __init__(self, cfg: TransformerConfig, weights: dict):
+        super().__init__()
+        self.cfg = cfg
+        for name in _layer_shapes(cfg):
+            setattr(self, name, _frozen(weights[name]))
+
+    def forward(self, x, sin, cos, cache_kv=None, pos=None):
+        """x [B, S, d]. Prefill (no cache): returns (y, (k, v)) with k, v
+        [B, hkv, S, hd]. Decode (S = 1): writes k, v at ``pos`` [B] of the
+        cache (k, v) [B, hkv, Scap, hd] and attends over pos + 1
+        positions; returns (y, cache_kv)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        h = rms_norm(x, self.ln1)
+        q = (h @ self.wq).reshape(B, S, hq, hd)
+        k = (h @ self.wk).reshape(B, S, hkv, hd)
+        v = (h @ self.wv).reshape(B, S, hkv, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.qnorm)
+            k = rms_norm(k, self.knorm)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+        if cache_kv is not None:
+            ck, cv = cache_kv
+            _scatter_kv(ck, k[:, 0], pos)
+            _scatter_kv(cv, v[:, 0], pos)
+            attn = FA.flash_decode(q[:, 0].contiguous(), ck, cv, pos + 1)
+            new_kv = cache_kv
+        else:
+            kt = k.transpose(1, 2).contiguous()
+            vt = v.transpose(1, 2).contiguous()
+            attn = FA.flash_attention(q.transpose(1, 2).contiguous(), kt, vt,
+                                      causal=True).transpose(1, 2)
+            new_kv = (kt, vt)
+        x = x + attn.reshape(B, S, hq * hd) @ self.wo
+        h2 = rms_norm(x, self.ln2)
+        up = h2 @ self.w_in
+        if cfg.glu:
+            up = act_fn(cfg.act)(h2 @ self.w_gate) * up
+        else:
+            up = act_fn(cfg.act)(up)
+        return x + up @ self.w_out, new_kv
+
+
+def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
+                pos: torch.Tensor) -> None:
+    """cache [B, h, S, hd] += new [B, h, hd] at position pos[b] of each
+    row, in place. As the reference's one-hot add, a position >= S is
+    dropped, without a host read."""
+    B, _, S, _ = cache.shape
+    rows = torch.arange(B, device=cache.device)
+    keep = (pos < S).to(new.dtype)[:, None, None]
+    idx = pos.clamp(max=S - 1).long()
+    cache[rows, :, idx, :] += new * keep
+
+
+class Transformer(nn.Module):
+    """The LM. ``params`` is a tree from ``init_params`` or
+    ``params_from_numpy``; without one, weights are drawn by
+    ``init_params`` from ``generator`` (seed 0 when None). Runs on
+    ``device`` (default the card; raises when there is none)."""
+
+    def __init__(self, cfg: TransformerConfig, params: Optional[dict] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _no_moe(cfg)
+        self.cfg = cfg
+        self.device = _resolve_device(device)
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            params = init_params(cfg, generator, self.device)
+        params = {k: (v if isinstance(v, dict) else v.to(self.device))
+                  for k, v in params.items()}
+        layers = {k: v.to(self.device) for k, v in params["layers"].items()}
+        self.embed = _frozen(params["embed"])
+        self.ln_f = _frozen(params["ln_f"])
+        self.unembed = (None if cfg.tie_embeddings
+                        else _frozen(params["unembed"]))
+        self.layers = nn.ModuleList(
+            Block(cfg, {k: v[i] for k, v in layers.items()})
+            for i in range(cfg.n_layers))
+
+    # -- pieces shared by the entry points ----------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens.to(self.device).long()]
+        if self.cfg.name.startswith("gemma"):
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def _angles(self, positions: torch.Tensor):
+        cfg = self.cfg
+        return rope_angles(positions, cfg.hd, cfg.rope_theta, cfg.rot_dim)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        unembed = self.embed.T if self.unembed is None else self.unembed
+        logits = x @ unembed.to(x.dtype)
+        if cfg.vocab_padded != cfg.vocab:
+            ids = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(
+                ids < cfg.vocab, logits,
+                torch.tensor(-1e30, dtype=logits.dtype,
+                             device=logits.device))
+        return logits
+
+    # -- entry points ---------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> logits [B, S, V] (soft-capped when the config
+        says so)."""
+        S = tokens.shape[1]
+        x = self._embed(tokens)
+        sin, cos = self._angles(
+            torch.arange(S, dtype=torch.int32, device=self.device)[None, :])
+        for block in self.layers:
+            x, _ = block(x, sin, cos)
+        logits = self._logits(rms_norm(x, self.ln_f))
+        if self.cfg.logit_softcap > 0:
+            c = self.cfg.logit_softcap
+            logits = torch.tanh(logits / c) * c
+        return logits
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, capacity: Optional[int] = None):
+        """tokens [B, S] -> (last-position logits [B, V], KVCache). The
+        cache holds ``capacity`` >= S positions (default S); those past S
+        are zero, as the reference's padded cache is."""
+        B, S = tokens.shape
+        cfg = self.cfg
+        cap = S if capacity is None else capacity
+        if cap < S:
+            raise ValueError(f"prefill: capacity {cap} < prompt length {S}")
+        shape = (cfg.n_layers, B, cfg.n_kv_heads, cap, cfg.hd)
+        ks = torch.zeros(shape, dtype=cfg.compute_dtype, device=self.device)
+        vs = torch.zeros_like(ks)
+        x = self._embed(tokens)
+        sin, cos = self._angles(
+            torch.arange(S, dtype=torch.int32, device=self.device)[None, :])
+        for i, block in enumerate(self.layers):
+            x, (k, v) = block(x, sin, cos)
+            ks[i, :, :, :S] = k
+            vs[i, :, :, :S] = v
+        logits = self._logits(rms_norm(x, self.ln_f)[:, -1])
+        length = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        return logits, KVCache(ks, vs, length)
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: KVCache):
+        """token [B, 1] + cache -> (logits [B, V], cache with the token's
+        K, V written at ``cache.length`` and the length one longer)."""
+        x = self._embed(token)
+        sin, cos = self._angles(cache.length[:, None])
+        for i, block in enumerate(self.layers):
+            x, _ = block(x, sin, cos, cache_kv=(cache.k[i], cache.v[i]),
+                         pos=cache.length)
+        logits = self._logits(rms_norm(x, self.ln_f)[:, -1])
+        return logits, KVCache(cache.k, cache.v, cache.length + 1)

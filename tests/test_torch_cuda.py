@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels against their plain torch versions, and
-the port's engine on the card against the same engine on the CPU. Needs
-an NVIDIA GPU and nvcc; run there with
+"""The hand-written CUDA kernels against their plain torch versions, the
+port's engine on the card against the same engine on the CPU, and the
+port's transformer on the card against itself on the CPU. Needs an
+NVIDIA GPU and nvcc; run there with
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
@@ -132,3 +133,130 @@ def test_engine_on_card_matches_cpu(cuda, program):
     assert counts["probe_multi" if program == "WideReach2" else "probe"] > 0
     if program == "Sum":
         assert counts["segment_reduce"] > 0
+
+
+# -- attention kernels --------------------------------------------------------
+
+# (rtol, atol). The kernels and the plain versions both compute in float32
+# and round once to the output's dtype, so bfloat16 outputs differ by at
+# most one unit in the last place: 2**-7 of the value at worst.
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-4)}
+
+
+def _normal(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (16, 1)])
+@pytest.mark.parametrize("sq,skv", [(128, 128), (77, 77), (33, 200),
+                                    (130, 61)])
+def test_flash_attention_kernel_matches_plain(cuda, d, dtype, hq, hkv, sq,
+                                              skv):
+    """GQA groups 1, 2 and 16; tails that are no tile multiple; a chunk
+    of queries at the end of a longer cache; more queries than keys."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + sq)
+    q = _normal(gen, (2, hq, sq, d), dtype, cuda)
+    k = _normal(gen, (2, hkv, skv, d), dtype, cuda)
+    v = _normal(gen, (2, hkv, skv, d), dtype, cuda)
+    for causal in (True, False):
+        before = FA.LAUNCHES["flash_attention"]
+        out = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES["flash_attention"] == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        rtol, atol = ATTN_TOL[dtype]
+        torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 4), (16, 1)])
+@pytest.mark.parametrize("S", [1, 100, 2112, 5000])
+def test_flash_decode_kernel_matches_plain(cuda, d, dtype, hq, hkv, S):
+    """kv_len in {0, 1, S} and a random length, per row; any S."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + S)
+    b = 4
+    q = _normal(gen, (b, hq, d), dtype, cuda)
+    k = _normal(gen, (b, hkv, S, d), dtype, cuda)
+    v = _normal(gen, (b, hkv, S, d), dtype, cuda)
+    lens = torch.tensor([0, 1, S, (S * 2) // 3], dtype=torch.int32,
+                        device=cuda)
+    before = (FA.LAUNCHES["flash_decode"],
+              FA.LAUNCHES["flash_decode_combine"])
+    out = FA.flash_decode(q, k, v, lens)
+    want = FA.flash_decode_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (FA.LAUNCHES["flash_decode"],
+            FA.LAUNCHES["flash_decode_combine"]) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    # the int form of kv_len
+    torch.testing.assert_close(
+        FA.flash_decode(q, k, v, S).float(),
+        FA.flash_decode_plain(q, k, v, S).float(), rtol=rtol, atol=atol)
+
+
+def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
+    from repro_torch.kernels import flash_attention as FA
+    q = torch.zeros((1, 4, 8, 32), device=cuda)       # head dim 32
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_decode(q[:, :, 0], q, q, 8)
+    q = torch.zeros((1, 4, 8, 64), device=cuda)
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="heads"):
+        FA.flash_attention(q, q[:, :3], q[:, :3])
+    strided = torch.zeros((1, 4, 64, 8), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(strided, q, q)
+    with pytest.raises(ValueError, match="kv_len"):
+        FA.flash_decode(q[:, :, 0].contiguous(), q, q,
+                        torch.tensor([8], device=cuda))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transformer_on_card_matches_cpu(cuda, dtype):
+    """A qwen3-shaped model with head dim 64 (the smoke config's 16 is
+    not a kernel width): prefill + 3 greedy steps on the card against
+    the same weights on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").smoke_cfg,
+                              d_model=128, head_dim=64, dtype=dtype)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(3, 37))
+    steps = 3 if dtype == "float32" else 1
+    cpu = serve.generate(T.Transformer(cfg, params, device="cpu"),
+                         prompts, steps)
+    reset_launch_counts()
+    gpu = serve.generate(T.Transformer(cfg, params, device=cuda), prompts,
+                         steps)
+    counts = launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["flash_decode"] == counts["flash_decode_combine"] == (
+        steps * cfg.n_layers)
+    np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
+    got, want = gpu.logits.float().cpu(), cpu.logits.float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    else:   # cuBLAS and the CPU round bf16 products at other places
+        assert float((got - want).abs().max()) <= 2e-2 * float(
+            want.abs().max())

@@ -85,3 +85,18 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_lm_entry_points_refuse_cpu_fallback(monkeypatch):
+    """Transformer and the serving entry point default to the card and raise
+    without one; they run on the CPU only when asked."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("qwen3-1.7b").smoke_cfg
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Transformer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen3-1.7b", "--smoke", "--gen-tokens", "1"])
+    assert Transformer(cfg, device="cpu").device.type == "cpu"
