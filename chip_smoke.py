@@ -31,12 +31,25 @@ Phases, each printing its wall time:
              versions on the captured inputs in bf16 and f32 (these give
              the kernel line's times), and a short run against the same
              run through the plain versions;
-8. launches  each kernel's launch count over phases 5-7; a zero fails.
+8. recsys    the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
+             row table, random weights from --seed): the interaction kernel
+             against its plain version at the reference's kernel-test
+             shapes and at the serve_bulk shape, in float32 and bfloat16,
+             timed beside its byte bound; then, counted, serve_p99 (200
+             batches of 512 after 10 warm-up batches, one latency sample
+             each), serve_bulk (20 batches of 262,144), retrieval_cand (20
+             calls of one context against 1,000,000 candidates) with ids
+             from the port's recsys_stream, a batch of out-of-range and
+             negative ids, and embedding_bag over 262,144 bags of 0 to 8
+             ids; logits and scores held against a float64 numpy forward
+             on the host, the bags against the plain version;
+9. launches  each kernel's launch count over phases 5-8; a zero fails.
 
-With ``--profile``, each of Reach, CC and SSSP, the serve prefill and
-four decode steps then run once more under torch.profiler, which prints
-device time by kernel family, the device's busy share of the run's wall
-time and the busiest host ops (not part of the checks).
+With ``--profile``, each of Reach, CC and SSSP, the serve prefill, four
+decode steps and one serve_bulk batch then run once more under
+torch.profiler, which prints device time by kernel family, the device's
+busy share of the run's wall time and the busiest host ops (not part of
+the checks).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}, printed only if every phase
@@ -49,6 +62,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -378,7 +392,8 @@ def run_engine(torch, name, src_text, edbs, n, edge_cap, want,
 
 def kernel_family(name: str) -> str:
     low = name.lower()
-    for family, marks in (("probe (ours)", ("probe_kernel",)),
+    for family, marks in (("fm_interaction (ours)", ("fm_kernel",)),
+                          ("probe (ours)", ("probe_kernel",)),
                           ("segment_reduce (ours)", ("segment_reduce",)),
                           ("attention (ours)", ("attn_kernel",
                                                 "decode_split",
@@ -394,21 +409,30 @@ def kernel_family(name: str) -> str:
 
 
 def profile_run(torch, name, fn):
-    """``fn()`` once under torch.profiler: device time per kernel family,
-    the device's busy share (kernel time over the run's wall time), and
-    the host ops with the most self CPU time."""
+    """``fn()`` under torch.profiler, once as a warm-up step and once
+    recorded (a profile that is not the process's first drops the first
+    kernels it sees): device time per kernel family, the device's
+    busy share (kernel time over the recorded run's wall time), and the
+    host ops with the most self CPU time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     families: dict = {}
     top, host = [], []
     for e in prof.key_averages():
+        if e.key.startswith("ProfilerStep"):    # the step's own range
+            continue
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             host.append((e.self_cpu_time_total / 1e3, e.count, e.key[:60]))
             continue
@@ -423,16 +447,16 @@ def profile_run(torch, name, fn):
         print(f"profile {name}: the profiler saw no device time "
               f"(not measured)", flush=True)
         return
-    print(f"profile {name}: wall {wall_ms:.1f} ms under the profiler, "
-          f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)")
+    print(f"profile {name}: wall {wall_ms:.3f} ms under the profiler, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
     for fam, (ms, count) in sorted(families.items(), key=lambda x: -x[1][0]):
-        print(f"  {fam}: {ms:.1f} ms in {count} kernels "
+        print(f"  {fam}: {ms:.3f} ms in {count} kernels "
               f"({100 * ms / wall_ms:.1f}% of wall)")
     for ms, count, key in sorted(top, reverse=True)[:8]:
-        print(f"    {ms:9.1f} ms  x{count:<5d} {key}")
+        print(f"    {ms:9.3f} ms  x{count:<5d} {key}")
     print("  host, most self CPU time:")
     for ms, count, key in sorted(host, reverse=True)[:6]:
-        print(f"    {ms:9.1f} ms  x{count:<5d} {key}")
+        print(f"    {ms:9.3f} ms  x{count:<5d} {key}")
     sys.stdout.flush()
 
 
@@ -778,6 +802,279 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
     return counts, measured
 
 
+# -- the FM recsys path -------------------------------------------------------
+
+# the reference's kernel tests (tests/test_kernels.py): (b, f, k), one v
+FM_KERNEL_SHAPES = [(32, 39, 10), (1000, 39, 10), (4096, 26, 16), (7, 13, 4)]
+
+
+def fm_bound(x, v):
+    """(bound ms, 'bytes'): the bytes of x and v actually read (an axis of
+    stride 0 is read once) and of the output written, at 3.35 TB/s. The
+    4 flops per (row, field, column) take about a twentieth of that time
+    at the float32 peak, so the bytes decide."""
+    def stored(t):
+        return math.prod(n for n, st in zip(t.shape, t.stride()) if st)
+    nbytes = (stored(x) + stored(v) + x.shape[0]) * x.element_size()
+    return bound_ms(nbytes), "bytes"
+
+
+def check_fm(torch, label, x, v, timed=False):
+    """The kernel against its plain version on the same inputs, row by
+    row within ``ref.fm_allowed_error`` (1e-5 of the cancelled terms plus
+    1e-7; bfloat16 also one unit of the output); with ``timed``,
+    CUDA-event times of both beside the bound (no single PyTorch call
+    computes this function)."""
+    from repro_torch.kernels import fm_interaction as FI, ref
+    out = FI.fm_interaction(x, v)
+    want = FI.fm_interaction_plain(x, v)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs()
+    allowed = ref.fm_allowed_error(x, v, want)
+    max_err = float(err.max())
+    worst = float((err / allowed).max())
+    bad = int((err > allowed).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} of {err.numel()} rows outside "
+                             f"the tolerance (max abs err {max_err}, worst "
+                             f"err / allowed {worst})")
+    if not timed:
+        print(f"{label}: max abs err {max_err}, worst err / allowed "
+              f"{worst:.3g}", flush=True)
+        return dict(max_abs_err=max_err)
+    ms = cuda_ms(torch, lambda: FI.fm_interaction(x, v), reps=20, warmup=3)
+    plain_ms = cuda_ms(torch, lambda: FI.fm_interaction_plain(x, v), reps=5,
+                       warmup=1)
+    b_ms, bound_by = fm_bound(x, v)
+    print(f"{label}: max abs err {max_err}, worst err / allowed {worst:.3g}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"by {bound_by} ({100 * b_ms / ms:.1f}% of it)", flush=True)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def run_fm_kernel_checks(torch, seed, dev, v_rows):
+    """The interaction kernel at the reference's kernel-test shapes
+    (N(0, 1) x and one v) and in the model's per-row form on ``v_rows``
+    (a served batch's gathered factor rows, x all ones by stride 0), in
+    float32 and bfloat16; the per-row float32 case is timed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for b, f, k in FM_KERNEL_SHAPES:
+        x = torch.randn((b, f), generator=gen, device=dev)
+        v = torch.randn((f, k), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_fm(torch, f"fm_interaction {str(dtype)[6:]} shared v "
+                     f"b={b} f={f} k={k}", x.to(dtype), v.to(dtype))
+    b, f, k = v_rows.shape
+    ones = torch.ones((1, 1), device=dev).expand(b, f)
+    measured = check_fm(torch, f"fm_interaction float32 per-row v "
+                        f"[{b}, {f}, {k}] (served rows)", ones, v_rows,
+                        timed=True)
+    check_fm(torch, "fm_interaction bfloat16 per-row v (served rows)",
+             ones.bfloat16(), v_rows.bfloat16())
+    return measured
+
+
+def fm_reference(np, v64, w64, b64, ids):
+    """float64 numpy forward with np.take(mode="clip") on host copies of
+    the weights: (logits [B], scale [B] = |b| + sum_f |w_f| + the
+    interaction's cancelled terms)."""
+    V = np.take(v64, ids, axis=0, mode="clip")
+    W = np.take(w64, ids, axis=0, mode="clip")
+    S, Q = V.sum(1), (V * V).sum(1)
+    logits = b64 + W.sum(-1) + 0.5 * (S * S - Q).sum(-1)
+    scale = abs(b64) + np.abs(W).sum(-1) + 0.5 * (S * S + Q).sum(-1)
+    return logits, scale
+
+
+def retrieval_reference(np, v64, w64, b64, ctx, cand):
+    """float64 numpy retrieval scores and each score's scale."""
+    vc = np.take(v64, ctx, axis=0, mode="clip")
+    wc = np.take(w64, ctx, axis=0, mode="clip")
+    sv, s2 = vc.sum(0), (vc * vc).sum(0)
+    vC = np.take(v64, cand, axis=0, mode="clip")
+    wC = np.take(w64, cand, axis=0, mode="clip")
+    scores = b64 + wc.sum() + 0.5 * (sv * sv - s2).sum() + wC + vC @ sv
+    scale = (abs(b64) + np.abs(wc).sum() + 0.5 * (sv * sv + s2).sum()
+             + np.abs(wC) + np.abs(vC * sv).sum(-1))
+    return scores, scale
+
+
+def hold(np, label, got, want, scale, rel=1e-5):
+    """|got - want| <= rel * scale, row by row."""
+    err = np.abs(np.asarray(got, np.float64) - want)
+    worst = float((err / scale).max())
+    print(f"{label}: max abs err {float(err.max())}, worst err / scale "
+          f"{worst:.3g} (limit {rel})", flush=True)
+    if not (np.isfinite(got).all() and worst <= rel):
+        raise AssertionError(f"{label}: outside {rel} of the row's scale")
+
+
+# the recsys phase's traffic: timed serve_p99 batches after warm-up ones,
+# serve_bulk batches, retrieval_cand calls
+P99_BATCHES, P99_WARMUP, BULK_BATCHES, RETRIEVAL_CALLS = 200, 10, 20, 20
+
+
+def run_recsys_phase(torch, seed, profile=False):
+    """The fm config on the card with weights from ``seed``: the kernel
+    checks; then the counted run of serve_p99, serve_bulk and
+    retrieval_cand (each timed after warm-up calls), a batch of
+    out-of-range ids and embedding_bag (sum and mean), all with ids placed
+    on the device beforehand; then its checks. Returns (launch counts of
+    the counted run, the kernel's measured numbers)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data import recsys_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.recsys import fm as TFM
+
+    arch = get_arch("fm")
+    cfg = arch.cfg
+    F, V = cfg.n_fields, cfg.vocab
+    p99_b = arch.input_sizes("serve_p99")["ids"][0]
+    bulk_b = arch.input_sizes("serve_bulk")["ids"][0]
+    n_cand = arch.input_sizes("retrieval_cand")["candidate_ids"][0]
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = TFM.FM(cfg, device=dev,
+                   generator=torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    print(f"fm: {F} fields, k {cfg.embed_dim}, vocab {V}; "
+          f"{sum(p.numel() for p in model.parameters())} float32 parameters "
+          f"from seed {seed} in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    t0 = time.perf_counter()
+
+    def batches(batch, n, start):
+        stream = recsys_stream(batch, F, V, start_step=start, seed=seed)
+        return [torch.from_numpy(next(stream)["ids"]).to(dev)
+                for _ in range(n)]
+
+    p99 = batches(p99_b, P99_WARMUP + P99_BATCHES, 0)
+    bulk = batches(bulk_b, BULK_BATCHES, 1 << 20)
+    rng = np.random.default_rng(seed)
+    # ids that clip: negative, the int32 extremes, vocab and beyond
+    edge = np.array([-1, -(1 << 31), V, (1 << 31) - 1, 0, V - 1], np.int64)
+    ctx = rng.integers(0, V, F)
+    ctx[:2] = edge[:2]
+    cand = rng.integers(0, V, n_cand)
+    cand[:len(edge)] = edge
+    clip = rng.integers(-V, 2 * V, (p99_b, F))
+    clip[:, :len(edge)] = edge
+    ctx, cand, clip = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                       for a in (ctx, cand, clip))
+    sizes = rng.integers(1, 9, bulk_b)
+    sizes[rng.random(bulk_b) < 0.05] = 0
+    bag_ids = torch.from_numpy(np.repeat(np.arange(bulk_b), sizes).astype(
+        np.int32)).to(dev)
+    bag_tok = torch.from_numpy(rng.integers(0, V, bag_ids.shape[0]).astype(
+        np.int32)).to(dev)
+    torch.cuda.synchronize()
+    print(f"traffic: {P99_WARMUP} + {P99_BATCHES} batches of {p99_b}, "
+          f"{BULK_BATCHES} of {bulk_b}, {n_cand} candidates, "
+          f"{bag_ids.shape[0]} ids in {bulk_b} bags ({int((sizes == 0).sum())}"
+          f" empty), made in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    measured = run_fm_kernel_checks(torch, seed, dev,
+                                    TFM.take_clip(model.v, bulk[0]))
+    torch.cuda.empty_cache()
+
+    serve = arch.step_fn("serve_p99")
+    retrieve = arch.step_fn("retrieval_cand")
+    rbatch = {"context_ids": ctx, "candidate_ids": cand}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+
+    def samples(fn, inputs, skip):
+        """Host seconds of fn(x) for each x, each ending in a synchronize;
+        the first ``skip`` are warm-up and not kept."""
+        out = []
+        for i, x in enumerate(inputs):
+            t = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            if i >= skip:
+                out.append(time.perf_counter() - t)
+        return np.array(out) * 1e3
+
+    p99_ms = samples(lambda ids: serve(model, {"ids": ids}), p99, P99_WARMUP)
+    # one warm-up batch first (the allocator grows to the bulk size)
+    bulk_ms = samples(lambda ids: serve(model, {"ids": ids}),
+                      bulk[:1] + bulk, 1)
+    # warm-up calls first (cuBLAS initializes on the first matvec)
+    retrieval_ms = samples(lambda _: retrieve(model, rbatch),
+                           range(3 + RETRIEVAL_CALLS), 3)
+    bulk_out = serve(model, {"ids": bulk[0]})
+    scores = retrieve(model, rbatch)
+    clip_out = serve(model, {"ids": clip})
+    bags = {mode: TFM.embedding_bag(model.v, bag_tok, bag_ids, bulk_b, mode)
+            for mode in ("sum", "mean")}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    def pct(a, q):
+        return float(np.percentile(a, q, method="nearest"))
+
+    print(f"recsys: serve_p99 latency p50 {pct(p99_ms, 50)} ms, p99 "
+          f"{pct(p99_ms, 99)} ms over {len(p99_ms)} batches of {p99_b}; "
+          f"serve_bulk {float(bulk_ms.mean())} ms per batch of {bulk_b} "
+          f"({bulk_b / float(bulk_ms.mean()) * 1e3} examples/s; p50 "
+          f"{pct(bulk_ms, 50)}, min {float(bulk_ms.min())}, max "
+          f"{float(bulk_ms.max())} ms over {len(bulk_ms)} batches); "
+          f"retrieval_cand {float(retrieval_ms.mean())} ms per call (p50 "
+          f"{pct(retrieval_ms, 50)}, max {float(retrieval_ms.max())} ms over "
+          f"{len(retrieval_ms)} calls) over {n_cand} candidates; peak device "
+          f"memory {peak} B; launches {counts}", flush=True)
+    want = {"fm_interaction": P99_WARMUP + P99_BATCHES + BULK_BATCHES + 3,
+            "segment_reduce": 3}
+    if counts != {**dict.fromkeys(counts, 0), **want}:
+        raise AssertionError(f"recsys: launches {counts}, expected {want}")
+
+    v64 = model.v.double().cpu().numpy()
+    w64 = model.w.double().cpu().numpy()[:, 0]
+    b64 = float(model.b)
+    for label, ids, got in (("serve_p99 last batch", p99[-1], None),
+                            ("serve_bulk first batch", bulk[0], bulk_out),
+                            ("clipping batch", clip, clip_out)):
+        if got is None:
+            got = serve(model, {"ids": ids})
+        want_l, scale = fm_reference(np, v64, w64, b64, ids.cpu().numpy())
+        hold(np, f"recsys {label} vs float64 numpy", got.cpu().numpy(),
+             want_l, scale)
+    want_s, scale = retrieval_reference(np, v64, w64, b64, ctx.cpu().numpy(),
+                                        cand.cpu().numpy())
+    hold(np, "recsys retrieval_cand vs float64 numpy", scores.cpu().numpy(),
+         want_s, scale)
+    del v64, w64
+
+    # the bags against the plain version (the same function on the CPU):
+    # at most 8 float32 additions in another order, so 1e-6 of the bag's
+    # sum (or mean) of |rows|; empty bags exactly 0
+    table, tok, ids_b = model.v.cpu(), bag_tok.cpu(), bag_ids.cpu()
+    empty = torch.from_numpy(sizes == 0)
+    for mode, got in bags.items():
+        got = got.cpu()
+        want_b = TFM.embedding_bag(table, tok, ids_b, bulk_b, mode)
+        mag = TFM.embedding_bag(table.abs(), tok, ids_b, bulk_b, mode)
+        err = (got - want_b).abs()
+        print(f"recsys embedding_bag {mode} [{bulk_b}, {cfg.embed_dim}]: max "
+              f"abs err {float(err.max())}", flush=True)
+        if not (bool((err <= 1e-6 * mag + 1e-12).all())
+                and not bool(got[empty].any())):
+            raise AssertionError(f"recsys embedding_bag {mode}: differs from "
+                                 f"the plain version")
+    if profile:
+        profile_run(torch, "recsys serve_bulk", lambda: serve(
+            model, {"ids": bulk[0]}))
+        profile_run(torch, "recsys retrieval_cand", lambda: retrieve(
+            model, rbatch))
+    del model, p99, bulk, bags
+    torch.cuda.empty_cache()
+    return counts, measured
+
+
 KERNELS = [
     ("merge_probe", "probe", "src/repro_torch/csrc/merge_probe.cu",
      "src/repro/kernels/merge_probe.py:53", None),
@@ -794,6 +1091,9 @@ KERNELS = [
     ("flash_decode", "flash_decode",
      "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:122", None),
+    ("fm_interaction", "fm_interaction",
+     "src/repro_torch/csrc/fm_interaction.cu",
+     "src/repro/kernels/fm_interaction.py:20", None),
 ]
 
 
@@ -803,14 +1103,17 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=22,
                     help="Graph500 scale (2**scale vertices)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Reach, CC, SSSP and the serve "
-                         "path on the card")
+                    help="also profile Reach, CC, SSSP, the serve path "
+                         "and a serve_bulk batch on the card")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
+    # float32 matmuls at full precision (PyTorch's default; the FM
+    # retrieval matvec refuses TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.kernels import _build, launch_counts
@@ -845,6 +1148,11 @@ def main(argv=None) -> int:
         counts, serve_measured = run_serve_phase(torch, args.seed,
                                                  profile=args.profile)
         measured.update(serve_measured)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    with phase("recsys"):
+        counts, measured["fm_interaction"] = run_recsys_phase(
+            torch, args.seed, profile=args.profile)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
     with phase("launches"):

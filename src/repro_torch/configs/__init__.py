@@ -1,8 +1,8 @@
 """Architecture registry, after ``repro.configs``: ``get_arch(name)``
 -> ArchSpec.
 
-Only the dense LM configs are ported; the other names of the
-reference's registry raise ``NotImplementedError``."""
+The dense LM configs and the FM recommender are ported; the other
+names of the reference's registry raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
@@ -11,10 +11,11 @@ _ARCH_MODULES = {
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "fm": "repro_torch.configs.fm",
 }
 # in the reference's registry, not ported yet (ROADMAP.md Queue 1)
 NOT_PORTED = ("granite-moe-3b-a800m", "granite-moe-1b-a400m", "gatedgcn",
-              "dimenet", "nequip", "gat-cora", "fm")
+              "dimenet", "nequip", "gat-cora")
 
 def get_arch(name: str):
     if name in NOT_PORTED:

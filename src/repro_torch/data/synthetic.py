@@ -1,0 +1,28 @@
+"""Synthetic data, after ``repro.data.synthetic`` (``recsys_stream``
+only, copied: the reference's module cannot be imported without JAX).
+
+Deterministic, step-seeded generators: a restarted job regenerates the
+exact batch for any step index.
+"""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+
+def recsys_stream(batch: int, n_fields: int, vocab: int,
+                  start_step: int = 0, seed: int = 23) -> Iterator[dict]:
+    """Uniform hashed ids [batch, n_fields] int32 in [0, vocab) and 0/1
+    labels [batch] int32, one batch per step."""
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        ids = rng.integers(0, vocab, size=(batch, n_fields),
+                           dtype=np.int64).astype(np.int32)
+        # labels correlated with a fixed random hyperplane for learnability
+        h = np.random.default_rng(seed).normal(size=n_fields)
+        score = (ids % 97 / 97.0) @ h
+        labels = (score > np.median(score)).astype(np.int32)
+        yield {"ids": ids, "labels": labels, "step": step}
+        step += 1

@@ -1,13 +1,15 @@
-"""Hand-written CUDA kernels of the engine and of the LM serving path,
-and their plain versions.
+"""Hand-written CUDA kernels of the engine, of the LM serving path and of
+the FM recsys path, and their plain versions.
 
 Each wrapper runs its plain torch version on CPU tensors and launches
 its CUDA kernel on CUDA tensors, counting launches in its module's
 ``LAUNCHES``."""
-from repro_torch.kernels import flash_attention, merge_probe, segment_reduce
+from repro_torch.kernels import (
+    flash_attention, fm_interaction, merge_probe, segment_reduce,
+)
 
 _COUNTS = (merge_probe.LAUNCHES, segment_reduce.LAUNCHES,
-           flash_attention.LAUNCHES)
+           flash_attention.LAUNCHES, fm_interaction.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -1,4 +1,4 @@
-"""Plain torch versions of the engine's kernels — the semantics the
+"""Plain torch versions of the port's kernels — the semantics the
 hand-written CUDA kernels must match. ``TorchDispatch`` runs these on
 CPU tensors; the tests and ``chip_smoke.py`` hold the kernels against
 them."""
@@ -178,3 +178,39 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         visible = pos[None, None, :] < kv_len.to(q.device)[:, None, None]
     w = _softmax_or_zero(logits, visible.expand(b, hq, S))
     return torch.einsum("bhs,bhsd->bhd", w, vv).to(q.dtype)
+
+
+# -- FM interaction (the recsys serve path) -----------------------------------
+
+def _fm_sums(x: torch.Tensor, v: torch.Tensor):
+    """Per row and factor column, in float32: (sum_f p, sum_f p^2) with
+    p = x_f v_fk; v [f, k] or [b, f, k]."""
+    p = x.float()[:, :, None] * v.float()
+    return p.sum(dim=1), (p * p).sum(dim=1)
+
+
+def fm_interaction_ref(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """FM 2-way term [Rendle ICDM'10]: x [b, f] feature values; v [f, k]
+    factor embeddings shared by every row, or [b, f, k], one factor
+    matrix per row (the reference's ``jax.vmap`` written out). Computes
+    in float32, with p = x_f v_fk,
+        0.5 * sum_k ((sum_f p)^2 - sum_f p^2),
+    and returns [b] in x's dtype."""
+    s, q = _fm_sums(x, v)
+    return (0.5 * (s * s - q).sum(dim=-1)).to(x.dtype)
+
+
+def fm_allowed_error(x: torch.Tensor, v: torch.Tensor,
+                     want: torch.Tensor) -> torch.Tensor:
+    """[b] float32: how far a float32 computation of
+    ``fm_interaction_ref(x, v)`` (= ``want``) may lie from it. The trick
+    subtracts two terms of size c = 0.5 * sum_k ((sum_f p)^2 + sum_f
+    p^2); sums in another order differ by a few float32 units of c, so
+    1e-5 * c + 1e-7. A bfloat16 output may also round to the neighbour:
+    one bfloat16 unit of ``want`` more."""
+    s, q = _fm_sums(x, v)
+    allowed = 1e-5 * (0.5 * (s * s + q).sum(dim=-1)) + 1e-7
+    if want.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(1e-30)
+        allowed = allowed + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return allowed

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.engine.observe import MetricsRegistry
 from repro_torch.models import transformer as T
+from repro_torch.models.common import resolve_device
 
 
 class Generation(NamedTuple):
@@ -96,7 +97,7 @@ def build(arch_name: str, smoke: bool, device: str, seed: int):
     from repro_torch.configs import get_arch
     arch = get_arch(arch_name)
     cfg = arch.smoke_cfg if smoke else arch.cfg
-    dev = T._resolve_device(device)
+    dev = resolve_device(device, "Transformer")
     gen = torch.Generator(dev).manual_seed(seed)
     return T.Transformer(cfg, device=dev, generator=gen), cfg
 

@@ -1,2 +1,3 @@
 """Models of the port: the decoder-only transformer LM (``transformer``)
-and its building blocks (``common``)."""
+and its building blocks (``common``), and the factorization-machine
+recommender (``recsys.fm``)."""

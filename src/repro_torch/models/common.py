@@ -12,6 +12,23 @@ import torch
 import torch.nn.functional as F
 
 
+def resolve_device(spec, owner: str) -> torch.device:
+    """``spec`` as a device; raises when it names CUDA and there is no
+    card, so that an entry point never falls back to the CPU unasked."""
+    device = torch.device(spec)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}(device={str(spec)!r}) but no CUDA device is "
+            f"available; pass device='cpu' to run the plain torch path")
+    return device
+
+
+def frozen(t: torch.Tensor) -> torch.nn.Parameter:
+    """``t`` as a parameter that takes no gradient (the port serves
+    only; training is not ported yet)."""
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
 def normal_init(shape, stddev: float, dtype: torch.dtype,
                 generator: torch.Generator, device=None) -> torch.Tensor:
     """Normal(0, stddev) in ``dtype``, scaled in that dtype, drawn from

@@ -1,0 +1,151 @@
+"""Factorization Machine [Rendle, ICDM'10], after
+``repro.models.recsys.fm``: Criteo-style layout, 39 sparse fields over
+one hashed embedding table, the FM 2-way interaction by the O(nk)
+sum-square trick, plus the linear term.
+
+The interaction runs through ``kernels.fm_interaction``: the
+hand-written CUDA kernel on a CUDA device, its plain torch version on
+the CPU. Each example's gathered factor rows [F, k] are its factor
+matrix, with x = 1 for every field (one-hot fields); the reference's
+``jax.vmap`` of the kernel over examples is the kernel's batch
+dimension here. ``FMConfig`` has no ``backend``: the device picks the
+kernel, whatever the reference's ``backend`` would have said (its
+"xla" and Pallas paths compute the same function).
+
+``embedding_bag`` (multi-hot fields) is a clipped gather plus the
+sorted-segment sum kernel (``kernels.segment_reduce``).
+
+Ids are gathered as ``jnp.take(..., mode="clip")`` does: cast to int32,
+then clamped to [0, vocab - 1] (a negative id reads row 0, not a row
+from the end).
+
+There is no backward yet (training is not ported; ROADMAP.md), so the
+parameters of an ``FM`` are frozen.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import fm_interaction as FI
+from repro_torch.kernels import segment_reduce as SR
+from repro_torch.models.common import frozen, normal_init, resolve_device
+
+
+class FMConfig(NamedTuple):
+    n_fields: int = 39
+    embed_dim: int = 10
+    vocab: int = 4_000_000       # hashed joint table (rows)
+
+
+def init_params(cfg: FMConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """{"v": [vocab, k], "w": [vocab, 1], "b": 0-d} in float32: v and w
+    from Normal(0, 0.01) drawn from ``generator`` (on its device unless
+    ``device`` says), b = 0."""
+    device = generator.device if device is None else torch.device(device)
+
+    def draw(shape):
+        return normal_init(shape, 0.01, torch.float32, generator, device)
+
+    return {"v": draw((cfg.vocab, cfg.embed_dim)),
+            "w": draw((cfg.vocab, 1)),
+            "b": torch.zeros((), dtype=torch.float32, device=device)}
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The reference's {"v", "w", "b"} as numpy arrays -> float32 tensors
+    on ``device``."""
+    return {k: torch.from_numpy(np.array(tree[k], np.float32)).to(device)
+            for k in ("v", "w", "b")}
+
+
+def take_clip(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``ids`` (any shape) -> [*ids.shape, d], as
+    ``jnp.take(table, ids.astype(int32), axis=0, mode="clip")``."""
+    idx = ids.to(torch.int32).clamp(0, table.shape[0] - 1)
+    rows = table.index_select(0, idx.reshape(-1))
+    return rows.reshape(tuple(ids.shape) + tuple(table.shape[1:]))
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  bag_ids: torch.Tensor, n_bags: int,
+                  mode: str = "sum") -> torch.Tensor:
+    """EmbeddingBag: ``ids`` [n] row indices (clipped), ``bag_ids`` [n]
+    sorted bag of each id -> [n_bags, d]; an empty bag gives 0. "mean"
+    divides each bag's sum by its size."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode {mode!r}")
+    bag_ids = bag_ids.to(torch.int32).contiguous()
+    out = SR.segment_reduce(take_clip(table, ids), bag_ids, n_bags, "sum")
+    if mode == "mean":
+        ones = torch.ones((ids.shape[0], 1), dtype=torch.float32,
+                          device=table.device)
+        cnt = SR.segment_reduce(ones, bag_ids, n_bags, "sum")
+        out = out / torch.clamp_min(cnt, 1.0)
+    return out
+
+
+class FM(nn.Module):
+    """The FM model on ``device`` (default the card; raises when there
+    is none), from ``params`` or from ``generator`` (default seed 0).
+
+    The retrieval matvec is float32, as the reference computes it: on
+    the card ``retrieval_scores`` raises if
+    ``torch.backends.cuda.matmul.allow_tf32`` is set (it is False by
+    default; the model does not change it)."""
+
+    def __init__(self, cfg: FMConfig, params: Optional[dict] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device, "FM")
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            params = init_params(cfg, generator, self.device)
+        self.v = frozen(params["v"].to(self.device))
+        self.w = frozen(params["w"].to(self.device))
+        self.b = frozen(params["b"].to(self.device))
+
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.as_tensor(ids, device=self.device)
+
+    def forward(self, ids) -> torch.Tensor:
+        """ids [B, F] hashed feature ids -> logits [B]."""
+        ids = self._ids(ids)
+        B, nf = ids.shape
+        v = take_clip(self.v, ids)                  # [B, F, k]
+        w = take_clip(self.w, ids)[..., 0]          # [B, F]
+        x = torch.ones((1, 1), dtype=v.dtype, device=v.device).expand(B, nf)
+        return self.b + w.sum(-1) + FI.fm_interaction(x, v)
+
+    def loss_fn(self, ids, labels) -> torch.Tensor:
+        """Mean binary cross-entropy of the logits against 0/1 labels."""
+        logits = self(ids)
+        y = self._ids(labels).float()
+        return -(y * F.logsigmoid(logits)
+                 + (1 - y) * F.logsigmoid(-logits)).mean()
+
+    def retrieval_scores(self, context_ids, candidate_ids) -> torch.Tensor:
+        """context_ids [F] (one query), candidate_ids [C] -> scores [C]:
+        the context's FM state (linear term, interaction, sum of its
+        factors sv) plus each candidate's w_c + v_c . sv, one matvec."""
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        if self.device.type == "cuda" and tf32:
+            raise RuntimeError("retrieval_scores: TF32 matmuls are allowed "
+                               "(torch.backends.cuda.matmul.allow_tf32); the "
+                               "matvec must be float32")
+        vc = take_clip(self.v, self._ids(context_ids))       # [F, k]
+        wc = take_clip(self.w, self._ids(context_ids))[..., 0]
+        sv = vc.sum(0)
+        s2 = (vc * vc).sum(0)
+        base = self.b + wc.sum() + 0.5 * (sv * sv - s2).sum()
+        cand = self._ids(candidate_ids)
+        v_cand = take_clip(self.v, cand)                     # [C, k]
+        w_cand = take_clip(self.w, cand)[..., 0]
+        return base + w_cand + v_cand @ sv

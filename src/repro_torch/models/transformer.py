@@ -35,7 +35,8 @@ from torch import nn
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models.common import (
-    act_fn, apply_rope, normal_init, rms_norm, rope_angles,
+    act_fn, apply_rope, frozen, normal_init, resolve_device, rms_norm,
+    rope_angles,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -174,19 +175,6 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
     return conv(tree)
 
 
-def _resolve_device(spec) -> torch.device:
-    device = torch.device(spec)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"Transformer(device={str(spec)!r}) but no CUDA device is "
-            f"available; pass device='cpu' to run the plain torch path")
-    return device
-
-
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Block(nn.Module):
     """One pre-norm decoder layer: attention, then the (gated) FFN."""
 
@@ -194,7 +182,7 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         for name in _layer_shapes(cfg):
-            setattr(self, name, _frozen(weights[name]))
+            setattr(self, name, frozen(weights[name]))
 
     def forward(self, x, sin, cos, cache_kv=None, pos=None):
         """x [B, S, d]. Prefill (no cache): returns (y, (k, v)) with k, v
@@ -258,7 +246,7 @@ class Transformer(nn.Module):
         super().__init__()
         _no_moe(cfg)
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "Transformer")
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
@@ -266,10 +254,10 @@ class Transformer(nn.Module):
         params = {k: (v if isinstance(v, dict) else v.to(self.device))
                   for k, v in params.items()}
         layers = {k: v.to(self.device) for k, v in params["layers"].items()}
-        self.embed = _frozen(params["embed"])
-        self.ln_f = _frozen(params["ln_f"])
+        self.embed = frozen(params["embed"])
+        self.ln_f = frozen(params["ln_f"])
         self.unembed = (None if cfg.tie_embeddings
-                        else _frozen(params["unembed"]))
+                        else frozen(params["unembed"]))
         self.layers = nn.ModuleList(
             Block(cfg, {k: v[i] for k, v in layers.items()})
             for i in range(cfg.n_layers))

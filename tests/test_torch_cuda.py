@@ -260,3 +260,110 @@ def test_transformer_on_card_matches_cpu(cuda, dtype):
     else:   # cuBLAS and the CPU round bf16 products at other places
         assert float((got - want).abs().max()) <= 2e-2 * float(
             want.abs().max())
+
+
+# -- the FM interaction kernel ------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,k,form", [
+    (32, 39, 10, "shared"), (1000, 39, 10, "shared"),
+    (4096, 26, 16, "shared"), (7, 13, 4, "shared"),
+    (300, 39, 10, "per_row"), (1, 39, 10, "per_row"), (77, 1, 1, "per_row"),
+    (129, 5, 32, "per_row"), (50, 300, 7, "per_row"), (50, 300, 7, "shared"),
+    (40, 39, 10, "ones"), (40, 39, 10, "expanded_v"), (40, 39, 10,
+                                                       "strided_x")])
+def test_fm_interaction_kernel_matches_plain(cuda, dtype, b, f, k, form):
+    """Shared and per-row v; k from 1 to the limit 32; field counts that
+    take several shared-memory chunks; x broadcast by stride 0 (the
+    model's ones), v broadcast over rows by stride 0, x transposed.
+    Tolerance: ``ref.fm_allowed_error``."""
+    from repro_torch.kernels import fm_interaction as FI, ref
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(b + f + k)
+    x = _normal(gen, (b, f), dtype, cuda)
+    if form == "ones":
+        x = torch.ones((1, 1), dtype=dtype, device=cuda).expand(b, f)
+    elif form == "strided_x":
+        x = _normal(gen, (f, b), dtype, cuda).t()
+    v = _normal(gen, (f, k) if form == "shared" else (b, f, k), dtype, cuda)
+    if form == "expanded_v":
+        v = v[:1].expand(b, f, k)
+    before = FI.LAUNCHES["fm_interaction"]
+    out = FI.fm_interaction(x, v)
+    want = FI.fm_interaction_plain(x, v)
+    torch.cuda.synchronize()
+    assert FI.LAUNCHES["fm_interaction"] == before + 1
+    assert out.dtype == dtype and out.shape == (b,)
+    err = (out.float() - want.float()).abs()
+    allowed = ref.fm_allowed_error(x, v, want)
+    assert bool((err <= allowed).all()), float(err.max())
+    # the same inputs give the same bits (no atomics)
+    assert torch.equal(FI.fm_interaction(x, v), out)
+
+
+def test_fm_interaction_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import fm_interaction as FI
+    x = torch.ones((4, 6), device=cuda)
+    v = torch.ones((6, 3), device=cuda)
+    with pytest.raises(RuntimeError, match="grad"):
+        FI.fm_interaction(x, v.clone().requires_grad_())
+    with pytest.raises(TypeError):
+        FI.fm_interaction(x.half(), v.half())
+    with pytest.raises(TypeError):
+        FI.fm_interaction(x, v.bfloat16())
+    with pytest.raises(ValueError, match="k"):
+        FI.fm_interaction(x, torch.ones((6, 33), device=cuda))
+    with pytest.raises(ValueError, match="match"):
+        FI.fm_interaction(x, torch.ones((5, 3), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        FI.fm_interaction(x, torch.ones((3, 6), device=cuda).t())
+    with pytest.raises(ValueError, match="device"):
+        FI.fm_interaction(x, v.cpu())
+    before = FI.LAUNCHES["fm_interaction"]
+    assert FI.fm_interaction(x[:0], v).shape == (0,)
+    assert FI.LAUNCHES["fm_interaction"] == before
+
+
+def test_fm_on_card_matches_cpu(cuda):
+    """The FM model at 39 fields x k 10 (vocab 10,000) on the card against
+    the same weights on the CPU: serve, retrieval and embedding_bag,
+    with ids out of range, through the kernels."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.recsys import fm as TFM
+    cfg = TFM.FMConfig(n_fields=39, embed_dim=10, vocab=10_000)
+    params = TFM.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(-5, 10_100, (600, 39)).astype(
+        np.int32))
+    bag_ids = torch.from_numpy(np.sort(rng.integers(0, 50, 300)).astype(
+        np.int32))
+    outs = {}
+    reset_launch_counts()
+    for dev in ("cpu", cuda):
+        model = TFM.FM(cfg, params, device=dev)
+        outs[str(dev)] = [t.cpu() for t in (
+            model(ids), model.retrieval_scores(ids[0], ids[:, 1]),
+            TFM.embedding_bag(model.v, ids[:300, 2].to(dev),
+                              bag_ids.to(dev), 60, "mean"))]
+    counts = launch_counts()
+    assert counts["fm_interaction"] == 1 and counts["segment_reduce"] == 2
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+def test_fm_retrieval_refuses_tf32(cuda):
+    """The retrieval matvec is float32 as in the reference: with TF32
+    matmuls allowed process-wide, retrieval_scores raises on the card
+    (and the model leaves the flag as it found it)."""
+    from repro_torch.models.recsys import fm as TFM
+    cfg = TFM.FMConfig(n_fields=4, embed_dim=10, vocab=100)
+    model = TFM.FM(cfg, device=cuda)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    ids = torch.arange(4, dtype=torch.int32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            model.retrieval_scores(ids, ids)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert model.retrieval_scores(ids, ids).shape == (4,)
