@@ -11,12 +11,17 @@ Phases, each printing its wall time:
              nvcc in parallel, with ptxas' register/spill report;
 3. kernels   each engine kernel against its plain torch version on the
              card, at the shapes the engine gives it, timed with CUDA
-             events beside its byte bound and one library call;
+             events beside its byte bound and one library call; the
+             segment reduce also over a run of 2**20 rows, all-dead and
+             negative ids, the embedding_bag shape (timed) and a float
+             sum that rounds, run twice for the same bits;
 4. attention the attention kernels against their plain versions at the
-             LM shapes (qwen3-1.7b prefill at 4096 tokens in bf16 and f32,
-             a chunked prefill, gemma's d = 256, chatglm3's GQA 16:1,
+             LM shapes (qwen3-1.7b prefill at 4096 tokens in bf16 on the
+             tensor-core kernel and in f32 on the CUDA-core one, a
+             chunked prefill, gemma's d = 256, chatglm3's GQA 16:1,
              decode over a 32768-position cache), timed beside their
-             bounds and scaled_dot_product_attention;
+             bounds and scaled_dot_product_attention, with the
+             tensor-core kernel's ptxas registers and spills;
 5. engine    Reach, CC and SSSP with the port's Engine on the card over a
              Graph500 Kronecker graph (scale 22, edge factor 16, A, B, C =
              0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph;
@@ -30,7 +35,10 @@ Phases, each printing its wall time:
              the same tokens; the kernels held against their plain
              versions on the captured inputs in bf16 and f32 (these give
              the kernel line's times), and a short run against the same
-             run through the plain versions;
+             run through the plain versions; then the model in float32,
+             depth cut to 2 layers (2 x 512 prompt tokens, 4 steps),
+             counted, whose prefill runs the CUDA-core kernel, against
+             the same run through the plain versions;
 8. recsys    the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
              row table, random weights from --seed): the interaction kernel
              against its plain version at the reference's kernel-test
@@ -43,7 +51,8 @@ Phases, each printing its wall time:
              negative ids, and embedding_bag over 262,144 bags of 0 to 8
              ids; logits and scores held against a float64 numpy forward
              on the host, the bags against the plain version;
-9. launches  each kernel's launch count over phases 5-8; a zero fails.
+9. launches  each kernel's launch count over the counted runs of phases
+             5-8 (each counted from 0 just before it); a zero fails.
 
 With ``--profile``, each of Reach, CC and SSSP, the serve prefill, four
 decode steps and one serve_bulk batch then run once more under
@@ -220,43 +229,121 @@ def check_segment(torch, gen, dev, n, d, num_segments, dtype, op,
                   timed=False):
     from repro_torch.kernels import segment_reduce as SR
     vals, seg = segment_inputs(torch, gen, n, d, num_segments, dtype, dev)
+    label = (f"segment_reduce {op} {str(dtype).split('.')[-1]} n={n} d={d} "
+             f"segments={num_segments}")
+    return check_segment_on(torch, label, vals, seg, num_segments, op, timed)
+
+
+def check_segment_on(torch, label, vals, seg, num_segments, op,
+                     timed=False):
+    """The kernel against its plain version, exactly: int32 results, and
+    float sums of values whose sums are exact in any order. With
+    ``timed``, CUDA-event times of the kernel, the plain version and one
+    library call (index_add_ for float sums, else scatter_reduce) beside
+    the byte bound."""
+    from repro_torch.kernels import segment_reduce as SR
     out = SR.segment_reduce(vals, seg, num_segments, op)
     ref = SR.segment_reduce_plain(vals, seg, num_segments, op)
     torch.cuda.synchronize()
-    if dtype == torch.int32:
-        err = int((out.long() - ref.long()).abs().max())
-        if err:
-            raise AssertionError(f"segment_reduce {op} int32: kernel "
-                                 f"differs (max abs err {err})")
-    else:
-        # the plain version adds in another order (atomics)
-        torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
-        err = float((out - ref).abs().max())
-    label = (f"segment_reduce {op} {str(dtype).split('.')[-1]} n={n} d={d} "
-             f"segments={num_segments}")
+    if not torch.equal(out, ref):
+        err = float((out.double() - ref.double()).abs().max())
+        raise AssertionError(f"{label}: kernel differs from the plain "
+                             f"version (max abs err {err})")
+    err = 0.0
     if not timed:
-        print(f"{label}: max abs err {err}", flush=True)
+        print(f"{label}: equal to the plain version", flush=True)
         return None
     ms = cuda_ms(torch, lambda: SR.segment_reduce(vals, seg,
                                                   num_segments, op))
     plain_ms = cuda_ms(torch, lambda: SR.segment_reduce_plain(
         vals, seg, num_segments, op), reps=2, warmup=1)
-    # the library call: one scatter_reduce into a buffer with a spare
-    # slot for the dead ids (its index must be int64 and in range)
-    idx = seg.long()
-    fill = torch.iinfo(torch.int32).max if op == "min" else 0
-    red = {"sum": "sum", "min": "amin", "max": "amax"}[op]
-    base = torch.full((num_segments + 1,), fill, dtype=vals.dtype,
-                      device=dev)
-    library_ms = cuda_ms(torch, lambda: base.scatter_reduce(
-        0, idx, vals, reduce=red))
+    # the library call: one scatter_reduce (or index_add_) into a buffer
+    # with a spare row for the dead ids (its index must be int64 and in
+    # range)
+    idx = seg.long().clamp(0, num_segments)
+    base = torch.full((num_segments + 1,) + tuple(vals.shape[1:]),
+                      SR.ref._identity(op, vals.dtype), dtype=vals.dtype,
+                      device=vals.device)
+    if op == "sum":
+        library_ms = cuda_ms(torch, lambda: base.index_add(0, idx, vals))
+    else:
+        red = {"min": "amin", "max": "amax"}[op]
+        sidx = idx if vals.dim() == 1 else idx[:, None].expand_as(vals)
+        library_ms = cuda_ms(torch, lambda: base.scatter_reduce(
+            0, sidx, vals, reduce=red))
+    n, d = vals.shape[0], (vals.shape[1] if vals.dim() == 2 else 1)
     nbytes = n * 4 + n * d * 4 + num_segments * d * 4
-    print(f"{label}: max abs err {err}; kernel {ms:.4f} ms, plain "
+    print(f"{label}: equal to the plain version; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, byte bound "
-          f"{bound_ms(nbytes):.4f} ms ({nbytes} B)", flush=True)
-    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+          f"{bound_ms(nbytes):.4f} ms ({nbytes} B, "
+          f"{100 * bound_ms(nbytes) / ms:.1f}% of it)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms(nbytes), bound_by="bytes",
                 library_ms=library_ms)
+
+
+def check_segment_edges(torch, gen, dev, big):
+    """The segment reduce where tiles and ids are awkward: one id over
+    2**20 rows inside ``big`` rows (a run across hundreds of tiles), every
+    id dead (past the end, and negative), a head of negative ids, the
+    embedding_bag shape (float32 sum, d = 10, 262,144 bags of 0 to 8 rows,
+    timed), and a float32 sum of values that are not exact in any order,
+    run twice: the bits must agree."""
+    from repro_torch.kernels import segment_reduce as SR
+    i32 = torch.int32
+    seg = torch.sort(torch.randint(0, big, (big,), generator=gen,
+                                   device=dev, dtype=i32)).values
+    start = big // 3
+    seg[start:start + (1 << 20)] = seg[start]
+    vals = torch.randint(-(1 << 31), (1 << 31) - 1, (big,), generator=gen,
+                         device=dev, dtype=i32)
+    for op in ("sum", "min"):
+        check_segment_on(torch, f"segment_reduce {op} int32 n={big}, one id "
+                         f"over 2**20 rows", vals, seg, big, op)
+    del seg
+    n = min(1 << 20, big)
+    small = vals[:n].contiguous()
+    for dead, what in ((5, "past the end"), (-3, "negative")):
+        ids = torch.full((n,), dead, dtype=i32, device=dev)
+        check_segment_on(torch, f"segment_reduce sum int32 n={n}, every id "
+                         f"dead ({what})", small, ids, 5, "sum")
+    ids = torch.sort(torch.randint(-n // 20, n // 20, (n,), generator=gen,
+                                   device=dev, dtype=i32)).values
+    check_segment_on(torch, f"segment_reduce max int32 n={n}, ids from "
+                     f"{-n // 20} (half the rows dropped at the head)", small,
+                     ids, n // 20, "max")
+    del vals, small
+    # embedding_bag's shape (chip phase recsys): bags of 1 to 8 rows, 5%
+    # empty; values multiples of 2**-8, so the sums are exact in any order
+    bags = 262_144
+    sizes = torch.randint(1, 9, (bags,), generator=gen, device=dev)
+    sizes[torch.rand((bags,), generator=gen, device=dev) < 0.05] = 0
+    ids = torch.repeat_interleave(torch.arange(bags, device=dev, dtype=i32),
+                                  sizes)
+    rows = (torch.randn((ids.shape[0], 10), generator=gen, device=dev)
+            * 256).round() / 256
+    bag = check_segment_on(torch, f"segment_reduce sum float32 embedding_bag "
+                           f"n={ids.shape[0]} d=10 segments={bags}", rows,
+                           ids, bags, "sum", timed=True)
+    # sums that round: the same bits on every run, and near the plain
+    # version (which adds in another order)
+    n = min(1 << 24, big)
+    vals = torch.randn((n,), generator=gen, device=dev)
+    ids = torch.sort(torch.randint(0, n // 16, (n,), generator=gen,
+                                   device=dev, dtype=i32)).values
+    a = SR.segment_reduce(vals, ids, n // 16, "sum")
+    b = SR.segment_reduce(vals, ids, n // 16, "sum")
+    ref = SR.segment_reduce_plain(vals, ids, n // 16, "sum")
+    mag = SR.segment_reduce_plain(vals.abs(), ids, n // 16, "sum")
+    torch.cuda.synchronize()
+    rel = float(((a - ref).abs() / mag.clamp_min(1e-30)).max())
+    print(f"segment_reduce sum float32 n={n} randn: two runs bit-identical "
+          f"{torch.equal(a, b)}; max |kernel - plain| / sum |v| {rel}",
+          flush=True)
+    if not torch.equal(a, b) or rel > 1e-6:
+        raise AssertionError("segment_reduce: float sums not deterministic "
+                             "or off the plain version")
+    return bag
 
 
 def run_kernel_checks(torch, seed, dev, m=1 << 26, n=1 << 22,
@@ -280,6 +367,7 @@ def run_kernel_checks(torch, seed, dev, m=1 << 26, n=1 << 22,
                   "sum")
     check_segment(torch, gen, dev, big // 64, 64, big // 256,
                   torch.float32, "sum")
+    results["segment_reduce_bag"] = check_segment_edges(torch, gen, dev, big)
     return results
 
 
@@ -394,8 +482,12 @@ def kernel_family(name: str) -> str:
     low = name.lower()
     for family, marks in (("fm_interaction (ours)", ("fm_kernel",)),
                           ("probe (ours)", ("probe_kernel",)),
-                          ("segment_reduce (ours)", ("segment_reduce",)),
+                          ("segment_reduce (ours)", ("segment_reduce",
+                                                     "reduce_tiles",
+                                                     "fill_identity",
+                                                     "combine_crossing")),
                           ("attention (ours)", ("attn_kernel",
+                                                "attn_wgmma",
                                                 "decode_split",
                                                 "decode_combine")),
                           ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
@@ -523,8 +615,10 @@ def run_engine_phases(torch, seed, scale, profile=False):
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor peak, data sheet
 F32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores, data sheet
 # (rtol, atol). The kernels and their plain versions compute in float32
-# and round once to the output's dtype, so bfloat16 outputs differ by at
-# most one unit in the last place: 2**-7 of the value at worst.
+# and round once to the output's dtype (the tensor-core kernel feeds P to
+# P.V as bfloat16 hi + lo parts, exact to about 2**-16 of each p), so
+# bfloat16 outputs differ by about one unit in the last place: 2**-7 of
+# the value at worst.
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-4)}
 
 
@@ -579,6 +673,7 @@ def check_attention(torch, label, q, k, v, causal=True, kv_len=None,
     version and SDPA beside the bound."""
     from repro_torch.kernels import flash_attention as FA
     if kv_len is None:
+        label += f" [{FA.prefill_kernel(q.dtype)} kernel]"
         kernel = functools.partial(FA.flash_attention, q, k, v, causal)
         plain = functools.partial(FA.flash_attention_plain, q, k, v, causal)
     else:
@@ -608,11 +703,32 @@ def check_attention(torch, label, q, k, v, causal=True, kv_len=None,
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def ptxas_lines(report: str) -> dict:
+    """{kernel entry: its ptxas register, barrier and spill lines} from
+    nvcc's -Xptxas -v output."""
+    entries, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entries[name] = []
+        elif name and ("registers" in line or "spill" in line):
+            entries[name].append(line.split(":", 1)[-1].strip())
+    return entries
+
+
 def run_attention_checks(torch, seed, dev):
     """Both attention kernels at the model's shapes: qwen3-1.7b prefill
     (hq 16, hkv 8, d 128) at 4096 tokens in bf16 and f32, a chunk of 1000
     queries at the end of 4096 keys, gemma's d = 256, chatglm3's GQA
     16:1, and decode over a 32768-position cache with ragged lengths."""
+    import re
+    from repro_torch.kernels import _build
+    for entry, lines in ptxas_lines(
+            _build.report("flash_attention_wgmma")).items():
+        if "attn_wgmma_kernel" in entry:
+            d = re.search(r"ILi(\d+)E", entry)
+            print(f"ptxas attn_wgmma_kernel<{d.group(1) if d else '?'}>: "
+                  + "; ".join(lines), flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
@@ -724,20 +840,26 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
 
     measured = {}
     for (kind, layer), args in sorted(captured.items()):
-        name = "flash_attention" if kind == "prefill" else "flash_decode"
-        label = (f"serve {kind} layer {layer}: {name} "
+        # the served bf16 prefill runs the tensor-core kernel; the same
+        # inputs in float32 time the CUDA-core one
+        names = (("flash_attention_wgmma", "flash_attention")
+                 if kind == "prefill" else ("flash_decode", None))
+        label = (f"serve {kind} layer {layer}: "
                  f"{list(args[0].shape)} over {list(args[1].shape)}")
         qkv, kv_len = args[:3], (args[3] if kind == "decode" else None)
         r = check_attention(torch, label, *qkv, kv_len=kv_len,
                             timed=layer == 0)
-        check_attention(torch, label + " in float32",
-                        *(t.float() for t in qkv), kv_len=kv_len,
-                        timed=False)
-        if layer == 0:
-            measured[name] = r
-        else:
-            measured[name]["max_abs_err"] = max(
-                measured[name]["max_abs_err"], r["max_abs_err"])
+        r32 = check_attention(torch, label + " in float32",
+                              *(t.float() for t in qkv), kv_len=kv_len,
+                              timed=layer == 0 and names[1] is not None)
+        for name, res in zip(names, (r, r32)):
+            if name is None:
+                continue
+            if layer == 0:
+                measured[name] = res
+            else:
+                measured[name]["max_abs_err"] = max(
+                    measured[name]["max_abs_err"], res["max_abs_err"])
     captured.clear()
     torch.cuda.empty_cache()
 
@@ -754,7 +876,8 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
           f"{requests * gen_tokens / g.decode_s}, prefill tokens/s "
           f"{requests * prompt_len / g.prefill_s}, peak device memory "
           f"{peak} B, launches {counts}", flush=True)
-    want = {"flash_attention": L, "flash_decode": L * gen_tokens,
+    want = {"flash_attention_wgmma": L, "flash_attention": 0,
+            "flash_decode": L * gen_tokens,
             "flash_decode_combine": L * gen_tokens}
     got = {k: counts[k] for k in want}
     if got != want:
@@ -800,6 +923,56 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
     del model, g, a, b
     torch.cuda.empty_cache()
     return counts, measured
+
+
+F32_LAYERS, F32_REQUESTS, F32_PROMPT_LEN, F32_GEN_TOKENS = 2, 2, 512, 4
+
+
+def run_serve_f32(torch, seed):
+    """qwen3-1.7b served in float32 (full width, depth cut to
+    ``F32_LAYERS``): its prefill goes to the CUDA-core attention kernel.
+    The counted run must give the same greedy tokens as a run through the
+    plain versions. Returns its launch counts."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Transformer
+    layers, requests = F32_LAYERS, F32_REQUESTS
+    prompt_len, gen_tokens = F32_PROMPT_LEN, F32_GEN_TOKENS
+    a = get_arch("qwen3-1.7b")
+    cfg = dataclasses.replace(a.cfg, n_layers=layers, dtype="float32")
+    model = Transformer(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(requests, prompt_len))
+    reset_launch_counts()
+    g = serve.generate(model, prompts, gen_tokens)
+    counts = launch_counts()
+    with attention_swapped(FA, FA.flash_attention_plain,
+                           FA.flash_decode_plain):
+        ref = serve.generate(model, prompts, gen_tokens)
+    diff = float((g.logits - ref.logits).abs().max())
+    print(f"serve float32 ({layers} of {a.cfg.n_layers} layers, {requests} x "
+          f"{prompt_len} tokens, {gen_tokens} steps): prefill_s "
+          f"{g.prefill_s}, tokens {g.tokens.tolist()} vs plain "
+          f"{ref.tokens.tolist()}, logits max abs diff {diff}, launches "
+          f"{counts}", flush=True)
+    want = {"flash_attention": layers, "flash_attention_wgmma": 0,
+            "flash_decode": layers * gen_tokens,
+            "flash_decode_combine": layers * gen_tokens}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"serve float32: launches {counts}, expected "
+                             f"{want}")
+    scale = float(ref.logits.abs().max())
+    if not (np.array_equal(g.tokens, ref.tokens) and diff <= 1e-3 * scale):
+        raise AssertionError("serve float32: kernels and plain versions "
+                             "disagree")
+    del model, g, ref
+    torch.cuda.empty_cache()
+    return counts
 
 
 # -- the FM recsys path -------------------------------------------------------
@@ -1085,6 +1258,9 @@ KERNELS = [
      "src/repro_torch/csrc/segment_reduce.cu",
      "src/repro/kernels/segment_reduce.py:50",
      "src/repro/kernels/segment_reduce.py:79"),
+    ("flash_attention_wgmma", "flash_attention_wgmma",
+     "src/repro_torch/csrc/flash_attention_wgmma.cu",
+     "src/repro/kernels/flash_attention.py:27", None),
     ("flash_attention", "flash_attention",
      "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:27", None),
@@ -1130,9 +1306,11 @@ def main(argv=None) -> int:
               f"device {kind}; {torch.cuda.device_count()} visible")
         print(smi, flush=True)
     with phase("build"):
-        reports = _build.build_all()
-        for name, text in sorted(reports.items()):
-            lines = [ln for ln in text.splitlines()
+        built = _build.build_all()
+        print(f"built {sorted(built)}; the others' libraries match their "
+              f"sources", flush=True)
+        for name in _build.sources():
+            lines = [ln for ln in _build.report(name).splitlines()
                      if "registers" in ln or "spill" in ln
                      or "error" in ln.lower()]
             print(f"{name}.cu:\n  " + "\n  ".join(lines), flush=True)
@@ -1149,6 +1327,8 @@ def main(argv=None) -> int:
                                                  profile=args.profile)
         measured.update(serve_measured)
         for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        for k, v in run_serve_f32(torch, args.seed).items():
             totals[k] = totals.get(k, 0) + v
     with phase("recsys"):
         counts, measured["fm_interaction"] = run_recsys_phase(
@@ -1170,6 +1350,8 @@ def main(argv=None) -> int:
             e["also_replaces"] = also
         if name == "flash_decode":
             e["combine_launches"] = totals["flash_decode_combine"]
+        if name == "segment_reduce":    # the embedding_bag shape, timed
+            e["embedding_bag_shape"] = measured["segment_reduce_bag"]
         entries.append(e)
     print(f"total {time.perf_counter() - t_all:.3f} s")
     print(nvidia_smi_line())

@@ -1,8 +1,11 @@
-// Blocked online-softmax attention and split-KV decode attention for
-// Hopper (sm_90a), GQA by head index, f32 or bf16 in, f32 arithmetic.
+// Blocked online-softmax attention (float32) and split-KV decode
+// attention (float32 or bf16) for Hopper (sm_90a), GQA by head index, f32
+// arithmetic.
 //
 // flash_attention replaces `_attn_kernel` of
-// src/repro/kernels/flash_attention.py (via flash_attention_pallas):
+// src/repro/kernels/flash_attention.py (via flash_attention_pallas) for
+// float32 inputs; bfloat16 inputs go to the tensor-core kernel of
+// flash_attention_wgmma.cu, since wgmma on float32 would be TF32:
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, h / group, j] * scale)
 //                  . v[b, h / group, j]
 // over keys j <= i + (skv - sq) when causal (the mask is aligned to the
@@ -12,8 +15,8 @@
 // sq * skv * d multiply-adds per head (half of the full product's
 // 2 * sq * skv * d: QK^T and P.V, each d per visible pair); the inputs
 // are read once.
-// This kernel uses the CUDA cores (f32 FMA), not the tensor cores, so it
-// runs far below the bf16 tensor peak; wgmma and TMA are later work.
+// This kernel uses the CUDA cores (f32 FMA): its ceiling is the 67
+// TFLOP/s float32 peak.
 //
 // Design: one CTA of 256 threads per (q tile of 64 rows, head, batch).
 // Q (pre-scaled by scale * log2 e) and each K tile are staged transposed
@@ -456,21 +459,17 @@ cudaError_t decode_by_dim(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [b, hq, sq, d], k and v [b, hkv, skv, d], out [b, hq, sq, d], all
-// contiguous, float32 (is_bf16 = 0) or bfloat16 (1); d in {64, 128, 256};
-// hq % hkv == 0. scale_log2 = softmax scale * log2(e). Returns
-// cudaGetLastError() after the launch.
+// contiguous float32; d in {64, 128, 256}; hq % hkv == 0. scale_log2 =
+// softmax scale * log2(e). Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int is_bf16, int b, int hq,
-                               int hkv, int sq, int skv, int d, int causal,
-                               float scale_log2, void* stream) {
+                               void* out, int b, int hq, int hkv, int sq,
+                               int skv, int d, int causal, float scale_log2,
+                               void* stream) {
   if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? (int)attn_by_dim<__nv_bfloat16>(d, q, k, v, out, b, hq,
-                                                   hkv, sq, skv, causal,
-                                                   scale_log2, s)
-                 : (int)attn_by_dim<float>(d, q, k, v, out, b, hq, hkv, sq,
-                                           skv, causal, scale_log2, s);
+  return (int)attn_by_dim<float>(d, q, k, v, out, b, hq, hkv, sq, skv,
+                                 causal, scale_log2,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory (bytes) the split kernel needs for `group` query heads

@@ -1,16 +1,19 @@
 """Builds the CUDA sources under ``src/repro_torch/csrc/`` with ``nvcc``
 at first use and binds them with ``ctypes``.
 
-Each ``<name>.cu`` becomes ``build/kernels/lib<name>.so`` at the root of
-the checkout, compiled for ``sm_90a`` and rebuilt when the source is
-newer than the library. The sources expose plain C functions, so no
-PyTorch header is compiled and a build takes seconds. Nothing is built
-when this module is imported; ``build_all`` starts one ``nvcc`` per
-stale source, all at once.
+Each ``<name>.cu`` becomes ``build/kernels/lib<name>.<key>.so`` at the
+root of the checkout, compiled for ``sm_90a``; ``<key>`` is a hash of the
+source and the flags, so a library is rebuilt exactly when either
+changed, and nvcc's ptxas report is kept beside it as ``.log``. The
+sources expose plain C functions, so no PyTorch header is compiled and a
+build takes seconds. Nothing is built when this module is imported;
+``build_all`` starts one ``nvcc`` per source that lacks its library, all
+at once.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -25,8 +28,6 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register / shared memory / spill report) per source
-PTXAS_REPORT: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -47,25 +48,28 @@ def sources() -> list[str]:
 
 
 def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                         + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}.{key}.so"
 
 
-def _stale(name: str) -> bool:
-    lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+def report(name: str) -> str:
+    """nvcc's output (the ptxas register, shared memory and spill lines)
+    of the build of ``csrc/<name>.cu`` that ``load`` uses."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def build_all(names=None) -> dict[str, str]:
-    """Compile every stale source in parallel (one ``nvcc`` each);
-    returns {name: nvcc output}. Raises if any build fails."""
+    """Compile every source that lacks its library in parallel, one
+    ``nvcc`` each; returns {name: nvcc output} of those built. Raises if
+    any build fails."""
     names = sources() if names is None else list(names)
-    todo = [n for n in names if _stale(n)]
+    todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
+    procs, outputs = {}, {}
     for name in todo:
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
         cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -75,14 +79,15 @@ def build_all(names=None) -> dict[str, str]:
     failed = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        PTXAS_REPORT[name] = out
+        outputs[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}.cu (rc {proc.returncode}):\n{out}")
         else:
+            _lib_path(name).with_suffix(".log").write_text(out)
             os.replace(tmp, _lib_path(name))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {n: PTXAS_REPORT[n] for n in todo}
+    return outputs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,10 +1,17 @@
 """Attention kernels of the LM serving path.
 
-The wrappers of ``csrc/flash_attention.cu``: ``flash_attention``
-replaces ``_attn_kernel`` and ``flash_decode`` replaces
-``_decode_kernel`` of ``repro.kernels.flash_attention``. On CPU tensors
-they run the plain torch versions (``kernels/ref.py``); on CUDA tensors
-they launch the kernels or raise.
+The wrappers of ``csrc/flash_attention_wgmma.cu`` and
+``csrc/flash_attention.cu``: ``flash_attention`` replaces
+``_attn_kernel`` and ``flash_decode`` replaces ``_decode_kernel`` of
+``repro.kernels.flash_attention``. On CPU tensors they run the plain
+torch versions (``kernels/ref.py``); on CUDA tensors they launch a
+kernel or raise.
+
+``flash_attention`` picks its kernel by type (``prefill_kernel``):
+bfloat16 goes to the tensor-core kernel (wgmma fed by TMA, launch key
+``flash_attention_wgmma``), float32 to the CUDA-core kernel (f32 FMA,
+key ``flash_attention``), because wgmma on float32 means TF32, which
+would not hold the float32 tolerance.
 
 Contract (the shapes of ``repro.kernels.ops.flash_attention`` and
 ``flash_decode``):
@@ -14,7 +21,8 @@ Contract (the shapes of ``repro.kernels.ops.flash_attention`` and
 - ``flash_decode(q, k, v, kv_len)``: q [b, hq, d], k and v
   [b, hkv, S, d], kv_len an int or [b] int32; positions >= kv_len are
   masked, and kv_len = 0 gives 0.
-The kernels take d in {64, 128, 256}.
+The kernels take d in {64, 128, 256}; the tensor-core kernel also needs
+16-byte aligned inputs.
 """
 from __future__ import annotations
 
@@ -25,8 +33,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = {"flash_attention": 0, "flash_decode": 0,
-            "flash_decode_combine": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
+            "flash_decode": 0, "flash_decode_combine": 0}
 HEAD_DIMS = (64, 128, 256)
 SMEM_LIMIT = 232448        # dynamic shared memory a block may opt into
 
@@ -54,6 +62,13 @@ def _check(name: str, tensors, d: int, hq: int, hkv: int) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def prefill_kernel(dtype: torch.dtype) -> str:
+    """The kernel that serves a prefill of this dtype: "wgmma" (tensor
+    cores; bfloat16) or "cuda_core" (float32). Both take every d in
+    ``HEAD_DIMS``."""
+    return "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def _scale_log2(d: int) -> float:
     return (1.0 / math.sqrt(d)) * math.log2(math.e)
 
@@ -70,17 +85,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, hkv, skv, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    wgmma = prefill_kernel(q.dtype) == "wgmma"
+    if wgmma and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the tensor-core kernel's TMA "
+                         "loads need 16-byte aligned inputs")
     out = torch.empty_like(q)
-    if out.numel():
-        lib = _lib()
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            rc = lib.flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, d,
-                int(causal), _scale_log2(d), stream)
-        _build.check(rc, "flash_attention")
-        LAUNCHES["flash_attention"] += 1
+    if not out.numel():
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if wgmma:
+            rc = _lib_wgmma().flash_attention_wgmma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
+            _build.check(rc, "flash_attention_wgmma")
+            LAUNCHES["flash_attention_wgmma"] += 1
+        else:
+            rc = _lib().flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
+            _build.check(rc, "flash_attention")
+            LAUNCHES["flash_attention"] += 1
     return out
 
 
@@ -147,12 +172,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _lib_wgmma():
+    lib = _build.load("flash_attention_wgmma")
+    if lib.flash_attention_wgmma.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_wgmma.argtypes = [P, P, P, P, I, I, I, I, I, I,
+                                              I, F, P]
+        lib.flash_attention_wgmma.restype = I
+    return lib
+
+
 def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_attention.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
-                                        F, P]
+        lib.flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F,
+                                        P]
         lib.flash_attention.restype = I
         lib.flash_decode_smem.argtypes = [I, I]
         lib.flash_decode_smem.restype = ctypes.c_int64

@@ -1,14 +1,17 @@
 """Sorted-segment reduction (sum / min / max).
 
-The wrapper of ``csrc/segment_reduce.cu`` (one warp per segment), which
-replaces both TPU kernels of ``repro.kernels.segment_reduce``
-(``_resident_kernel`` and ``_tiled_kernel``). On CPU tensors it runs the
+The wrapper of ``csrc/segment_reduce.cu`` (a row-parallel pass: an
+identity fill, a tiled segmented scan, and a combine of the runs that
+cross tiles), which replaces both TPU kernels of
+``repro.kernels.segment_reduce`` (``_resident_kernel`` and
+``_tiled_kernel``). On CPU tensors it runs the
 plain torch version (``kernels/ref.py``); on CUDA tensors it launches
 the kernel or raises.
 
 Contract: ``values`` [n] or [n, d] int32/float32, ``seg_ids`` [n] int32
 sorted ascending; ids outside [0, num_segments) are dropped; int32 sums
-wrap; empty segments get 0, the int32 extremes or +-inf.
+wrap; empty segments get 0, the int32 extremes or +-inf; float sums are
+deterministic (the same bits on every run).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.kernels import _build, ref
 
 OPS = {"sum": 0, "min": 1, "max": 2}
 LAUNCHES = {"segment_reduce": 0}
+SMEM_LIMIT = 232448        # dynamic shared memory a block may opt into
 
 segment_reduce_plain = ref.segment_reduce_ref
 
@@ -55,14 +59,21 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
     d = 1 if values.dim() == 1 else values.shape[1]
     out = torch.empty((num_segments,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
-    if num_segments:
+    if num_segments and d:
         lib = _fn()
+        if lib.segment_reduce_smem(d) > SMEM_LIMIT:
+            raise ValueError(f"segment_reduce: {d} columns need "
+                             f"{lib.segment_reduce_smem(d)} B of shared "
+                             f"memory")
+        # 2 partials per tile for the runs that cross a tile's edge
+        scratch = torch.empty((lib.segment_reduce_scratch(n, d),),
+                              dtype=values.dtype, device=values.device)
         with torch.cuda.device(values.device):
             stream = torch.cuda.current_stream(values.device).cuda_stream
             rc = lib.segment_reduce(
                 values.data_ptr(), int(values.dtype == torch.float32),
                 seg_ids.data_ptr(), n, d, num_segments, OPS[op],
-                out.data_ptr(), stream)
+                out.data_ptr(), scratch.data_ptr(), stream)
         _build.check(rc, "segment_reduce")
         LAUNCHES["segment_reduce"] += 1
     return out
@@ -74,6 +85,12 @@ def _fn():
     if f.argtypes is None:
         f.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p]
         f.restype = ctypes.c_int
+        for g in (lib.segment_reduce_scratch, lib.segment_reduce_smem):
+            g.restype = ctypes.c_int64
+        lib.segment_reduce_scratch.argtypes = [ctypes.c_int64,
+                                               ctypes.c_int64]
+        lib.segment_reduce_smem.argtypes = [ctypes.c_int64]
     return lib

@@ -96,6 +96,73 @@ def test_segment_kernel_float32_and_deterministic(cuda):
     torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
 
 
+def _segment_case(case, n, rng):
+    """Sorted int32 ids for n rows over 1000 segments."""
+    if case == "one_long_run":      # one id over most rows: many tiles
+        seg = np.sort(rng.integers(0, 1000, n))
+        seg[n // 10: n - n // 10] = seg[n // 10]
+    elif case == "all_dead_high":
+        seg = np.full(n, 1000)
+    elif case == "all_dead_negative":
+        seg = np.full(n, -7)
+    elif case == "negative_head":   # a third of the rows dropped
+        seg = np.sort(rng.integers(-500, 1000, n))
+    else:                           # "random": ids both sides of range
+        seg = np.sort(rng.integers(-3, 1004, n))
+    return np.ascontiguousarray(seg, dtype=np.int32)
+
+
+@pytest.mark.parametrize("d", [1, 5, 10, 64])
+@pytest.mark.parametrize("n", [1, 2047, 2048, 70001])
+@pytest.mark.parametrize("case", ["one_long_run", "all_dead_high",
+                                  "all_dead_negative", "negative_head",
+                                  "random"])
+def test_segment_kernel_tiles_and_dead_ids(cuda, case, n, d):
+    """Runs across tile edges (one run over most of 70,001 rows), every
+    id dead above or below the range, a head of negative ids, n below,
+    at and past a tile (2048 rows at d = 1) and no multiple of it; int32
+    min and wrapping sums, and float32 sums exact in any order, all
+    equal to the plain version."""
+    from repro_torch.kernels import segment_reduce as SR
+    rng = np.random.default_rng(n + d)
+    s = torch.from_numpy(_segment_case(case, n, rng)).to(cuda)
+    ints = rng.integers(-(1 << 31), (1 << 31) - 1, (n, d), dtype=np.int64)
+    v = torch.from_numpy(ints.astype(np.int32)).to(cuda)
+    f = torch.from_numpy(rng.integers(-512, 512, (n, d)) / 256.0).to(
+        device=cuda, dtype=torch.float32)
+    if d == 1:
+        v, f = v[:, 0].contiguous(), f[:, 0].contiguous()
+    before = SR.LAUNCHES["segment_reduce"]
+    for vals, op in ((v, "min"), (v, "sum"), (f, "sum"), (f, "max")):
+        out = SR.segment_reduce(vals, s, 1000, op)
+        ref = SR.segment_reduce_plain(vals, s, 1000, op)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (case, op)
+    assert SR.LAUNCHES["segment_reduce"] == before + 4
+
+
+@pytest.mark.parametrize("d", [1, 10])
+def test_segment_kernel_float_sums_are_bit_identical(cuda, d):
+    """Values whose sums round: two runs give the same bits, and the sums
+    are near the plain version's (which adds in another order)."""
+    from repro_torch.kernels import segment_reduce as SR
+    g = torch.Generator(device=cuda)
+    g.manual_seed(d)
+    n = 300_000
+    seg = torch.sort(torch.randint(0, 2000, (n,), generator=g, device=cuda,
+                                   dtype=torch.int32)).values
+    vals = torch.randn((n, d), generator=g, device=cuda)
+    if d == 1:
+        vals = vals[:, 0].contiguous()
+    a = SR.segment_reduce(vals, seg, 2000, "sum")
+    b = SR.segment_reduce(vals, seg, 2000, "sum")
+    ref = SR.segment_reduce_plain(vals, seg, 2000, "sum")
+    mag = SR.segment_reduce_plain(vals.abs(), seg, 2000, "sum")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert bool(((a - ref).abs() <= 1e-6 * mag).all())
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     from repro_torch.kernels.merge_probe import merge_probe
     from repro_torch.kernels.segment_reduce import segment_reduce
@@ -109,6 +176,12 @@ def test_wrappers_refuse_bad_inputs(cuda):
                     torch.zeros((4, 5), dtype=torch.int64, device=cuda))
     with pytest.raises(TypeError):
         segment_reduce(keys, keys.to(torch.int32), 8, "sum")
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_reduce(torch.zeros((8, 2), device=cuda).t(),
+                       keys[:2].to(torch.int32), 8, "sum")
+    with pytest.raises(ValueError, match="shared memory"):
+        segment_reduce(torch.zeros((8, 100_000), device=cuda),
+                       keys.to(torch.int32), 8, "sum")
 
 
 @pytest.mark.parametrize("program", ["TC", "Sum", "WideReach2"])
@@ -155,19 +228,22 @@ def _normal(gen, shape, dtype, dev):
 def test_flash_attention_kernel_matches_plain(cuda, d, dtype, hq, hkv, sq,
                                               skv):
     """GQA groups 1, 2 and 16; tails that are no tile multiple; a chunk
-    of queries at the end of a longer cache; more queries than keys."""
+    of queries at the end of a longer cache; more queries than keys.
+    bfloat16 runs the tensor-core kernel, float32 the CUDA-core one."""
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=cuda)
     gen.manual_seed(d + sq)
     q = _normal(gen, (2, hq, sq, d), dtype, cuda)
     k = _normal(gen, (2, hkv, skv, d), dtype, cuda)
     v = _normal(gen, (2, hkv, skv, d), dtype, cuda)
+    key = ("flash_attention_wgmma" if dtype == torch.bfloat16
+           else "flash_attention")
     for causal in (True, False):
-        before = FA.LAUNCHES["flash_attention"]
+        before = dict(FA.LAUNCHES)
         out = FA.flash_attention(q, k, v, causal=causal)
         want = FA.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert FA.LAUNCHES["flash_attention"] == before + 1
+        assert FA.LAUNCHES == {**before, key: before[key] + 1}
         assert out.dtype == dtype and out.shape == q.shape
         rtol, atol = ATTN_TOL[dtype]
         torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
@@ -227,6 +303,11 @@ def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
     with pytest.raises(ValueError, match="kv_len"):
         FA.flash_decode(q[:, :, 0].contiguous(), q, q,
                         torch.tensor([8], device=cuda))
+    # the tensor-core kernel's TMA loads need 16-byte aligned inputs
+    flat = torch.zeros(4 * 8 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(1, 4, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention(odd, q.bfloat16(), q.bfloat16())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -250,7 +331,9 @@ def test_transformer_on_card_matches_cpu(cuda, dtype):
     gpu = serve.generate(T.Transformer(cfg, params, device=cuda), prompts,
                          steps)
     counts = launch_counts()
-    assert counts["flash_attention"] == cfg.n_layers
+    prefill = ("flash_attention_wgmma" if dtype == "bfloat16"
+               else "flash_attention")
+    assert counts[prefill] == cfg.n_layers
     assert counts["flash_decode"] == counts["flash_decode_combine"] == (
         steps * cfg.n_layers)
     np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
