@@ -11,7 +11,9 @@ Phases, each printing its wall time:
              nvcc in parallel, with ptxas' register/spill report;
 3. kernels   each engine kernel against its plain torch version on the
              card, at the shapes the engine gives it, timed with CUDA
-             events beside its byte bound and one library call; the
+             events beside its byte bound and one library call (the
+             probe on unsorted probes and on the same probes sorted,
+             with its ptxas registers and spills); the
              segment reduce also over a run of 2**20 rows, all-dead and
              negative ids, the embedding_bag shape (timed) and a float
              sum that rounds, run twice for the same bits;
@@ -19,9 +21,10 @@ Phases, each printing its wall time:
              LM shapes (qwen3-1.7b prefill at 4096 tokens in bf16 on the
              tensor-core kernel and in f32 on the CUDA-core one, a
              chunked prefill, gemma's d = 256, chatglm3's GQA 16:1,
-             decode over a 32768-position cache), timed beside their
-             bounds and scaled_dot_product_attention, with the
-             tensor-core kernel's ptxas registers and spills;
+             decode over a 32768-position cache, each decode run twice
+             for the same bits), timed beside their bounds and
+             scaled_dot_product_attention, with the tensor-core and
+             decode kernels' ptxas registers and spills;
 5. engine    Reach, CC and SSSP with the port's Engine on the card over a
              Graph500 Kronecker graph (scale 22, edge factor 16, A, B, C =
              0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph;
@@ -126,14 +129,23 @@ def nvidia_smi_line() -> str:
 
 # -- timing ------------------------------------------------------------------
 
-def cuda_ms(torch, fn, reps=5, warmup=2) -> float:
+LEAD_CYCLES = 20_000_000     # about 10 ms of the card's clock
+
+
+def cuda_ms(torch, fn, reps=5, warmup=2, lead=True) -> float:
     """Mean device time of ``fn()`` in ms, from CUDA events around
-    ``reps`` back-to-back calls after ``warmup`` calls."""
+    ``reps`` back-to-back calls after ``warmup`` calls. With ``lead`` the
+    device first spins for ``LEAD_CYCLES`` (``torch.cuda._sleep``), so
+    the host has queued the calls before the first event: a call whose
+    kernels take less time than the host takes to launch them is timed
+    on the device, not at the host's launch rate (``lead=False``)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if lead:
+        torch.cuda._sleep(LEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -178,32 +190,61 @@ def probe_inputs(torch, gen, m, n, w, dev):
     return build, probe.contiguous()
 
 
+def probe_bytes(torch, m, w, n, lo, hi):
+    """(bytes, keys): what a search of these probes must move at least,
+    the probe keys read once, the two ranks written once and the build
+    keys that decide the ranks (at lo - 1, lo, hi - 1 and hi), each
+    distinct key read once. A search reads no other key for certain, so
+    a fast one can beat a bound that reads the whole build."""
+    pos = torch.cat([lo - 1, lo, hi - 1, hi]).long()
+    keys = int(torch.unique(pos[(pos >= 0) & (pos < m)]).numel())
+    return n * w * 8 + 2 * n * 4 + keys * w * 8, keys
+
+
 def check_probe(torch, gen, dev, w, m, n):
+    """The probe kernel against its plain version, exactly, on unsorted
+    probes (``relops.membership``) and on the same probes sorted (the
+    ``merge_ranks`` case); each timed beside the byte bound and, at
+    W = 1, two ``torch.searchsorted`` calls."""
+    from repro_torch.engine.relation import lex_order_words
     from repro_torch.kernels import merge_probe as MP
     build, probe = probe_inputs(torch, gen, m, n, w, dev)
-    lo, hi = MP.merge_probe(build, probe)
-    plo, phi = MP.merge_probe_plain(build, probe)
-    torch.cuda.synchronize()
-    err = max(int((lo.long() - plo.long()).abs().max()),
-              int((hi.long() - phi.long()).abs().max()))
-    if err:
-        raise AssertionError(f"probe W={w}: kernel differs from the "
-                             f"plain version (max abs err {err})")
-    ms = cuda_ms(torch, lambda: MP.merge_probe(build, probe))
-    plain_ms = cuda_ms(torch, lambda: MP.merge_probe_plain(build, probe),
-                       reps=2, warmup=1)
-    library_ms = None
-    if w == 1:
-        library_ms = cuda_ms(torch, lambda: (
-            torch.searchsorted(build, probe, side="left"),
-            torch.searchsorted(build, probe, side="right")))
-    nbytes = (m + n) * w * 8 + 2 * n * 4
-    print(f"probe W={w} m={m} n={n}: exact; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library {library_ms} ms, byte bound "
-          f"{bound_ms(nbytes):.4f} ms ({nbytes} B)", flush=True)
-    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms(nbytes), bound_by="bytes",
-                library_ms=library_ms)
+    order = (torch.sort(probe).indices if w == 1
+             else lex_order_words(probe))
+    out = {}
+    for label, keys in (("unsorted", probe), ("sorted", probe[order])):
+        keys = keys.contiguous()
+        lo, hi = MP.merge_probe(build, keys)
+        plo, phi = MP.merge_probe_plain(build, keys)
+        torch.cuda.synchronize()
+        err = max(int((lo.long() - plo.long()).abs().max()),
+                  int((hi.long() - phi.long()).abs().max()))
+        if err:
+            raise AssertionError(f"probe W={w} {label}: kernel differs from "
+                                 f"the plain version (max abs err {err})")
+        if label == "unsorted":
+            nbytes, decide = probe_bytes(torch, m, w, n, plo, phi)
+            out.update(bound_ms=bound_ms(nbytes), bound_by="bytes")
+        ms = cuda_ms(torch, lambda: MP.merge_probe(build, keys))
+        plain_ms = cuda_ms(torch, lambda: MP.merge_probe_plain(build, keys),
+                           reps=2, warmup=1)
+        library_ms = None
+        if w == 1:
+            library_ms = cuda_ms(torch, lambda: (
+                torch.searchsorted(build, keys, side="left"),
+                torch.searchsorted(build, keys, side="right")))
+        print(f"probe W={w} m={m} n={n} {label} probes: exact; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms} "
+              f"ms, byte bound {bound_ms(nbytes):.4f} ms ({nbytes} B with "
+              f"{decide} deciding build keys; "
+              f"{100 * bound_ms(nbytes) / ms:.1f}% of it)", flush=True)
+        if label == "unsorted":
+            out.update(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms)
+        else:
+            out["sorted_probes"] = dict(ms=ms, plain_ms=plain_ms,
+                                        library_ms=library_ms)
+    return out
 
 
 def segment_inputs(torch, gen, n, d, num_segments, dtype, dev):
@@ -350,6 +391,12 @@ def run_kernel_checks(torch, seed, dev, m=1 << 26, n=1 << 22,
                       big=1 << 27):
     """Probe: build m keys, probe n keys. Segment reduce: n = segments
     = big (the engine's capacity-sized duplicate-combine)."""
+    import re
+    from repro_torch.kernels import _build
+    for entry, lines in ptxas_lines(_build.report("merge_probe")).items():
+        w = re.search(r"probe_kernelILi(\d+)E", entry)
+        print(f"ptxas probe_kernel<{w.group(1) if w else '?'}>: "
+              + "; ".join(lines), flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     results = {}
@@ -681,6 +728,9 @@ def check_attention(torch, label, q, k, v, causal=True, kv_len=None,
         plain = functools.partial(FA.flash_decode_plain, q, k, v, kv_len)
     out, want = kernel().float(), plain().float()
     torch.cuda.synchronize()
+    if kv_len is not None and not torch.equal(out, kernel().float()):
+        raise AssertionError(f"{label}: a second decode call gave other "
+                             f"bits")
     rtol, atol = ATTN_TOL[str(q.dtype).split(".")[-1]]
     err = float((out - want).abs().max())
     tol = (f"max |want| {float(want.abs().max())}, rtol {rtol} atol "
@@ -695,12 +745,17 @@ def check_attention(torch, label, q, k, v, causal=True, kv_len=None,
     library_ms = (cuda_ms(torch, lambda: sdpa(torch, q, k, v, causal, kv_len))
                   if library else None)
     b_ms, bound_by = attention_bound(q, k, causal, kv_len)
-    print(f"{label}: max abs err {err} ({tol}); kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, SDPA {library_ms} ms, bound "
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    paced = ""
+    if kv_len is not None:   # short enough for the host to pace it
+        out["host_paced_ms"] = cuda_ms(torch, kernel, lead=False)
+        paced = f" (at the host's launch rate {out['host_paced_ms']:.4f} ms)"
+    print(f"{label}: max abs err {err} ({tol}); kernel {ms:.4f} ms"
+          f"{paced}, plain {plain_ms:.4f} ms, SDPA {library_ms} ms, bound "
           f"{b_ms:.4f} ms by {bound_by} ({100 * b_ms / ms:.1f}% of it)",
           flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    return out
 
 
 def ptxas_lines(report: str) -> dict:
@@ -729,6 +784,15 @@ def run_attention_checks(torch, seed, dev):
             d = re.search(r"ILi(\d+)E", entry)
             print(f"ptxas attn_wgmma_kernel<{d.group(1) if d else '?'}>: "
                   + "; ".join(lines), flush=True)
+    for entry, lines in ptxas_lines(
+            _build.report("flash_attention")).items():
+        t = re.search(r"decode_split_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)E", entry)
+        if t:
+            dtype = "float" if t.group(1) == "f" else "bf16"
+            print(f"ptxas decode_split_kernel<{dtype}, d={t.group(2)}, "
+                  f"heads/warp={t.group(3)}>: " + "; ".join(lines),
+                  flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 

@@ -3,12 +3,12 @@ at first use and binds them with ``ctypes``.
 
 Each ``<name>.cu`` becomes ``build/kernels/lib<name>.<key>.so`` at the
 root of the checkout, compiled for ``sm_90a``; ``<key>`` is a hash of the
-source and the flags, so a library is rebuilt exactly when either
-changed, and nvcc's ptxas report is kept beside it as ``.log``. The
-sources expose plain C functions, so no PyTorch header is compiled and a
-build takes seconds. Nothing is built when this module is imported;
-``build_all`` starts one ``nvcc`` per source that lacks its library, all
-at once.
+source, the headers beside it (``*.cuh``) and the flags, so a library is
+rebuilt exactly when one of them changed, and nvcc's ptxas report is
+kept beside it as ``.log``. The sources expose plain C functions, so no
+PyTorch header is compiled and a build takes seconds. Nothing is built
+when this module is imported; ``build_all`` starts one ``nvcc`` per
+source that lacks its library, all at once.
 """
 from __future__ import annotations
 
@@ -48,7 +48,9 @@ def sources() -> list[str]:
 
 
 def _lib_path(name: str) -> Path:
-    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))]
+    key = hashlib.sha256(b"".join(parts)
                          + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}.{key}.so"
 

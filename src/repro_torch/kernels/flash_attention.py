@@ -21,8 +21,9 @@ Contract (the shapes of ``repro.kernels.ops.flash_attention`` and
 - ``flash_decode(q, k, v, kv_len)``: q [b, hq, d], k and v
   [b, hkv, S, d], kv_len an int or [b] int32; positions >= kv_len are
   masked, and kv_len = 0 gives 0.
-The kernels take d in {64, 128, 256}; the tensor-core kernel also needs
-16-byte aligned inputs.
+The kernels take d in {64, 128, 256}; the tensor-core kernel and the
+decode kernel (bulk copies and 16-byte vector reads) also need 16-byte
+aligned inputs.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from repro_torch.kernels import _build, ref
 LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
             "flash_decode": 0, "flash_decode_combine": 0}
 HEAD_DIMS = (64, 128, 256)
-SMEM_LIMIT = 232448        # dynamic shared memory a block may opt into
+SM_COUNT = 132             # the H100's streaming multiprocessors
+DECODE_CTAS_PER_SM = 2     # split CTAs resident per SM (96 KB rings)
 
 flash_attention_plain = ref.attention_ref
 flash_decode_plain = ref.decode_attention_ref
@@ -111,11 +113,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_splits(batch: int, hkv: int, S: int) -> tuple[int, int]:
     """(n_splits, split_len): cut the cache length so that the split
-    kernel has about 8 CTAs per SM of the H100's 132, with at least 256
-    positions per split; split_len is a multiple of 32 (the kernel's
-    key tile)."""
-    want = max(1, -(-8 * 132 // max(batch * hkv, 1)))
-    n = max(1, min(want, -(-S // 256)))
+    kernel's grid fills the H100's 132 SMs at two CTAs each in about one
+    wave, with 256 to 2048 positions per split (a split streams at least
+    four 64-row stages of a bf16 d = 128 cache; longer caches take more
+    waves, which evens out ragged lengths); split_len is a multiple of
+    32."""
+    want = max(1, SM_COUNT * DECODE_CTAS_PER_SM // max(batch * hkv, 1))
+    n = max(1, min(want, -(-S // 256)), -(-S // 2048))
     split_len = -(-S // n)
     split_len = -(-split_len // 32) * 32
     return -(-S // split_len) if S else 1, split_len
@@ -141,11 +145,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or kv_len.device != q.device or not kv_len.is_contiguous()):
         raise ValueError(f"flash_decode: kv_len must be [b] int32 on "
                          f"{q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode: the kernel's bulk copies and vector "
+                         "reads need 16-byte aligned inputs")
     lib = _lib()
-    smem = lib.flash_decode_smem(d, hq // hkv)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"flash_decode: {hq // hkv} query heads per KV "
-                         f"head need {smem} B of shared memory")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -189,8 +192,6 @@ def _lib():
         lib.flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F,
                                         P]
         lib.flash_attention.restype = I
-        lib.flash_decode_smem.argtypes = [I, I]
-        lib.flash_decode_smem.restype = ctypes.c_int64
         lib.flash_decode_split.argtypes = [P, P, P, P, P, P, P, I, I, I, I,
                                            I, I, I, I, F, P]
         lib.flash_decode_split.restype = I

@@ -8,6 +8,10 @@ launches the kernel or raises.
 
 Contract: ``lo`` and ``hi`` are exactly ``searchsorted`` left and right
 for every probe key, sorted or not, KEY_PAD included.
+
+The kernel searches a sample of the build keys in shared memory first,
+then a window of ``stride`` keys in device memory; ``sample_plan``
+chooses the sample for the build's size and word count.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 MAX_WORDS = 4
+SAMPLE_BYTES = 32768     # the shared-memory sample's ceiling per CTA
 # launches of the CUDA kernel per wrapper (W = 1 / W >= 2)
 LAUNCHES = {"probe": 0, "probe_multi": 0}
 
@@ -27,6 +32,18 @@ def merge_probe_plain(build_keys: torch.Tensor, probe_keys: torch.Tensor):
     if build_keys.dim() == 1:
         return ref.merge_probe_ref(build_keys, probe_keys)
     return ref.merge_probe_multi_ref(build_keys, probe_keys)
+
+
+def sample_plan(m: int, w: int) -> tuple[int, int]:
+    """(stride, n_samples): the kernel's sample is build[j * stride] for
+    j < n_samples, at most ``SAMPLE_BYTES`` of keys (4096 at W = 1, 2048
+    at W = 2, 1024 at W = 3 or 4: a power of two), so that
+    (n_samples - 1) * stride < m <= n_samples * stride."""
+    if m == 0:
+        return 1, 0
+    cap = 1 << ((SAMPLE_BYTES // (8 * w)).bit_length() - 1)
+    stride = -(-m // cap)
+    return stride, -(-m // stride)
 
 
 def _check(build_keys: torch.Tensor, probe_keys: torch.Tensor) -> int:
@@ -67,11 +84,13 @@ def merge_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
     hi = torch.empty((n,), dtype=torch.int32, device=dev) if upper else None
     if n:
         lib = _fn()
+        m = build_keys.shape[0]
+        stride, n_samples = sample_plan(m, w)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.merge_probe(
-                build_keys.data_ptr(), build_keys.shape[0],
-                probe_keys.data_ptr(), n, w, lo.data_ptr(),
+                build_keys.data_ptr(), m, probe_keys.data_ptr(), n, w,
+                stride, n_samples, lo.data_ptr(),
                 hi.data_ptr() if upper else None, stream)
         _build.check(rc, "merge_probe")
         LAUNCHES["probe" if w == 1 else "probe_multi"] += 1
@@ -83,7 +102,8 @@ def _fn():
     f = lib.merge_probe
     if f.argtypes is None:
         f.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                      ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p]
+                      ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p]
         f.restype = ctypes.c_int
     return lib

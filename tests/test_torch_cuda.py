@@ -31,20 +31,38 @@ def _lexsorted(rows):
 
 @pytest.mark.parametrize("width", [1, 2, 3, 4])
 @pytest.mark.parametrize("case", ["random", "pad_tails", "empty_build",
-                                  "63bit"])
+                                  "63bit", "long_runs", "sorted_probes"])
 def test_probe_kernel_matches_plain(cuda, width, case):
+    """Small builds (the sample is the whole build), and builds of more
+    than 4 samples' worth of keys (the sample at its ceiling, windows of
+    several keys): runs of equal keys far longer than the sample stride,
+    and sorted probes (the merge of two arrangements)."""
     from repro_torch.kernels import merge_probe as MP
     rng = np.random.default_rng(width)
     top = (1 << 63) - 1 if case == "63bit" else 5
-    build = _lexsorted(rng.integers(0, top, size=(300, width),
+    m, n = 300, 200
+    if case in ("long_runs", "sorted_probes"):
+        cap = MP.sample_plan(1 << 30, width)[1]     # the sample's ceiling
+        m, n = 5 * cap + 123, 5000
+        top = {"long_runs": 7 if width == 1 else 2,
+               "sorted_probes": 1 << 40}[case]
+    build = _lexsorted(rng.integers(0, top, size=(m, width),
                                     dtype=np.int64))
-    probe = rng.integers(0, top, size=(200, width), dtype=np.int64)
-    probe[:50] = build[rng.integers(0, 300, 50)]
+    probe = rng.integers(0, top, size=(n, width), dtype=np.int64)
+    probe[:50] = build[rng.integers(0, m, 50)]
     if case == "pad_tails":
         build[250:] = int(KEY_PAD)
         probe[::7] = int(KEY_PAD)
     if case == "empty_build":
         build = build[:0]
+    if case == "long_runs":
+        assert MP.sample_plan(m, width)[0] > 1
+        build[-m // 5:] = int(KEY_PAD)
+        probe[::11] = int(KEY_PAD)
+    if case == "sorted_probes":
+        probe[::13] = -1                        # below every key
+        probe[::17] = int(KEY_PAD)              # above every live key
+        probe = _lexsorted(probe)
     b = torch.from_numpy(build).to(cuda)
     p = torch.from_numpy(probe).to(cuda)
     if width == 1:
@@ -283,6 +301,33 @@ def test_flash_decode_kernel_matches_plain(cuda, d, dtype, hq, hkv, S):
         FA.flash_decode_plain(q, k, v, S).float(), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(32, 2), (16, 16), (6, 2)])
+def test_flash_decode_ragged_stages_and_deterministic(cuda, d, dtype, hq,
+                                                      hkv):
+    """Lengths that end inside a stage of the K/V ring and inside a
+    split (S = 4133, kv_len 4133, 2999, 1025, 31), GQA groups 16
+    (chatglm3), 1 (gemma, d = 256) and 3 (heads that do not fill a warp's
+    four); a second call gives the same bits."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + hq)
+    S = 4133
+    q = _normal(gen, (4, hq, d), dtype, cuda)
+    k = _normal(gen, (4, hkv, S, d), dtype, cuda)
+    v = _normal(gen, (4, hkv, S, d), dtype, cuda)
+    lens = torch.tensor([S, 2999, 1025, 31], dtype=torch.int32, device=cuda)
+    out = FA.flash_decode(q, k, v, lens)
+    again = FA.flash_decode(q, k, v, lens)
+    want = FA.flash_decode_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
     from repro_torch.kernels import flash_attention as FA
     q = torch.zeros((1, 4, 8, 32), device=cuda)       # head dim 32
@@ -308,6 +353,9 @@ def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
     odd = flat[1:].view(1, 4, 8, 64)
     with pytest.raises(ValueError, match="aligned"):
         FA.flash_attention(odd, q.bfloat16(), q.bfloat16())
+    # so do the decode kernel's bulk copies
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_decode(q[:, :, 0].bfloat16().contiguous(), odd, odd, 8)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
