@@ -6,7 +6,7 @@ NVIDIA GPU and checks it.
 
 Phases, each printing its wall time:
 
-1. device    the card's name and power limit;
+1. card      the card's name and power limit;
 2. build     the CUDA kernels under src/repro_torch/csrc/, compiled with
              nvcc in parallel, with ptxas' register/spill report;
 3. kernels   each engine kernel against its plain torch version on the
@@ -30,7 +30,21 @@ Phases, each printing its wall time:
              0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph;
 6. wide      Reach again under force_multiword(), so every key is two
              words and every probe takes the multi-word kernel;
-7. serve     qwen3-1.7b at full width through repro_torch.launch.serve:
+7. device    the four runs of phases 5 and 6 in the engine's device mode
+             (one iteration captured as a CUDA graph and replayed), each
+             held to scipy, to host mode's iterations and to zero grow
+             retries, timed beside host mode; a kernel inside the graph
+             counts once per capture, not per replay;
+8. incremental
+             Reach and CC maintained in device mode under a stream seeded
+             by --seed: 2 x 65,536 new random edges, 65,536 existing
+             edges deleted, then both at once, drawn from an edge set
+             kept apart with numpy; after every step the engine's edge
+             mirror equals that set and the state equals a batch run
+             over it byte for byte, after the last also scipy; each
+             apply's latency beside the batch run's time, DRed's rounds
+             and candidate rows, peak memory;
+9. serve     qwen3-1.7b at full width through repro_torch.launch.serve:
              random bf16 weights from --seed, 8 requests of 2048 prompt
              tokens, 64 greedy tokens, twice: a run that captures the
              attention inputs of the first and last layer, then a run
@@ -42,7 +56,7 @@ Phases, each printing its wall time:
              depth cut to 2 layers (2 x 512 prompt tokens, 4 steps),
              counted, whose prefill runs the CUDA-core kernel, against
              the same run through the plain versions;
-8. recsys    the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
+10. recsys   the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
              row table, random weights from --seed): the interaction kernel
              against its plain version at the reference's kernel-test
              shapes and at the serve_bulk shape, in float32 and bfloat16,
@@ -54,10 +68,13 @@ Phases, each printing its wall time:
              negative ids, and embedding_bag over 262,144 bags of 0 to 8
              ids; logits and scores held against a float64 numpy forward
              on the host, the bags against the plain version;
-9. launches  each kernel's launch count over the counted runs of phases
-             5-8 (each counted from 0 just before it); a zero fails.
+11. launches each kernel's launch count over the host-mode runs of
+             phases 5, 6, 9 and 10 (each counted from 0 just before
+             it), and apart the engine kernels' calls in phases 7 and 8
+             (once per capture); a zero in either fails.
 
-With ``--profile``, each of Reach, CC and SSSP, the serve prefill, four
+With ``--profile``, each of Reach, CC and SSSP in host and in device
+mode, the serve prefill, four
 decode steps and one serve_bulk batch then run once more under
 torch.profiler, which prints device time by kernel family, the device's
 busy share of the run's wall time and the busiest host ops (not part of
@@ -82,32 +99,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA's data sheet
-
-REACH = """
-.input edge
-.input source
-.output reach
-reach(x) :- source(x).
-reach(y) :- reach(x), edge(x, y).
-"""
-
-CC = """
-.input edge
-.output cc
-cc(x, MIN(x)) :- edge(x, _).
-cc(y, MIN(y)) :- edge(_, y).
-cc(x, MIN(i)) :- edge(y, x), cc(y, i).
-cc(x, MIN(i)) :- edge(x, y), cc(y, i).
-"""
-
-SSSP = """
-.input edge
-.input source
-.output dist
-dist(x, MIN(0)) :- source(x).
-dist(y, MIN(d + c)) :- dist(x, d), edge(x, y, c).
-"""
-
 
 @contextlib.contextmanager
 def phase(name):
@@ -418,36 +409,29 @@ def run_kernel_checks(torch, seed, dev, m=1 << 26, n=1 << 22,
     return results
 
 
-# -- phase 4: engine at real size --------------------------------------------
+# -- phases 5 to 8: the engine at real size --------------------------------
 
-def kronecker_edges(scale: int, edge_factor: int, seed: int):
-    """Graph500 Kronecker generator (initiator A, B, C = 0.57, 0.19,
-    0.19) with its random vertex permutation: edge_factor * 2**scale
-    directed edges, duplicates and self-loops included."""
+def reach_and_cc(g, n, x, y, source):
+    """Reach from ``source`` and CC (each vertex with an edge, with its
+    component's least vertex) of the graph ``g`` (scipy CSR, n x n, edges
+    x -> y), as sorted arrays."""
     import numpy as np
-    rng = np.random.default_rng(seed)
-    n, m = 1 << scale, edge_factor << scale
-    a, b, c = 0.57, 0.19, 0.19
-    ab = a + b
-    c_norm, a_norm = np.float32(c / (1 - ab)), np.float32(a / ab)
-    src = np.zeros(m, np.int32)
-    dst = np.zeros(m, np.int32)
-    for bit in range(scale):
-        ii = rng.random(m, dtype=np.float32) > ab
-        jj = rng.random(m, dtype=np.float32) > np.where(ii, c_norm, a_norm)
-        src |= ii.astype(np.int32) << bit
-        dst |= jj.astype(np.int32) << bit
-    perm = rng.permutation(n).astype(np.int32)
-    weights = rng.integers(1, 50, size=m).astype(np.int32)
-    return perm[src], perm[dst], weights
+    from scipy.sparse.csgraph import breadth_first_order, connected_components
+    reach = np.sort(breadth_first_order(g, source, directed=True,
+                                        return_predecessors=False))
+    ncomp, label = connected_components(g, directed=False)
+    comp_min = np.full(ncomp, n, np.int64)
+    np.minimum.at(comp_min, label, np.arange(n))
+    nodes = np.unique(np.concatenate([x, y]))
+    return reach, np.stack([nodes, comp_min[label[nodes]]], axis=1)
 
 
 def reference_answers(scale, src, dst, weights, source):
-    """Reach, CC and SSSP by scipy.sparse.csgraph, as sorted arrays."""
+    """Reach, CC and SSSP by scipy.sparse.csgraph, as sorted arrays, and
+    the distinct edges as sorted keys x << 32 | y."""
     import numpy as np
     import scipy.sparse as sp
-    from scipy.sparse.csgraph import (
-        breadth_first_order, connected_components, dijkstra)
+    from scipy.sparse.csgraph import dijkstra
     t0 = [time.perf_counter()]
 
     def stamp(what):
@@ -468,32 +452,43 @@ def reference_answers(scale, src, dst, weights, source):
     w = (key & 63).astype(np.float64)
     g = sp.csr_matrix((w, (x, y)), shape=(n, n))
     stamp("dedupe + CSR")
-    reach = np.sort(breadth_first_order(g, source, directed=True,
-                                        return_predecessors=False))
-    stamp("breadth_first_order")
-    ncomp, label = connected_components(g, directed=False)
-    comp_min = np.full(ncomp, n, np.int64)
-    np.minimum.at(comp_min, label, np.arange(n))
-    nodes = np.unique(np.concatenate([x, y]))
-    cc = np.stack([nodes, comp_min[label[nodes]]], axis=1)
-    stamp("connected_components")
+    reach, cc = reach_and_cc(g, n, x, y, source)
+    stamp("breadth_first_order + connected_components")
     dist = dijkstra(g, indices=source)
     stamp("dijkstra")
     hit = np.flatnonzero(np.isfinite(dist))
     sssp = np.stack([hit, dist[hit].astype(np.int64)], axis=1)
-    return reach, cc, sssp
+    return reach, cc, sssp, x.astype(np.int64) << 32 | y
+
+
+OUTPUT = {"Reach": "reach", "CC": "cc", "SSSP": "dist"}
+
+
+def hold_facts(np, label, got, want, against="the scipy reference"):
+    """Facts of a run equal to ``want`` (a one-column IDB flattened)."""
+    got = np.asarray(got, np.int64)
+    if got.ndim == 2 and got.shape[1] == 1:
+        got = got[:, 0]
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(
+            f"{label}: {got.shape[0]} facts differ from {against} "
+            f"({want.shape[0]} facts)")
+    print(f"{label}: {got.shape[0]} facts equal {against}", flush=True)
 
 
 def run_engine(torch, name, src_text, edbs, n, edge_cap, want,
-               multiword=False):
+               multiword=False, mode="host", title=None,
+               against="the scipy reference"):
+    """One counted run of ``name`` -> (launch counts, stats)."""
     import numpy as np
     from repro_torch.core.optimizer import compile_program
-    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.engine import Engine, Observation
     from repro_torch.engine.relation import force_multiword
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    cfg = EngineConfig(idb_cap=n, intermediate_cap=edge_cap,
-                       device="cuda")
-    engine = Engine(compile_program(src_text), cfg)
+    from repro_torch.launch.fixpoint import engine_config
+    obs = Observation() if mode == "device" else None
+    engine = Engine(compile_program(src_text),
+                    engine_config(n, edge_cap, mode, obs))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -504,25 +499,23 @@ def run_engine(torch, name, src_text, edbs, n, edge_cap, want,
         out, stats = engine.run(edbs)
     torch.cuda.synchronize()
     counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    label = name + (" (force_multiword)" if multiword else "")
+    label = (f"{title or name}{' (force_multiword)' if multiword else ''}, "
+             f"{mode} mode")
     print(f"{label}: iterations {stats.iterations}, wall "
-          f"{stats.wall_s:.3f} s, grow_retries {stats.grow_retries}, "
-          f"peak memory {peak} B, facts {stats.total_facts}, "
-          f"launches {counts}", flush=True)
+          f"{stats.wall_s:.4f} s, grow_retries {stats.grow_retries}, "
+          f"peak memory {torch.cuda.max_memory_allocated()} B allocated, "
+          f"{torch.cuda.max_memory_reserved()} B reserved, facts "
+          f"{stats.total_facts}, launches {counts}", flush=True)
+    if obs is not None:
+        print(f"{label}: fixpoint loop "
+              f"{[round(sp.dur, 4) for sp in obs.find('fixpoint-loop')]} s, "
+              f"of which graph capture "
+              f"{[round(sp.dur, 4) for sp in obs.find('graph-capture')]} s",
+              flush=True)
     if stats.grow_retries:
         raise AssertionError(f"{label}: {stats.grow_retries} grow retries")
-    got = out[{"Reach": "reach", "CC": "cc", "SSSP": "dist"}[name]]
-    got = np.asarray(got, np.int64)
-    if got.ndim == 2 and got.shape[1] == 1:
-        got = got[:, 0]
-    if got.shape != want.shape or not np.array_equal(got, want):
-        raise AssertionError(
-            f"{label}: {got.shape[0]} facts differ from the scipy "
-            f"reference ({want.shape[0]} facts)")
-    print(f"{label}: {got.shape[0]} facts equal the scipy reference",
-          flush=True)
-    return counts
+    hold_facts(np, label, out[OUTPUT[name]], want, against)
+    return counts, stats
 
 
 def kernel_family(name: str) -> str:
@@ -599,21 +592,32 @@ def profile_run(torch, name, fn):
     sys.stdout.flush()
 
 
-def profile_engine(torch, name, text, edbs, n, edge_cap):
+def profile_engine(torch, name, text, edbs, n, edge_cap, mode):
     """One warm engine run under torch.profiler."""
     from repro_torch.core.optimizer import compile_program
-    from repro_torch.engine import Engine, EngineConfig
-    engine = Engine(compile_program(text), EngineConfig(
-        idb_cap=n, intermediate_cap=edge_cap, device="cuda"))
-    profile_run(torch, name, lambda: engine.run(edbs))
+    from repro_torch.engine import Engine
+    from repro_torch.launch.fixpoint import engine_config
+    engine = Engine(compile_program(text), engine_config(n, edge_cap, mode))
+    profile_run(torch, f"{name}, {mode} mode", lambda: engine.run(edbs))
+
+
+def add_counts(totals: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
 
 
 def run_engine_phases(torch, seed, scale, profile=False):
+    """Phases engine, wide, device and incremental; with ``profile``, the
+    host- and device-mode runs again under torch.profiler. Returns the
+    launch counts of the host-mode runs and, apart, the wrapper calls of
+    the device-mode and incremental runs, where a kernel inside a
+    captured graph counts once per capture and not per replay."""
     import numpy as np
+    from repro_torch.launch.fixpoint import (
+        CC, EDGE_FACTOR, REACH, SSSP, kronecker_edges)
     n = 1 << scale
-    edge_factor = 16
     t0 = time.perf_counter()
-    src, dst, weights = kronecker_edges(scale, edge_factor, seed)
+    src, dst, weights = kronecker_edges(scale, EDGE_FACTOR, seed)
     outdeg = np.bincount(src, minlength=n)
     source = int(np.argmax(outdeg))
     print(f"graph: scale {scale}, {n} vertices, {src.shape[0]} directed "
@@ -621,39 +625,193 @@ def run_engine_phases(torch, seed, scale, profile=False):
           f"{int(outdeg[source])}), made in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     t0 = time.perf_counter()
-    want_reach, want_cc, want_sssp = reference_answers(
+    want_reach, want_cc, want_sssp, edge_keys = reference_answers(
         scale, src, dst, weights, source)
     print(f"scipy references in {time.perf_counter() - t0:.3f} s",
           flush=True)
     edges = np.stack([src, dst], axis=1)
     wedges = np.stack([src, dst, weights], axis=1)
     sources = np.array([[source]])
-    # every IDB fact is keyed by a vertex (< n rows), and every join
-    # output row is one edge (<= edge_factor * n rows): caps that cannot
-    # overflow, so the run needs no grow retry
-    edge_cap = edge_factor * n
-    totals: dict = {}
+    edge_cap = EDGE_FACTOR * n
+    totals: dict = {}       # host mode: every launch
+    captured: dict = {}     # device mode: a captured kernel once
     runs = [("Reach", REACH, {"edge": edges, "source": sources},
              want_reach, False),
             ("CC", CC, {"edge": edges}, want_cc, False),
             ("SSSP", SSSP, {"edge": wedges, "source": sources},
-             want_sssp, False)]
+             want_sssp, False),
+            ("Reach", REACH, {"edge": edges, "source": sources},
+             want_reach, True)]
+    host = {}
     with phase("engine"):
-        for name, text, edbs, want, mw in runs:
-            counts = run_engine(torch, name, text, edbs, n, edge_cap,
-                                want, mw)
-            for k, v in counts.items():
-                totals[k] = totals.get(k, 0) + v
+        for name, text, edbs, want, mw in runs[:3]:
+            counts, host[name, mw] = run_engine(
+                torch, name, text, edbs, n, edge_cap, want, mw)
+            add_counts(totals, counts)
     with phase("wide"):
-        counts = run_engine(torch, "Reach", REACH,
-                            {"edge": edges, "source": sources}, n,
-                            edge_cap, want_reach, multiword=True)
-        for k, v in counts.items():
-            totals[k] = totals.get(k, 0) + v
+        name, text, edbs, want, mw = runs[3]
+        counts, host[name, mw] = run_engine(
+            torch, name, text, edbs, n, edge_cap, want, mw)
+        add_counts(totals, counts)
+    with phase("device"):
+        # a kernel inside the graph counts once per capture: a replay
+        # calls no wrapper
+        for name, text, edbs, want, mw in runs:
+            counts, stats = run_engine(torch, name, text, edbs, n,
+                                       edge_cap, want, mw, mode="device")
+            add_counts(captured, counts)
+            h = host[name, mw]
+            if stats.iterations != h.iterations:
+                raise AssertionError(
+                    f"{name}: device mode's iterations {stats.iterations} "
+                    f"differ from host mode's {h.iterations}")
+            print(f"{name}{' (force_multiword)' if mw else ''}: device "
+                  f"mode {stats.wall_s:.4f} s, host mode {h.wall_s:.4f} s",
+                  flush=True)
+    with phase("incremental"):
+        add_counts(captured, run_incremental(
+            torch, seed, n, edge_cap, edges, edge_keys, source))
     if profile:
         with phase("profile"):
-            for name, text, edbs, _, _ in runs:
-                profile_engine(torch, name, text, edbs, n, edge_cap)
+            for name, text, edbs, _, _ in runs[:3]:
+                for mode in ("host", "device"):
+                    profile_engine(torch, name, text, edbs, n, edge_cap,
+                                   mode)
+    return totals, captured
+
+
+def new_edges(np, rng, keys, n, k):
+    """k distinct random edges over n vertices absent from ``keys``
+    (sorted edge keys x << 32 | y), as keys in the order drawn."""
+    pick = rng.integers(0, n, size=(2 * k, 2))
+    new = pick[:, 0] << 32 | pick[:, 1]
+    idx = np.minimum(np.searchsorted(keys, new), len(keys) - 1)
+    new = new[keys[idx] != new]
+    _, first = np.unique(new, return_index=True)
+    new = new[np.sort(first)][:k]
+    if len(new) < k:
+        raise AssertionError(f"drew {len(new)} new edges, wanted {k}")
+    return new
+
+
+def some_edges(np, rng, keys, k):
+    """k distinct keys of ``keys``, in random order."""
+    idx = np.unique(rng.integers(0, len(keys), size=2 * k))
+    return keys[rng.permutation(idx)[:k]]
+
+
+def edge_rows(np, keys):
+    return np.stack([keys >> 32, keys & 0xFFFFFFFF], axis=1)
+
+
+INC_BATCH = 1 << 16
+INC_STEPS = (("insert", INC_BATCH, 0), ("insert", INC_BATCH, 0),
+             ("delete", 0, INC_BATCH), ("mixed", INC_BATCH, INC_BATCH))
+
+
+def run_incremental(torch, seed, n, edge_cap, edges, edge_keys, source):
+    """Reach and CC maintained in device mode under a stream seeded by
+    ``seed``: two batches of 65,536 new random edges, a batch of 65,536
+    existing edges deleted, and a batch of both. The edge set is kept
+    apart from the engine, as sorted keys (``edge_keys``, the distinct
+    ``edges``) updated with numpy, and the updates are drawn from it.
+    After every step the engine's edge mirror must equal it, and the
+    maintained state must equal, byte for byte, a device-mode batch run
+    of the port over it; after the last, scipy over it. Prints each
+    apply's latency beside the batch run's time, each stratum's
+    strategy, DRed's rounds and candidate rows, and the peak memory of
+    the two engines held together. Returns the wrapper calls of the
+    maintained runs (initialize and applies; a kernel inside a captured
+    graph counts once per capture)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import Engine, Observation, make_engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.fixpoint import CC, REACH, engine_config
+    totals: dict = {}
+    # a join row is one edge, and the stream adds edges
+    edge_cap += sum(k_ins for _, k_ins, _ in INC_STEPS)
+    for name, text in (("Reach", REACH), ("CC", CC)):
+        rng = np.random.default_rng((seed, len(name)))
+        cp = compile_program(text)
+        obs = Observation()
+        inc = make_engine(cp, engine_config(n, edge_cap, "device", obs),
+                          incremental=True)
+        batch = Engine(cp, engine_config(n, edge_cap, "device"))
+        edbs = {"edge": edges}
+        if name == "Reach":
+            edbs["source"] = np.array([[source]])
+        keys = edge_keys
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        inc.initialize(edbs)
+        torch.cuda.synchronize()
+        print(f"incremental {name}: initialize {time.perf_counter() - t0:.4f}"
+              f" s (a device-mode batch run and the edge mirror of "
+              f"{len(inc.edbs['edge'])} rows), iterations "
+              f"{inc._stats.iterations}", flush=True)
+        counted = launch_counts()
+        for step, (kind, k_ins, k_del) in enumerate(INC_STEPS):
+            ins = new_edges(np, rng, keys, n, k_ins)
+            dele = some_edges(np, rng, keys, k_del)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = inc.apply(
+                inserts={"edge": edge_rows(np, ins)} if k_ins else {},
+                deletes={"edge": edge_rows(np, dele)} if k_del else {})
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t0
+            add_counts(counted, launch_counts())
+            ap = obs.find("apply")[-1]
+            strategies = [(s.attrs["key"], s.attrs["strategy"])
+                          for s in ap.find("maintain-stratum")]
+            dred = [(s.attrs["rounds"], s.attrs["candidate_rows"])
+                    for s in ap.find("dred-candidates")]
+            # the edge set after the step: merge, never a full sort (numpy
+            # sorts 65M keys slowly)
+            ins = np.sort(ins)
+            keys = np.insert(keys, np.searchsorted(keys, ins), ins)
+            keys = np.delete(keys, np.searchsorted(keys, dele))
+            mirror = inc.edbs["edge"].astype(np.int64)
+            if not np.array_equal(mirror[:, 0] << 32 | mirror[:, 1], keys):
+                raise AssertionError(
+                    f"incremental {name} step {step} ({kind}): the edge "
+                    f"mirror's {len(mirror)} rows differ from the "
+                    f"{len(keys)} edges kept apart")
+            out, stats = batch.run({**edbs, "edge": edge_rows(np, keys)})
+            if stats.grow_retries:
+                raise AssertionError(f"{name} batch: grow retries")
+            for rel in out:
+                if not np.array_equal(snap[rel], out[rel]):
+                    raise AssertionError(
+                        f"incremental {name} step {step} ({kind}): {rel} "
+                        f"differs from the batch run ({len(snap[rel])} "
+                        f"against {len(out[rel])} rows)")
+            print(f"incremental {name} step {step} ({kind}, +{k_ins} "
+                  f"-{k_del} edges): apply {apply_s:.4f} s (maintenance "
+                  f"{ap.dur:.4f} s), batch run {stats.wall_s:.4f} s; "
+                  f"strategies {strategies}, DRed (rounds, candidate "
+                  f"rows) {dred}, iterations {inc._stats.iterations}; "
+                  f"edge mirror equals the {len(keys)} edges kept apart, "
+                  f"{len(snap[OUTPUT[name]])} facts equal the batch run's",
+                  flush=True)
+        x, y = (keys >> 32).astype(np.int32), (keys & 0xFFFFFFFF).astype(
+            np.int32)
+        g = sp.csr_matrix((np.ones(len(keys)), (x, y)), shape=(n, n))
+        reach, cc = reach_and_cc(g, n, x, y, source)
+        hold_facts(np, f"incremental {name}, after the last step",
+                   snap[OUTPUT[name]], reach if name == "Reach" else cc)
+        print(f"incremental {name}: launches {counted}; peak memory of the "
+              f"incremental and batch engines together "
+              f"{torch.cuda.max_memory_allocated()} B allocated, "
+              f"{torch.cuda.max_memory_reserved()} B reserved", flush=True)
+        add_counts(totals, counted)
+        del inc, batch, snap, out
+        torch.cuda.empty_cache()
     return totals
 
 
@@ -1337,13 +1495,18 @@ KERNELS = [
 ]
 
 
+# the kernels the engine's device-mode loop captures
+ENGINE_KERNELS = ("probe", "probe_multi", "segment_reduce")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scale", type=int, default=22,
                     help="Graph500 scale (2**scale vertices)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile Reach, CC, SSSP, the serve path "
+                    help="also profile Reach, CC, SSSP (host and device "
+                         "mode), the serve path "
                          "and a serve_bulk batch on the card")
     args = ap.parse_args(argv)
 
@@ -1363,7 +1526,7 @@ def main(argv=None) -> int:
         return 1
 
     t_all = time.perf_counter()
-    with phase("device"):
+    with phase("card"):
         kind = torch.cuda.get_device_name(0)
         smi = nvidia_smi_line()
         print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1384,7 +1547,8 @@ def main(argv=None) -> int:
     with phase("attention"):
         run_attention_checks(torch, args.seed, torch.device("cuda"))
         torch.cuda.empty_cache()
-    totals = run_engine_phases(torch, args.seed, args.scale, args.profile)
+    totals, captured = run_engine_phases(torch, args.seed, args.scale,
+                                         args.profile)
     torch.cuda.empty_cache()
     with phase("serve"):
         counts, serve_measured = run_serve_phase(torch, args.seed,
@@ -1401,7 +1565,11 @@ def main(argv=None) -> int:
             totals[k] = totals.get(k, 0) + v
     with phase("launches"):
         print("kernels " + json.dumps(totals), flush=True)
+        print("kernels captured in device mode " + json.dumps(captured),
+              flush=True)
         missing = [k for k, v in totals.items() if v == 0]
+        missing += [f"{k} (device mode)" for k in ENGINE_KERNELS
+                    if not captured.get(k)]
         if missing or set(totals) != set(launch_counts()):
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
@@ -1409,6 +1577,8 @@ def main(argv=None) -> int:
     for name, count_key, source, replaces, also in KERNELS:
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": totals[count_key]}
+        if count_key in ENGINE_KERNELS:
+            e["captured_launches"] = captured[count_key]
         e.update(measured[name])
         if also:
             e["also_replaces"] = also

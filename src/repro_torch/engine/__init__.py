@@ -1,4 +1,5 @@
-"""The FlowLog fixpoint engine on torch (host mode, one device)."""
+"""The FlowLog fixpoint engine on torch (host and device mode, batch and
+incremental, one device)."""
 from repro_torch.engine.backend import (
     CUDA, TORCH, CudaDispatch, KernelDispatch, TorchDispatch,
     resolve_backend,
@@ -6,6 +7,7 @@ from repro_torch.engine.backend import (
 from repro_torch.engine.engine import (
     Engine, EngineConfig, EngineStats, OverflowError_,
 )
+from repro_torch.engine.incremental import IncrementalEngine
 from repro_torch.engine.faults import (
     FaultError, FaultPlan, FaultSpec, SimulatedCrash,
 )
@@ -20,9 +22,13 @@ from repro_torch.engine.semiring import (
 )
 
 
-def make_engine(compiled, config: EngineConfig | None = None) -> Engine:
-    """Engine factory. Only the single-device batch engine is ported;
-    the sharded and incremental engines are queued in ROADMAP.md."""
+def make_engine(compiled, config: EngineConfig | None = None,
+                incremental: bool = False):
+    """Engine factory: the single-device batch ``Engine``, or with
+    ``incremental=True`` an ``IncrementalEngine`` (initialize / apply /
+    snapshot) over it. The sharded engine is not ported (ROADMAP.md)."""
+    if incremental:
+        return IncrementalEngine(compiled, config)
     return Engine(compiled, config)
 
 
@@ -32,7 +38,7 @@ __all__ = [
     "CUDA", "TORCH", "CudaDispatch", "KernelDispatch", "TorchDispatch",
     "resolve_backend",
     "Engine", "EngineConfig", "EngineStats", "OverflowError_",
-    "make_engine",
+    "IncrementalEngine", "make_engine",
     "FaultError", "FaultPlan", "FaultSpec", "SimulatedCrash",
     "REGISTRY", "MetricsRegistry", "Observation", "validate_chrome_trace",
 ]

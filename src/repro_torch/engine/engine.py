@@ -1,16 +1,31 @@
 """Semi-naive, stratum-by-stratum fixpoint engine (paper Sec. 2.2, 3),
-host mode, on one device — the counterpart of ``repro.engine.engine``.
+on one device — the counterpart of ``repro.engine.engine``.
 
-Python drives the iteration loop; each iteration runs the plan's relops
-eagerly on ``EngineConfig.device`` (the card by default; an engine asked
-for CUDA without one raises rather than falling back to the CPU). The
-loop reads, once per iteration, each IDB's delta size and the overflow
-flag together, which decides termination. Capacity overflow (bounded
-join outputs; relation.py) retries the run with doubled capacities
-(``auto_grow``).
+Two execution modes, sharing one iteration body (``_stratum_iter``)
+that runs the plan's relops on ``EngineConfig.device`` (the card by
+default; an engine asked for CUDA without one raises rather than
+falling back to the CPU):
+
+* ``host``   — Python drives the iteration loop eagerly and reads, once
+  per iteration, each IDB's delta size and the overflow flag together;
+  per-iteration delta sizes land in ``EngineStats.delta_sizes``.
+* ``device`` — the reference's ``lax.while_loop``. On the card one
+  iteration is captured as a CUDA graph over static state buffers after
+  one eager warm-up iteration, and replayed in place; each replay folds
+  ``any_delta`` and the overflow flag into a three-word device log that
+  the host reads (a few bytes) before the next replay. Like the
+  reference it runs at least one iteration, logs no per-iteration
+  sizes, and stops quietly at ``max_iters``. On the CPU the same loop
+  runs without capture. A capture that fails raises; there is no
+  fallback to the eager loop.
+
+Capacity overflow (bounded join outputs; relation.py) retries the run
+with doubled capacities (``auto_grow``); in device mode the retry
+captures again at the new capacities.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -26,7 +41,7 @@ from repro_torch.engine.backend import KernelDispatch, resolve_backend
 from repro_torch.engine.lower import Env, Evaluator, LowerConfig
 from repro_torch.engine.relation import (
     Relation, UNSORTED, empty, from_numpy, live_mask, pow2_cap,
-    to_numpy, to_numpy_with_val,
+    take_columns, to_numpy, to_numpy_with_val,
 )
 from repro_torch.engine.semiring import PRESENCE, Semiring, monoid_for
 
@@ -37,8 +52,7 @@ class EngineConfig:
     idb_caps: dict = field(default_factory=dict)      # per-IDB override
     intermediate_cap: int = 1 << 15
     max_iters: int = 100_000
-    # "host" only: the device-resident loop is not ported yet
-    mode: str = "host"
+    mode: str = "host"            # host | device
     auto_grow: bool = True
     max_grow_retries: int = 8
     semiring: Semiring = PRESENCE  # execution algebra (Sec. 8)
@@ -76,6 +90,62 @@ class OverflowError_(RuntimeError):
     pass
 
 
+MODES = ("host", "device")
+
+
+def _relation_tensors(rel: Relation) -> list:
+    return [t for t in (rel.data, rel.val, rel.n) if t is not None]
+
+
+def _carry_spec(rel: Relation) -> tuple:
+    """What a while-loop carry fixes of a relation: everything but the
+    tensors' contents."""
+    return (rel.order, rel.val is None,
+            tuple((tuple(t.shape), t.dtype, t.device)
+                  for t in _relation_tensors(rel)))
+
+
+def _check_carry(before: dict, after: dict, stratum_key) -> None:
+    """Device mode's loop carry must keep its structure (the reference's
+    ``lax.while_loop`` enforces it by the carry's pytree type): the same
+    IDBs, and for each full and delta the same sort-order witness,
+    capacity, arity, dtypes and presence of ``val``."""
+    if before.keys() != after.keys():
+        raise TypeError(f"device-mode carry of {stratum_key}: IDBs "
+                        f"{sorted(before)} became {sorted(after)}")
+    for name in before:
+        for part, b, a in zip(("full", "delta"), before[name], after[name]):
+            if _carry_spec(b) != _carry_spec(a):
+                raise TypeError(
+                    f"device-mode carry of {stratum_key}: {name} {part} "
+                    f"changed from {_carry_spec(b)} to {_carry_spec(a)}")
+
+
+def _clone_relation(rel: Relation) -> Relation:
+    return Relation(rel.data.clone(),
+                    None if rel.val is None else rel.val.clone(),
+                    rel.n.clone(), order=rel.order)
+
+
+def _copy_carry(static: dict, new: dict) -> None:
+    """Copy a new state into the static buffers. A new tensor that
+    shares storage with a static one is cloned first, so no copy reads
+    a buffer an earlier copy wrote."""
+    owned = {t.untyped_storage().data_ptr()
+             for pair in static.values() for r in pair
+             for t in _relation_tensors(r)}
+    pairs = []
+    for name, spair in static.items():
+        for srel, nrel in zip(spair, new[name]):
+            for st, nt in zip(_relation_tensors(srel),
+                              _relation_tensors(nrel)):
+                if nt.untyped_storage().data_ptr() in owned:
+                    nt = nt.clone()
+                pairs.append((st, nt))
+    for st, nt in pairs:
+        st.copy_(nt)
+
+
 def _resolve_device(spec: str) -> torch.device:
     device = torch.device(spec)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -92,11 +162,9 @@ class Engine:
                  config: EngineConfig | None = None):
         self.compiled = compiled
         self.cfg = config or EngineConfig()
-        if self.cfg.mode != "host":
-            raise NotImplementedError(
-                f"mode={self.cfg.mode!r}: only mode='host' is ported; the "
-                f"device-resident loop is queued in ROADMAP.md "
-                f"('Device mode')")
+        if self.cfg.mode not in MODES:
+            raise ValueError(f"mode={self.cfg.mode!r}: expected one of "
+                             f"{MODES}")
         self.device = _resolve_device(self.cfg.device)
         self.backend: KernelDispatch = resolve_backend("auto", self.device)
         self.monoid: dict[str, tuple[Semiring, int]] = {}
@@ -109,6 +177,10 @@ class Engine:
         self._idb_caps = dict(self.cfg.idb_caps)
         # stratum-boundary counter for the sanitizer's sampling mode
         self._sanitize_count = 0
+        # device mode on the card: the stream the loop runs on, and
+        # whether an iteration is being captured (rule spans say so)
+        self._side_stream = None
+        self._capturing = False
 
     # -- effective capacities -------------------------------------------------
     @property
@@ -139,6 +211,16 @@ class Engine:
         self._idb_caps = {k: v * factor for k, v in self._idb_caps.items()}
         return self.effective_caps()
 
+    def _overflow_msg(self, what: str, context: str = "") -> str:
+        caps = self.effective_caps()
+        ctx = f" [{context}]" if context else ""
+        msg = (f"overflow in {what}{ctx}: "
+               f"intermediate_cap={caps['intermediate_cap']} "
+               f"idb_cap={caps['idb_cap']}")
+        if caps["idb_caps"]:
+            msg += f" idb_caps={caps['idb_caps']}"
+        return msg
+
     # -- helpers -------------------------------------------------------------
     def _sr_of(self, name: str) -> Semiring:
         if name in self.monoid:
@@ -166,8 +248,8 @@ class Engine:
         if name not in self.monoid:
             return rel
         sr, vpos = self.monoid[name]
-        data_cols = [c for c in range(rel.arity) if c != vpos]
-        data = rel.data[:, data_cols]
+        data = take_columns(rel.data,
+                            [c for c in range(rel.arity) if c != vpos])
         val = torch.where(live_mask(rel), rel.data[:, vpos], sr.identity)
         # a column-subset view loses the sort guarantee
         return Relation(data, val.to(torch.int32), rel.n, order=UNSORTED)
@@ -181,6 +263,11 @@ class Engine:
                             backend=self.backend)
         return R.concat_all(rels, sr, cap, backend=self.backend)
 
+    def _rule_phase(self) -> str:
+        """How to read a rule span's duration: the work itself ("eval"),
+        or the recording of a CUDA graph that replays it ("capture")."""
+        return "capture" if self._capturing else "eval"
+
     def _eval_plans(self, plans, env: Env, ev: Evaluator):
         """Evaluate plans, concat per head IDB -> derived relations."""
         obs = self.cfg.observe
@@ -189,7 +276,7 @@ class Engine:
             with O.span(obs, "rule", head=p.head,
                         rule=("nonrec" if p.variant < 0
                               else f"v{p.variant}"),
-                        phase="eval"):
+                        phase=self._rule_phase()):
                 rel = ev.eval(p.root, env)
                 rel = self._split_monoid(p.head, rel)
             by_head.setdefault(p.head, []).append(rel)
@@ -313,6 +400,90 @@ class Engine:
                 state[name] = (nf, nd)
         return state, ovf
 
+    def _rule_pass_body(self, rels, roots, restrict, ev):
+        """Maintenance-pass body (incremental.py): evaluate pre-retagged
+        rule roots against the stored relations, union the results per
+        head, and optionally restrict a head to candidate rows by a
+        semijoin. One arrangement scope spans the whole pass, so every
+        retagged occurrence shares the stored fulls' arrangements."""
+        obs = self.cfg.observe
+        ev.begin_pass()
+        env = Env(dict(rels), self.compiled.shared, set(self.monoid),
+                  device=self.device)
+        by_head: dict[str, list[Relation]] = {}
+        for head, root in roots:
+            with O.span(obs, "rule", head=head, rule="maintenance",
+                        phase=self._rule_phase()):
+                out = ev.eval(root, env)
+                split = self._split_monoid(head, out)
+            by_head.setdefault(head, []).append(split)
+        derived: dict[str, Relation] = {}
+        for head, outs in by_head.items():
+            merged, ov = self._merge_head(
+                outs, self._sr_of(head), self._idb_cap(head))
+            env.overflow = env.overflow | ov
+            cand = restrict.get(head)
+            if cand is not None:
+                cols = tuple(range(merged.arity))
+                merged, ov2 = ev._semijoin_op(merged, cand, cols, cols)
+                env.overflow = env.overflow | ov2
+            derived[head] = merged
+        return derived, env.overflow
+
+    # -- maintenance driver hooks (incremental.py) ----------------------------
+    def _maintenance_evaluator(self) -> Evaluator:
+        return Evaluator(LowerConfig(
+            self.intermediate_cap, self.cfg.semiring, self.backend,
+            self.cfg.arrangements))
+
+    def run_rule_pass(self, env_rels, roots, restrict=None,
+                      memo_key=None, context: str = "") -> dict:
+        """Driver entry for an incremental maintenance pass: ``roots``
+        is a list of (head, retagged IR) pairs; ``env_rels`` maps
+        (name, version) to stored relations (including any
+        changed-occurrence entries); ``restrict`` optionally maps a
+        head to a candidate relation its result is semijoined with.
+        Returns head -> stored relation. The pass runs eagerly in either
+        mode: ``memo_key``, which names the pass's structure for the
+        reference's compiled-pass memo, has no effect here, because
+        nothing is traced. ``context`` (stratum key + pass name) goes
+        into the overflow message beside the current capacities."""
+        F.fault_point("engine.rule_pass")
+        derived, ovf = self._rule_pass_body(
+            dict(env_rels), roots, restrict or {},
+            self._maintenance_evaluator())
+        if bool(ovf):
+            raise OverflowError_(
+                self._overflow_msg("incremental rule pass", context))
+        return derived
+
+    def _stored(self, rels: dict) -> dict:
+        """Host-built Relations -> this driver's storage form (identity
+        on one device)."""
+        return rels
+
+    def _stored_empty_idb(self, name: str) -> Relation:
+        return self._empty_idb(name)
+
+    def _difference_stored(self, rel: Relation, sub: Relation) -> Relation:
+        """Stored-form set difference (DRed candidate removal)."""
+        out, _ = R.difference(rel, sub, backend=self.backend)
+        return out
+
+    def _union_stored(self, rels: list, sr: Semiring, cap: int,
+                      context: str = "") -> Relation:
+        """Stored-form union (combining maintenance seed sets)."""
+        out, ov = R.concat_all(rels, sr, cap, backend=self.backend)
+        if bool(ov):
+            raise OverflowError_(self._overflow_msg(
+                "maintenance seed union", context))
+        return out
+
+    def _host_relation(self, rel: Relation) -> Relation:
+        """An environment relation as one Relation (identity on one
+        device)."""
+        return rel
+
     # -- runtime invariant sanitizer (core/analysis/sanitize.py) ---------------
     _sanitize_layer = "engine"
 
@@ -324,7 +495,7 @@ class Engine:
         n = 1 if ci is True else int(ci)
         return n <= 1 or self._sanitize_count % n == 0
 
-    def _sanitize_env(self, env, where: str) -> None:
+    def _sanitize_env(self, env, where: str, layer: str = "") -> None:
         """Validate every stored arrangement when cfg.check_invariants is
         set; the sanitizer reads numpy, so it gets host copies."""
         if not self._sanitize_due():
@@ -334,7 +505,7 @@ class Engine:
                             None if r.val is None else r.val.cpu(),
                             r.n.cpu(), order=r.order)
                 for k, r in env.items()}
-        sanitize_env(self, host, where, self._sanitize_layer)
+        sanitize_env(self, host, where, layer or self._sanitize_layer)
 
     # -- stratum execution ----------------------------------------------------
     def _run_stratum(self, sp: I.StratumPlan, env_rels, stats,
@@ -381,6 +552,44 @@ class Engine:
             self._sanitize_env(full_env, f"stratum {stratum_key} boundary")
             return full_env
 
+        delta_log = []
+        with self._loop_stream():
+            if cfg.mode == "device":
+                with O.span(obs, "fixpoint-loop", detail="post-hoc"):
+                    state, stratum_iters = self._device_loop(
+                        state, base_env_rels, rec, idbs, ev, monoid_names,
+                        stratum_key)
+            else:
+                state, stratum_iters, delta_log = self._host_loop(
+                    state, base_env_rels, rec, idbs, ev, monoid_names,
+                    stratum_key)
+
+            # final merge of the last deltas into the fulls (empty unless
+            # device mode stopped at max_iters)
+            with O.span(obs, "final-merge"):
+                full_env = dict(base_env_rels)
+                for name in idbs:
+                    full, delta = state[name]
+                    merged, ov = R.merge(full, delta, self._sr_of(name),
+                                         self._idb_cap(name),
+                                         backend=self.backend,
+                                         incremental=cfg.arrangements)
+                    if bool(ov):
+                        raise OverflowError_(
+                            f"overflow finalizing {name}")
+                    full_env[(name, I.FULL)] = merged
+        stats.iterations[stratum_key] = stratum_iters
+        stats.delta_sizes[stratum_key] = delta_log
+        if st_span is not None:
+            st_span.attrs["iterations"] = stratum_iters
+        self._sanitize_env(full_env, f"stratum {stratum_key} boundary")
+        return full_env
+
+    def _host_loop(self, state, base, rec, idbs, ev, monoid_names,
+                   stratum_key):
+        """mode="host": eager iterations while any delta is non-empty ->
+        (state, iterations, per-iteration delta sizes)."""
+        obs = self.cfg.observe
         stratum_iters = 0
         delta_log = []
         sizes = {n: int(state[n][1].n) for n in idbs}
@@ -391,7 +600,7 @@ class Engine:
                         delta_rows=delta_total,
                         deltas=dict(sizes) if obs else None):
                 state, ovf = self._stratum_iter(
-                    state, base_env_rels, rec, idbs, ev, monoid_names)
+                    state, base, rec, idbs, ev, monoid_names)
                 # one device-to-host read per iteration: the overflow
                 # flag and every delta size together
                 flags = torch.stack(
@@ -403,28 +612,110 @@ class Engine:
                     f"overflow in stratum {stratum_key} "
                     f"iter {stratum_iters}")
             stratum_iters += 1
-            if stratum_iters >= cfg.max_iters:
+            if stratum_iters >= self.cfg.max_iters:
                 raise RuntimeError(
-                    f"no fixpoint after {cfg.max_iters} iterations")
+                    f"no fixpoint after {self.cfg.max_iters} iterations")
+        return state, stratum_iters, delta_log
 
-        # final merge of the (empty) last deltas into the fulls
-        with O.span(obs, "final-merge"):
-            full_env = dict(base_env_rels)
-            for name in idbs:
-                full, delta = state[name]
-                merged, ov = R.merge(full, delta, self._sr_of(name),
-                                     self._idb_cap(name),
-                                     backend=self.backend,
-                                     incremental=cfg.arrangements)
-                if bool(ov):
-                    raise OverflowError_(f"overflow finalizing {name}")
-                full_env[(name, I.FULL)] = merged
-        stats.iterations[stratum_key] = stratum_iters
-        stats.delta_sizes[stratum_key] = delta_log
-        if st_span is not None:
-            st_span.attrs["iterations"] = stratum_iters
-        self._sanitize_env(full_env, f"stratum {stratum_key} boundary")
-        return full_env
+    @contextlib.contextmanager
+    def _loop_stream(self):
+        """Device mode on the card runs a stratum's loop and final merge
+        on a side stream (a graph is captured on one), ordered after and
+        before the current stream's work."""
+        if self.cfg.mode != "device" or self.device.type != "cuda":
+            yield
+            return
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        self._side_stream.wait_stream(main)
+        try:
+            with torch.cuda.stream(self._side_stream):
+                yield
+        finally:
+            main.wait_stream(self._side_stream)
+
+    def _device_loop(self, state, base, rec, idbs, ev, monoid_names,
+                     stratum_key):
+        """mode="device": the reference's ``lax.while_loop`` -> (state,
+        iterations).
+
+        The carry's scalars live in a device log [any_delta, overflow,
+        iterations] that starts at [1, 0, 0], so at least one iteration
+        runs; an iteration counts while any_delta & ~overflow, and the
+        loop stops when the log says no delta, on overflow (raised, so
+        ``run()`` grows the caps and captures again) or at
+        ``max_iters`` (quietly, with the partial fixpoint). Each
+        iteration is followed by one host read of the log.
+
+        On the card the first iteration runs eagerly, as the warm-up
+        that capture needs (it also loads every kernel library), with
+        synchronizing calls turned into errors, so a hidden host read
+        fails here and not as a broken capture. The state is then
+        copied into static buffers, one iteration is captured into a
+        CUDA graph that computes the next state, folds its flags into
+        the log and copies the state back, and each replay is one
+        iteration in place. The graph lives for this loop only. On the
+        CPU every iteration runs eagerly."""
+        if self.cfg.max_iters <= 0:
+            return state, 0
+        log = torch.zeros((3,), dtype=torch.int32, device=self.device)
+        log[0] = 1
+
+        def step(st):
+            new, ovf = self._stratum_iter(st, base, rec, idbs, ev,
+                                          monoid_names)
+            _check_carry(st, new, stratum_key)
+            any_delta = torch.stack([new[n][1].n > 0 for n in idbs]).any()
+            counted = (log[0] != 0) & (log[1] == 0)
+            log.copy_(torch.stack([any_delta.to(torch.int32),
+                                   ((log[1] != 0) | ovf).to(torch.int32),
+                                   log[2] + counted.to(torch.int32)]))
+            return new
+
+        if self.device.type == "cuda":
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state = step(state)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        else:
+            state = step(state)
+        graph = None
+        flags = log.tolist()
+        while self._loop_goes_on(flags, stratum_key):
+            if self.device.type != "cuda":
+                state = step(state)
+            else:
+                if graph is None:
+                    state, graph = self._capture(step, state)
+                graph.replay()
+            flags = log.tolist()
+        return state, flags[2]
+
+    def _loop_goes_on(self, log: list, stratum_key) -> bool:
+        any_delta, overflow, iters = log
+        if overflow:
+            raise OverflowError_(f"overflow in stratum {stratum_key}")
+        return bool(any_delta) and iters < self.cfg.max_iters
+
+    def _capture(self, step, state):
+        """Copy ``state`` into static buffers and capture one ``step``
+        over them that writes the next state back into them ->
+        (static state, graph). Raises if the capture fails."""
+        static = {name: tuple(_clone_relation(r) for r in pair)
+                  for name, pair in state.items()}
+        graph = torch.cuda.CUDAGraph()
+        O.trace_count("engine.graph_captures")
+        self._capturing = True
+        try:
+            with O.span(self.cfg.observe, "graph-capture"), \
+                    torch.cuda.graph(graph, stream=self._side_stream):
+                _copy_carry(static, step(static))
+        finally:
+            self._capturing = False
+        return static, graph
 
     # -- public ---------------------------------------------------------------
     def run(self, edbs: dict[str, np.ndarray],

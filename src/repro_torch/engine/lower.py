@@ -24,7 +24,9 @@ from repro_torch.core import ir as I
 from repro_torch.engine import relops as R
 from repro_torch.engine.backend import KernelDispatch
 from repro_torch.engine.observe import trace_count
-from repro_torch.engine.relation import PAD, Relation, live_mask
+from repro_torch.engine.relation import (
+    PAD, Relation, live_mask, take_columns,
+)
 from repro_torch.engine.semiring import PRESENCE, Semiring
 
 
@@ -333,7 +335,7 @@ class Evaluator:
                 perm.append(len(node.group) + ai)
                 ai += 1
         if perm != list(range(len(perm))):
-            data = reduced.data[:, perm]
+            data = take_columns(reduced.data, perm)
             reduced, ov2 = R.dedupe(data, None, self.cfg.semiring,
                                     reduced.capacity,
                                     backend=self.cfg.backend)

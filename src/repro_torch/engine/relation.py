@@ -185,17 +185,22 @@ def pow2_cap(n: int, floor: int = 16) -> int:
 
 
 def _count(n: int, device) -> torch.Tensor:
+    """A row count from the host: a host-to-device copy, so only where
+    host data enters (``from_numpy``, ``from_arrays``)."""
     return torch.tensor(n, dtype=torch.int32, device=device)
 
 
 def empty(cap: int, arity: int, val_identity=None,
           device="cuda") -> Relation:
+    """An empty relation, built by device fills alone (no host copy), so
+    a captured iteration may build one."""
     data = torch.full((cap, arity), PAD, dtype=torch.int32, device=device)
     val = None
     if val_identity is not None:
         val = torch.full((cap,), val_identity, dtype=torch.int32,
                          device=device)
-    return Relation(data, val, _count(0, device))
+    return Relation(data, val, torch.zeros((), dtype=torch.int32,
+                                           device=device))
 
 
 def _stable_lex_perm(data: torch.Tensor) -> torch.Tensor:
@@ -224,13 +229,16 @@ def from_numpy(rows: np.ndarray, cap: int, val: Optional[np.ndarray] = None,
                device="cuda") -> Relation:
     """Build a sorted, distinct relation from an (n, arity) int array.
     The sort and the duplicate drop run on ``device``."""
-    rows = np.asarray(rows, dtype=np.int64)
+    rows = np.asarray(rows)
+    if rows.dtype != np.int32:
+        rows = np.asarray(rows, dtype=np.int64).astype(np.int32)
     if rows.ndim == 1:
         rows = rows[:, None]
     n, arity = rows.shape
     if n > cap:
         raise ValueError(f"{n} rows exceed capacity {cap}")
-    t = torch.from_numpy(rows.astype(np.int32)).to(device)
+    # torch.from_numpy wants a writable C-contiguous array
+    t = torch.from_numpy(np.require(rows, requirements="CW")).to(device)
     v = None
     if val is not None:
         v = torch.from_numpy(np.asarray(val).astype(np.int32)).to(device)
@@ -341,6 +349,18 @@ def force_multiword():
         yield
     finally:
         _FORCE_MULTIWORD = prev
+
+
+def take_columns(data: torch.Tensor, cols) -> torch.Tensor:
+    """``data[:, list(cols)]`` for a static column sequence, gathered as
+    a stack of column views: indexing with a Python list copies the list
+    from the host on every call, which a captured iteration may not."""
+    cols = tuple(cols)
+    if cols == tuple(range(data.shape[1])):
+        return data
+    if not cols:
+        return data.new_zeros((data.shape[0], 0))
+    return torch.stack([data[:, c] for c in cols], dim=1)
 
 
 def live_mask(rel: Relation) -> torch.Tensor:

@@ -36,7 +36,7 @@ from repro_torch.engine.backend import TORCH, KernelDispatch
 from repro_torch.engine.observe import trace_count
 from repro_torch.engine.relation import (
     KEY_PAD, PAD, Relation, lex_order, lex_order_words, live_mask,
-    pack_key_words, rows_equal_prev,
+    pack_key_words, rows_equal_prev, take_columns,
 )
 from repro_torch.engine.semiring import PRESENCE, Semiring
 
@@ -135,7 +135,7 @@ def arrange(rel: Relation, key_cols: tuple[int, ...]) -> Relation:
         return rel
     perm = key_cols + tuple(c for c in range(rel.arity)
                             if c not in key_cols)
-    order = lex_order(rel.data[:, list(perm)])
+    order = lex_order(take_columns(rel.data, perm))
     data = rel.data[order]
     val = rel.val[order] if rel.val is not None else None
     return Relation(data, val, rel.n, order=perm)
@@ -210,9 +210,9 @@ def join(left: Relation, right: Relation,
     rdata = _take_rows(right.data, ri)
     cols = []
     if l_out:
-        cols.append(ldata[:, list(l_out)])
+        cols.append(take_columns(ldata, l_out))
     if r_out:
-        cols.append(rdata[:, list(r_out)])
+        cols.append(take_columns(rdata, r_out))
     data = torch.cat(cols, dim=1) if cols else torch.zeros(
         (out_cap, 0), dtype=torch.int32, device=left.device)
     val = None
@@ -419,7 +419,7 @@ def reduce_groups(rel: Relation, group_cols: tuple[int, ...],
         outs.append(res)
     ngroups = first.sum(dtype=torch.int32)
     agg_mat = torch.stack(outs, dim=1).to(torch.int32)    # [cap, n_aggs]
-    rows = torch.cat([r.data[:, list(group_cols)],
+    rows = torch.cat([take_columns(r.data, group_cols),
                       agg_mat[seg.clamp(0, cap - 1)]], dim=1)
     # first rows move to their group index; the rest are dropped
     out = _scatter_rows(out_cap, PAD, torch.where(first, seg, out_cap),

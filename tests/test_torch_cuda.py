@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain torch versions, the
-port's engine on the card against the same engine on the CPU, and the
+port's engine on the card (host mode, device mode's captured loop, and
+incremental maintenance) against the same engine on the CPU, and the
 port's transformer on the card against itself on the CPU. Needs an
 NVIDIA GPU and nvcc; run there with
 
@@ -224,6 +225,71 @@ def test_engine_on_card_matches_cpu(cuda, program):
     assert counts["probe_multi" if program == "WideReach2" else "probe"] > 0
     if program == "Sum":
         assert counts["segment_reduce"] > 0
+
+
+def _device_mode(program, device, **cfg):
+    from benchmarks.programs import CC, equivalence_datasets
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import Engine, EngineConfig
+    if program == "CC":     # a MIN monoid: the segment reduce too
+        rng = np.random.default_rng(3)
+        src, edbs = CC, {"edge": rng.integers(0, 40, size=(60, 2))}
+    else:
+        src, edbs = equivalence_datasets()[program]
+    engine = Engine(compile_program(src), EngineConfig(
+        device=device, mode="device", idb_cap=1 << 10,
+        intermediate_cap=1 << 12, **cfg))
+    return engine, dict(edbs)
+
+
+@pytest.mark.parametrize("program", ["TC", "Negation", "WideReach2", "CC"])
+def test_device_mode_on_card_matches_cpu(cuda, program):
+    """One captured CUDA graph per recursive stratum, replayed to the
+    fixpoint: the same facts, iterations and (empty) delta logs as the
+    same loop run eagerly on the CPU; the kernels launch inside it."""
+    from repro_torch.engine.observe import REGISTRY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    before = REGISTRY.get("engine.graph_captures")
+    engine, edbs = _device_mode(program, "cuda")
+    gpu, gst = engine.run(edbs)
+    captures = REGISTRY.get("engine.graph_captures") - before
+    counts = launch_counts()
+    engine, edbs = _device_mode(program, "cpu")
+    cpu, cst = engine.run(edbs)
+    for name in cpu:
+        np.testing.assert_array_equal(gpu[name], cpu[name])
+    assert gst.iterations == cst.iterations
+    assert gst.delta_sizes == cst.delta_sizes
+    assert captures == sum(1 for v in gst.iterations.values() if v > 1)
+    assert counts["probe_multi" if program == "WideReach2" else "probe"] > 0
+    if program == "CC":
+        assert counts["segment_reduce"] > 0
+
+
+def test_incremental_device_mode_on_card_matches_cpu(cuda):
+    from benchmarks.programs import equivalence_datasets
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import EngineConfig, make_engine
+    src, edbs = equivalence_datasets()["TC"]
+    rng = np.random.default_rng(4)
+    steps = [({"edge": rng.integers(0, 16, size=(4, 2))}, {}),
+             ({}, {"edge": np.asarray(edbs["edge"])[:5]}),
+             ({"edge": rng.integers(0, 16, size=(3, 2))},
+              {"edge": np.asarray(edbs["edge"])[5:8]})]
+    runs = []
+    for device in ("cuda", "cpu"):
+        inc = make_engine(compile_program(src), EngineConfig(
+            device=device, mode="device", idb_cap=1 << 10,
+            intermediate_cap=1 << 12), incremental=True)
+        snaps = [inc.initialize(dict(edbs))]
+        snaps += [inc.apply(inserts=i, deletes=d) for i, d in steps]
+        runs.append((snaps, inc._stats.iterations))
+    (gpu, git), (cpu, cit) = runs
+    for g, c in zip(gpu, cpu):
+        for name in c:
+            np.testing.assert_array_equal(g[name], c[name])
+    assert git == cit
 
 
 # -- attention kernels --------------------------------------------------------
@@ -498,3 +564,30 @@ def test_fm_retrieval_refuses_tf32(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert model.retrieval_scores(ids, ids).shape == (4,)
+
+
+# last in the file: a failed capture leaves nothing for later tests to
+# trip on
+def test_device_mode_capture_failure_raises(cuda):
+    """A host read inside the iteration fails the eager warm-up (sync
+    debug mode "error") or the capture, and the run raises: there is no
+    fallback to the eager loop or to host mode."""
+    engine, edbs = _device_mode("TC", "cuda")
+    real = engine._stratum_iter
+
+    def reads_host(*args):
+        state, ovf = real(*args)
+        if engine._capturing:
+            int(state["tc"][1].n)
+        return state, ovf
+    engine._stratum_iter = reads_host
+    with pytest.raises(RuntimeError):
+        engine.run(edbs)
+
+    def reads_host_always(*args):
+        state, ovf = real(*args)
+        int(state["tc"][1].n)
+        return state, ovf
+    engine._stratum_iter = reads_host_always
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        engine.run(edbs)

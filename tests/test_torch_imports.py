@@ -66,11 +66,17 @@ def test_default_config_refuses_cpu_fallback(monkeypatch):
 
 
 def test_device_mode_not_ported():
+    """Device mode is ported (tests/test_torch_device_mode.py); a mode
+    that neither package has is refused by name."""
     from repro_torch.core.optimizer import compile_program
-    from repro_torch.engine import EngineConfig, make_engine
+    from repro_torch.engine import Engine, EngineConfig, make_engine
     cp = compile_program(".input e\n.output t\nt(x) :- e(x).\n")
-    with pytest.raises(NotImplementedError, match="host"):
-        make_engine(cp, EngineConfig(mode="device", device="cpu"))
+    engine = make_engine(cp, EngineConfig(mode="device", device="cpu"))
+    assert isinstance(engine, Engine)
+    out, stats = engine.run({"e": [[1], [2]]})
+    assert out["t"].tolist() == [[1], [2]]
+    with pytest.raises(ValueError, match="host"):
+        make_engine(cp, EngineConfig(mode="sharded", device="cpu"))
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
