@@ -19,12 +19,12 @@ Phases, each printing its wall time:
              sum that rounds, run twice for the same bits;
 4. attention the attention kernels against their plain versions at the
              LM shapes (qwen3-1.7b prefill at 4096 tokens in bf16 on the
-             tensor-core kernel and in f32 on the CUDA-core one, a
-             chunked prefill, gemma's d = 256, chatglm3's GQA 16:1,
-             decode over a 32768-position cache, each decode run twice
-             for the same bits), timed beside their bounds and
-             scaled_dot_product_attention, with the tensor-core and
-             decode kernels' ptxas registers and spills;
+             wgmma kernel and in f32 on the 3xTF32 one, a chunked
+             prefill, gemma's d = 256 and chatglm3's GQA 16:1 in both
+             types, decode over a 32768-position cache, each decode run
+             twice for the same bits), timed beside their bounds and
+             scaled_dot_product_attention, with the prefill and decode
+             kernels' ptxas registers and spills;
 5. engine    Reach, CC and SSSP with the port's Engine on the card over a
              Graph500 Kronecker graph (scale 22, edge factor 16, A, B, C =
              0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph;
@@ -50,12 +50,16 @@ Phases, each printing its wall time:
              attention inputs of the first and last layer, then a run
              with nothing wrapped, timed and counted, which must give
              the same tokens; the kernels held against their plain
-             versions on the captured inputs in bf16 and f32 (these give
-             the kernel line's times), and a short run against the same
-             run through the plain versions; then the model in float32,
-             depth cut to 2 layers (2 x 512 prompt tokens, 4 steps),
-             counted, whose prefill runs the CUDA-core kernel, against
-             the same run through the plain versions;
+             versions on the captured inputs in bf16 and, cast, in f32
+             (the bf16 ones give the wgmma and decode kernel lines'
+             times), and a short run against the same run through the
+             plain versions; then the model in float32 at full depth (8
+             x 2048 prompt tokens, 8 steps) the same way, its prefill on
+             the 3xTF32 kernel: a capturing run, the kernels held against
+             their plain versions on its float32 activations (the f32
+             prefill's kernel line), then a counted run that must give
+             the same tokens as it and as the run through the plain
+             versions;
 10. recsys   the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
              row table, random weights from --seed): the interaction kernel
              against its plain version at the reference's kernel-test
@@ -74,8 +78,8 @@ Phases, each printing its wall time:
              (once per capture); a zero in either fails.
 
 With ``--profile``, each of Reach, CC and SSSP in host and in device
-mode, the serve prefill, four
-decode steps and one serve_bulk batch then run once more under
+mode, the serve prefill, four decode steps, the float32 prefill and one
+serve_bulk batch then run once more under
 torch.profiler, which prints device time by kernel family, the device's
 busy share of the run's wall time and the busiest host ops (not part of
 the checks).
@@ -526,7 +530,7 @@ def kernel_family(name: str) -> str:
                                                      "reduce_tiles",
                                                      "fill_identity",
                                                      "combine_crossing")),
-                          ("attention (ours)", ("attn_kernel",
+                          ("attention (ours)", ("attn_tf32",
                                                 "attn_wgmma",
                                                 "decode_split",
                                                 "decode_combine")),
@@ -818,10 +822,13 @@ def run_incremental(torch, seed, n, edge_cap, edges, edge_keys, source):
 # -- attention kernels and the LM serving path --------------------------------
 
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor peak, data sheet
+TF32_FLOPS_PER_S = 495e12    # dense TF32 tensor peak, data sheet
 F32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores, data sheet
+TF32_PASSES = 3              # the float32 prefill's products, 3xTF32
 # (rtol, atol). The kernels and their plain versions compute in float32
-# and round once to the output's dtype (the tensor-core kernel feeds P to
-# P.V as bfloat16 hi + lo parts, exact to about 2**-16 of each p), so
+# and round once to the output's dtype (the bf16 kernel feeds P to P.V as
+# bfloat16 hi + lo parts, exact to about 2**-16 of each p; the f32 kernel
+# splits every operand into TF32 hi + lo parts, about 22 bits), so
 # bfloat16 outputs differ by about one unit in the last place: 2**-7 of
 # the value at worst.
 ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-4)}
@@ -849,11 +856,17 @@ def attention_work(q, k, causal=True, kv_len=None):
 
 def attention_bound(q, k, causal=True, kv_len=None):
     """(bound ms, 'bytes' or 'operations'): the larger of the byte time
-    at 3.35 TB/s and the flop time at the peak for the inputs' type."""
+    at 3.35 TB/s and the flop time of the kernel's route: bf16 at the
+    bf16 tensor peak, the float32 prefill's three TF32 products at the
+    TF32 peak, the decode (CUDA cores) at the f32 peak."""
     flops, nbytes = attention_work(q, k, causal, kv_len)
-    peak = (BF16_FLOPS_PER_S if str(q.dtype).endswith("bfloat16")
-            else F32_FLOPS_PER_S)
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    if str(q.dtype).endswith("bfloat16"):
+        t_ops = flops / BF16_FLOPS_PER_S
+    elif kv_len is None:
+        t_ops = TF32_PASSES * flops / TF32_FLOPS_PER_S
+    else:
+        t_ops = flops / F32_FLOPS_PER_S
+    t_ops, t_bytes = t_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -905,14 +918,16 @@ def check_attention(torch, label, q, k, v, causal=True, kv_len=None,
     b_ms, bound_by = attention_bound(q, k, causal, kv_len)
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=bound_by, library_ms=library_ms)
-    paced = ""
+    extra = ""
     if kv_len is not None:   # short enough for the host to pace it
         out["host_paced_ms"] = cuda_ms(torch, kernel, lead=False)
-        paced = f" (at the host's launch rate {out['host_paced_ms']:.4f} ms)"
-    print(f"{label}: max abs err {err} ({tol}); kernel {ms:.4f} ms"
-          f"{paced}, plain {plain_ms:.4f} ms, SDPA {library_ms} ms, bound "
-          f"{b_ms:.4f} ms by {bound_by} ({100 * b_ms / ms:.1f}% of it)",
-          flush=True)
+        extra = f" (at the host's launch rate {out['host_paced_ms']:.4f} ms)"
+    elif q.dtype == torch.float32:   # the ceiling of a CUDA-core kernel,
+        flops, _ = attention_work(q, k, causal)     # printed, not returned
+        extra = f" (f32 FMA bound {flops / F32_FLOPS_PER_S * 1e3:.4f} ms)"
+    print(f"{label}: max abs err {err} ({tol}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms} ms, bound {b_ms:.4f} ms by "
+          f"{bound_by} ({100 * b_ms / ms:.1f}% of it){extra}", flush=True)
     return out
 
 
@@ -930,18 +945,20 @@ def ptxas_lines(report: str) -> dict:
 
 
 def run_attention_checks(torch, seed, dev):
-    """Both attention kernels at the model's shapes: qwen3-1.7b prefill
-    (hq 16, hkv 8, d 128) at 4096 tokens in bf16 and f32, a chunk of 1000
-    queries at the end of 4096 keys, gemma's d = 256, chatglm3's GQA
-    16:1, and decode over a 32768-position cache with ragged lengths."""
+    """The attention kernels at the model's shapes: qwen3-1.7b prefill
+    (hq 16, hkv 8, d 128) at 4096 tokens, gemma's d = 256 and chatglm3's
+    GQA 16:1, each in bf16 and f32, a chunk of 1000 queries at the end of
+    4096 keys, and decode over a 32768-position cache with ragged
+    lengths."""
     import re
     from repro_torch.kernels import _build
-    for entry, lines in ptxas_lines(
-            _build.report("flash_attention_wgmma")).items():
-        if "attn_wgmma_kernel" in entry:
-            d = re.search(r"ILi(\d+)E", entry)
-            print(f"ptxas attn_wgmma_kernel<{d.group(1) if d else '?'}>: "
-                  + "; ".join(lines), flush=True)
+    for source, kernel in (("flash_attention_wgmma", "attn_wgmma_kernel"),
+                           ("flash_attention_tf32", "attn_tf32_kernel")):
+        for entry, lines in ptxas_lines(_build.report(source)).items():
+            if kernel in entry:
+                d = re.search(r"ILi(\d+)E", entry)
+                print(f"ptxas {kernel}<{d.group(1) if d else '?'}>: "
+                      + "; ".join(lines), flush=True)
     for entry, lines in ptxas_lines(
             _build.report("flash_attention")).items():
         t = re.search(r"decode_split_kernelI(f|13__nv_bfloat16)"
@@ -968,13 +985,15 @@ def run_attention_checks(torch, seed, dev):
     k, v = rnd((1, 8, 4096, 128), bf16), rnd((1, 8, 4096, 128), bf16)
     check_attention(torch, "flash_attention bfloat16 chunk sq=1000 "
                     "skv=4096 causal", q, k, v, library=False)
-    q, k, v = (rnd((1, 16, 1024, 256), bf16) for _ in range(3))
-    check_attention(torch, "flash_attention bfloat16 gemma d=256 hq=hkv=16 "
-                    "sq=skv=1024 causal", q, k, v)
-    q = rnd((1, 32, 1024, 128), bf16)
-    k, v = rnd((1, 2, 1024, 128), bf16), rnd((1, 2, 1024, 128), bf16)
-    check_attention(torch, "flash_attention bfloat16 chatglm3 GQA 16:1 "
-                    "sq=skv=1024 causal", q, k, v)
+    for dtype in (bf16, f32):
+        name = str(dtype)[6:]
+        q, k, v = (rnd((1, 16, 1024, 256), dtype) for _ in range(3))
+        check_attention(torch, f"flash_attention {name} gemma d=256 "
+                        f"hq=hkv=16 sq=skv=1024 causal", q, k, v)
+        q = rnd((1, 32, 1024, 128), dtype)
+        k, v = rnd((1, 2, 1024, 128), dtype), rnd((1, 2, 1024, 128), dtype)
+        check_attention(torch, f"flash_attention {name} chatglm3 GQA 16:1 "
+                        f"sq=skv=1024 causal", q, k, v)
     S = 32768
     kv_len = torch.tensor([1, 10923, 32767, 32768] * 2, dtype=torch.int32,
                           device=dev)
@@ -996,6 +1015,65 @@ def attention_swapped(FA, flash_attention, flash_decode):
         yield
     finally:
         FA.flash_attention, FA.flash_decode = saved
+
+
+@contextlib.contextmanager
+def attention_captured(FA, layers, gen_tokens):
+    """Route the model's attention through the kernels and keep clones of
+    the first and last layer's inputs at the prefill and at the last
+    decode step: yields {(kind, layer): inputs}."""
+    keep = (0, layers - 1)
+    captured = {}
+    calls = {"prefill": 0, "decode": 0}
+    kernel_fa, kernel_fd = FA.flash_attention, FA.flash_decode
+
+    def fa(q, k, v, causal=True):
+        i = calls["prefill"]
+        calls["prefill"] += 1
+        out = kernel_fa(q, k, v, causal=causal)
+        if i in keep:
+            captured[("prefill", i)] = (q.clone(), k.clone(), v.clone())
+        return out
+
+    def fd(q, k, v, kv_len):
+        step, layer = divmod(calls["decode"], layers)
+        calls["decode"] += 1
+        out = kernel_fd(q, k, v, kv_len)
+        if step == gen_tokens - 1 and layer in keep:
+            captured[("decode", layer)] = (q.clone(), k.clone(), v.clone(),
+                                           kv_len.clone())
+        return out
+
+    with attention_swapped(FA, fa, fd):
+        yield captured
+
+
+def check_captured(torch, captured, prefix, in_f32=False):
+    """The kernels against their plain versions on captured attention
+    inputs; layer 0's are timed. With ``in_f32``, bf16 inputs are also
+    checked cast to float32 (untimed). Returns the measured numbers per
+    kernel, the worst error over both layers."""
+    from repro_torch.kernels import flash_attention as FA
+    measured = {}
+    for (kind, layer), args in sorted(captured.items()):
+        qkv, kv_len = args[:3], (args[3] if kind == "decode" else None)
+        name = ("flash_decode" if kind == "decode" else
+                "flash_attention_wgmma" if qkv[0].dtype == torch.bfloat16
+                else "flash_attention")
+        label = (f"{prefix} {kind} layer {layer}: "
+                 f"{list(args[0].shape)} over {list(args[1].shape)}")
+        r = check_attention(torch, label, *qkv, kv_len=kv_len,
+                            timed=layer == 0)
+        if in_f32:
+            check_attention(torch, label + " in float32",
+                            *(t.float() for t in qkv), kv_len=kv_len,
+                            timed=False)
+        if name not in measured:
+            measured[name] = r
+        else:
+            measured[name]["max_abs_err"] = max(
+                measured[name]["max_abs_err"], r["max_abs_err"])
+    return measured
 
 
 def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
@@ -1029,29 +1107,7 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab, size=(requests, prompt_len))
     L, cap = cfg.n_layers, prompt_len + gen_tokens
-    keep = (0, L - 1)
-    captured = {}
-    calls = {"prefill": 0, "decode": 0}
-    kernel_fa, kernel_fd = FA.flash_attention, FA.flash_decode
-
-    def fa(q, k, v, causal=True):
-        i = calls["prefill"]
-        calls["prefill"] += 1
-        out = kernel_fa(q, k, v, causal=causal)
-        if i in keep:
-            captured[("prefill", i)] = (q.clone(), k.clone(), v.clone())
-        return out
-
-    def fd(q, k, v, kv_len):
-        step, layer = divmod(calls["decode"], L)
-        calls["decode"] += 1
-        out = kernel_fd(q, k, v, kv_len)
-        if step == gen_tokens - 1 and layer in keep:
-            captured[("decode", layer)] = (q.clone(), k.clone(), v.clone(),
-                                           kv_len.clone())
-        return out
-
-    with attention_swapped(FA, fa, fd):
+    with attention_captured(FA, L, gen_tokens) as captured:
         g = serve.generate(model, prompts, gen_tokens)
     steps = g.registry.percentiles("serve.decode_step_s")
     print(f"serve, capturing run: prefill_s {g.prefill_s}, decode step "
@@ -1059,29 +1115,7 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
           flush=True)
     captured_tokens = g.tokens
     del g
-
-    measured = {}
-    for (kind, layer), args in sorted(captured.items()):
-        # the served bf16 prefill runs the tensor-core kernel; the same
-        # inputs in float32 time the CUDA-core one
-        names = (("flash_attention_wgmma", "flash_attention")
-                 if kind == "prefill" else ("flash_decode", None))
-        label = (f"serve {kind} layer {layer}: "
-                 f"{list(args[0].shape)} over {list(args[1].shape)}")
-        qkv, kv_len = args[:3], (args[3] if kind == "decode" else None)
-        r = check_attention(torch, label, *qkv, kv_len=kv_len,
-                            timed=layer == 0)
-        r32 = check_attention(torch, label + " in float32",
-                              *(t.float() for t in qkv), kv_len=kv_len,
-                              timed=layer == 0 and names[1] is not None)
-        for name, res in zip(names, (r, r32)):
-            if name is None:
-                continue
-            if layer == 0:
-                measured[name] = res
-            else:
-                measured[name]["max_abs_err"] = max(
-                    measured[name]["max_abs_err"], res["max_abs_err"])
+    measured = check_captured(torch, captured, "serve", in_f32=True)
     captured.clear()
     torch.cuda.empty_cache()
 
@@ -1098,7 +1132,7 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
           f"{requests * gen_tokens / g.decode_s}, prefill tokens/s "
           f"{requests * prompt_len / g.prefill_s}, peak device memory "
           f"{peak} B, launches {counts}", flush=True)
-    want = {"flash_attention_wgmma": L, "flash_attention": 0,
+    want = {"flash_attention_wgmma": L, "flash_attention_tf32": 0,
             "flash_decode": L * gen_tokens,
             "flash_decode_combine": L * gen_tokens}
     got = {k: counts[k] for k in want}
@@ -1147,14 +1181,21 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
     return counts, measured
 
 
-F32_LAYERS, F32_REQUESTS, F32_PROMPT_LEN, F32_GEN_TOKENS = 2, 2, 512, 4
+F32_LAYERS, F32_REQUESTS, F32_PROMPT_LEN, F32_GEN_TOKENS = 28, 8, 2048, 8
 
 
-def run_serve_f32(torch, seed):
-    """qwen3-1.7b served in float32 (full width, depth cut to
-    ``F32_LAYERS``): its prefill goes to the CUDA-core attention kernel.
-    The counted run must give the same greedy tokens as a run through the
-    plain versions. Returns its launch counts."""
+def run_serve_f32(torch, seed, profile=False):
+    """qwen3-1.7b served in float32 at full width and depth (``F32_LAYERS``
+    of its 28 layers, ``F32_REQUESTS`` prompts of ``F32_PROMPT_LEN``
+    tokens, ``F32_GEN_TOKENS`` greedy tokens): its prefill goes to the
+    3xTF32 attention kernel. A first run captures the attention inputs
+    of the first and last layer at the prefill and at the last decode
+    step, and the kernels are held against their plain versions on them
+    (layer 0's prefill gives the f32 kernel's numbers); the second,
+    counted run must give the same greedy tokens as the first and as a
+    run through the plain versions, and logits within 1e-3 of their
+    scale. With ``profile``, one more prefill under torch.profiler.
+    Returns (the counted run's launches, measured numbers per kernel)."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_arch
@@ -1166,35 +1207,64 @@ def run_serve_f32(torch, seed):
     prompt_len, gen_tokens = F32_PROMPT_LEN, F32_GEN_TOKENS
     a = get_arch("qwen3-1.7b")
     cfg = dataclasses.replace(a.cfg, n_layers=layers, dtype="float32")
+    t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"serve float32: {layers} of {a.cfg.n_layers} layers, {n_params} "
+          f"parameters from seed {seed} in {time.perf_counter() - t0:.3f} s",
+          flush=True)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab, size=(requests, prompt_len))
+    with attention_captured(FA, layers, gen_tokens) as captured:
+        first_tokens = serve.generate(model, prompts, gen_tokens).tokens
+    # the decode's kernel line comes from the bf16 serve
+    measured = {"flash_attention": check_captured(
+        torch, captured, "serve float32")["flash_attention"]}
+    captured.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     g = serve.generate(model, prompts, gen_tokens)
     counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = g.registry.percentiles("serve.decode_step_s")
     with attention_swapped(FA, FA.flash_attention_plain,
                            FA.flash_decode_plain):
         ref = serve.generate(model, prompts, gen_tokens)
     diff = float((g.logits - ref.logits).abs().max())
-    print(f"serve float32 ({layers} of {a.cfg.n_layers} layers, {requests} x "
-          f"{prompt_len} tokens, {gen_tokens} steps): prefill_s "
-          f"{g.prefill_s}, tokens {g.tokens.tolist()} vs plain "
-          f"{ref.tokens.tolist()}, logits max abs diff {diff}, launches "
-          f"{counts}", flush=True)
-    want = {"flash_attention": layers, "flash_attention_wgmma": 0,
+    scale = float(ref.logits.abs().max())
+    print(f"serve float32 ({layers} layers, {requests} x {prompt_len} "
+          f"tokens, {gen_tokens} steps): prefill_s {g.prefill_s}, decode "
+          f"step p50 {steps['p50'] * 1e3} ms, p99 {steps['p99'] * 1e3} ms, "
+          f"prefill tokens/s {requests * prompt_len / g.prefill_s}, peak "
+          f"device memory {peak} B; plain run prefill_s {ref.prefill_s}; "
+          f"tokens {g.tokens.tolist()} vs plain {ref.tokens.tolist()}, "
+          f"logits max abs diff {diff} of scale {scale}, launches {counts}",
+          flush=True)
+    want = {"flash_attention_tf32": layers, "flash_attention_wgmma": 0,
             "flash_decode": layers * gen_tokens,
             "flash_decode_combine": layers * gen_tokens}
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"serve float32: launches {counts}, expected "
                              f"{want}")
-    scale = float(ref.logits.abs().max())
+    if not np.array_equal(g.tokens, first_tokens):
+        raise AssertionError("serve float32: the capturing run gave other "
+                             "tokens")
     if not (np.array_equal(g.tokens, ref.tokens) and diff <= 1e-3 * scale):
         raise AssertionError("serve float32: kernels and plain versions "
                              "disagree")
-    del model, g, ref
+    del g, ref
     torch.cuda.empty_cache()
-    return counts
+    if profile:
+        tokens = torch.as_tensor(prompts, dtype=torch.int32,
+                                 device=model.device)
+        profile_run(torch, "serve float32 prefill", lambda: model.prefill(
+            tokens, capacity=prompt_len + gen_tokens))
+    del model
+    torch.cuda.empty_cache()
+    return counts, measured
 
 
 # -- the FM recsys path -------------------------------------------------------
@@ -1483,8 +1553,8 @@ KERNELS = [
     ("flash_attention_wgmma", "flash_attention_wgmma",
      "src/repro_torch/csrc/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention.py:27", None),
-    ("flash_attention", "flash_attention",
-     "src/repro_torch/csrc/flash_attention.cu",
+    ("flash_attention", "flash_attention_tf32",
+     "src/repro_torch/csrc/flash_attention_tf32.cu",
      "src/repro/kernels/flash_attention.py:27", None),
     ("flash_decode", "flash_decode",
      "src/repro_torch/csrc/flash_attention.cu",
@@ -1506,8 +1576,8 @@ def main(argv=None) -> int:
                     help="Graph500 scale (2**scale vertices)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile Reach, CC, SSSP (host and device "
-                         "mode), the serve path "
-                         "and a serve_bulk batch on the card")
+                         "mode), the serve path (bf16 prefill and decode, "
+                         "f32 prefill) and a serve_bulk batch on the card")
     args = ap.parse_args(argv)
 
     import torch
@@ -1556,7 +1626,10 @@ def main(argv=None) -> int:
         measured.update(serve_measured)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
-        for k, v in run_serve_f32(torch, args.seed).items():
+        counts, f32_measured = run_serve_f32(torch, args.seed,
+                                             args.profile)
+        measured.update(f32_measured)
+        for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
     with phase("recsys"):
         counts, measured["fm_interaction"] = run_recsys_phase(

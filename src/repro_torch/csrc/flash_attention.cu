@@ -1,36 +1,10 @@
-// Blocked online-softmax attention (float32) and split-KV decode
-// attention (float32 or bf16) for Hopper (sm_90a), GQA by head index, f32
-// arithmetic.
+// Split-KV decode attention (float32 or bf16 cache) for Hopper (sm_90a),
+// GQA by head index, f32 arithmetic. The prefill kernels live beside it:
+// flash_attention_wgmma.cu (bfloat16) and flash_attention_tf32.cu
+// (float32), both on the tensor cores.
 //
-// flash_attention replaces `_attn_kernel` of
-// src/repro/kernels/flash_attention.py (via flash_attention_pallas) for
-// float32 inputs; bfloat16 inputs go to the tensor-core kernel of
-// flash_attention_wgmma.cu, since wgmma on float32 would be TF32:
-//   out[b, h, i] = softmax_j(q[b, h, i] . k[b, h / group, j] * scale)
-//                  . v[b, h / group, j]
-// over keys j <= i + (skv - sq) when causal (the mask is aligned to the
-// end), over all j otherwise. A row with no visible key gives 0.
-//
-// Bound on the H100: operations. The causal prefill does about
-// sq * skv * d multiply-adds per head (half of the full product's
-// 2 * sq * skv * d: QK^T and P.V, each d per visible pair); the inputs
-// are read once.
-// This kernel uses the CUDA cores (f32 FMA): its ceiling is the 67
-// TFLOP/s float32 peak.
-//
-// Design: one CTA of 256 threads per (q tile of 64 rows, head, batch).
-// Q (pre-scaled by scale * log2 e) and each K tile are staged transposed
-// in shared memory as f32, so a thread reads 4 query rows and BK / 16
-// keys with one vector load each and keeps a 4 x (BK / 16) score tile in
-// registers. The running max m, sum l and the 4 x (d / 16) output tile
-// stay in registers; the 16 threads that share a row reduce with
-// xor-shuffles, which give every lane the same value. P goes through
-// shared memory (transposed) to the P . V product. Only the KV tiles up
-// to the last visible key of the tile's last row are visited, and tails
-// that are not tile multiples are masked, so any sq and skv work.
-//
-// flash_decode_split + flash_decode_combine replace `_decode_kernel`
-// (via flash_decode_pallas): one query token per sequence against a
+// flash_decode_split + flash_decode_combine replace `_decode_kernel` of
+// src/repro/kernels/flash_attention.py (via flash_decode_pallas): one query token per sequence against a
 // [b, hkv, S, d] cache whose positions >= kv_len[b] are masked
 // (kv_len = 0 gives 0).
 //
@@ -70,10 +44,6 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -82,223 +52,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-// ---------------------------------------------------------------------------
-// prefill
-
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int TM = 4;         // query rows per thread
-constexpr int THREADS = 256;  // 16 row groups x 16 column groups
-constexpr int QPAD = BQ + 4;  // row length of the transposed Q and P tiles
-
-template <int D>
-struct Tile {
-  static constexpr int BK = D >= 128 ? 32 : 64;  // keys per KV tile
-  static constexpr int TN = BK / 16;             // keys per thread
-  static constexpr int KPAD = BK + 4;
-  static constexpr int DN = D / 16;              // output columns per thread
-  // Qt [D][QPAD], Kt [D][KPAD], Vs [BK][D], Pt [BK][QPAD], all f32
-  static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)D * QPAD + (size_t)D * KPAD +
-                       (size_t)BK * D + (size_t)BK * QPAD);
-};
-
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  if constexpr (N == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-  } else if constexpr (N == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x; out[1] = x.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = p[i];
-  }
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ out, int hq, int hkv,
-            int sq, int skv, int causal, float scale_log2) {
-  using C = Tile<D>;
-  constexpr int BK = C::BK, TN = C::TN, KPAD = C::KPAD, DN = C::DN;
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                    // [D][QPAD]
-  float* Kt = Qt + D * QPAD;           // [D][KPAD]
-  float* Vs = Kt + D * KPAD;           // [BK][D]
-  float* Pt = Vs + BK * D;             // [BK][QPAD]
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kvh = h / (hq / hkv);
-  const int off = skv - sq;  // query row i sees keys j <= i + off
-
-  const T* qp = q + ((int64_t)bi * hq + h) * sq * D;
-  const T* kp = k + ((int64_t)bi * hkv + kvh) * skv * D;
-  const T* vp = v + ((int64_t)bi * hkv + kvh) * skv * D;
-
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, c = idx - r * D;
-    const float x = q0 + r < sq ? to_f32(qp[(int64_t)(q0 + r) * D + c]) : 0.f;
-    Qt[c * QPAD + r] = x * scale_log2;
-  }
-
-  int kv_end = skv;
-  if (causal) {
-    const int last = min(q0 + BQ, sq) - 1 + off;  // last row's last key
-    kv_end = max(0, min(skv, last + 1));
-  }
-
-  float m[TM], l[TM], acc[TM][DN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int r = idx / D, c = idx - r * D;
-      const bool in = kv0 + r < skv;
-      const int64_t g = (int64_t)(kv0 + r) * D + c;
-      Kt[c * KPAD + r] = in ? to_f32(kp[g]) : 0.f;
-      Vs[idx] = in ? to_f32(vp[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float a[TM], b[TN];
-      load_vec<TM>(Qt + c * QPAD + ty * TM, a);
-      load_vec<TN>(Kt + c * KPAD + tx * TN, b);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int qpos = q0 + ty * TM + i + off;
-      float mt = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int kpos = kv0 + tx * TN + j;
-        const bool ok = kpos < skv && (!causal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] : -CUDART_INF_F;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mt));
-      const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = exp2f(m[i] - m_use);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p = exp2f(s[i][j] - m_use);
-        ps += p;
-        Pt[(tx * TN + j) * QPAD + ty * TM + i] = p;
-      }
-      l[i] = l[i] * alpha + row_sum16(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int t = 0; t < BK; ++t) {
-      float p[TM];
-      load_vec<TM>(Pt + t * QPAD + ty * TM, p);
-#pragma unroll
-      for (int jj = 0; jj < DN / 4; ++jj) {
-        float w[4];
-        load_vec<4>(Vs + t * D + jj * 64 + tx * 4, w);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][jj * 4 + e] = fmaf(p[i], w[e], acc[i][jj * 4 + e]);
-      }
-    }
-  }
-
-  T* op = out + ((int64_t)bi * hq + h) * sq * D;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = q0 + ty * TM + i;
-    if (r >= sq) continue;
-    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-#pragma unroll
-    for (int jj = 0; jj < DN / 4; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        op[(int64_t)r * D + jj * 64 + tx * 4 + e] =
-            from_f32<T>(acc[i][jj * 4 + e] * inv);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch_attn(const void* q, const void* k, const void* v,
-                        void* out, int b, int hq, int hkv, int sq, int skv,
-                        int causal, float scale_log2, cudaStream_t stream) {
-  const size_t smem = Tile<D>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  attn_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv,
-      causal, scale_log2);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t attn_by_dim(int d, const void* q, const void* k, const void* v,
-                        void* out, int b, int hq, int hkv, int sq, int skv,
-                        int causal, float scale_log2, cudaStream_t s) {
-  switch (d) {
-    case 64:
-      return launch_attn<T, 64>(q, k, v, out, b, hq, hkv, sq, skv, causal,
-                                scale_log2, s);
-    case 128:
-      return launch_attn<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, causal,
-                                 scale_log2, s);
-    case 256:
-      return launch_attn<T, 256>(q, k, v, out, b, hq, hkv, sq, skv, causal,
-                                 scale_log2, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// decode
 
 constexpr int DWARPS = 4;                     // consumer warps
 constexpr int DTHREADS = (DWARPS + 1) * 32;   // and one producer warp
@@ -680,20 +433,6 @@ cudaError_t decode_by_dim(int d, const void* q, const void* k, const void* v,
 }
 
 }  // namespace
-
-// q [b, hq, sq, d], k and v [b, hkv, skv, d], out [b, hq, sq, d], all
-// contiguous float32; d in {64, 128, 256}; hq % hkv == 0. scale_log2 =
-// softmax scale * log2(e). Returns cudaGetLastError() after the launch.
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int b, int hq, int hkv, int sq,
-                               int skv, int d, int causal, float scale_log2,
-                               void* stream) {
-  if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
-  if (b <= 0 || sq <= 0) return 0;
-  return (int)attn_by_dim<float>(d, q, k, v, out, b, hq, hkv, sq, skv,
-                                 causal, scale_log2,
-                                 static_cast<cudaStream_t>(stream));
-}
 
 // q [b, hq, d], k and v [b, hkv, S, d], kv_len [b] int32; splits of
 // split_len positions; part_m, part_l [b, hq, n_splits] and part_acc

@@ -7,8 +7,8 @@
 //                  . v[b, h / group, j]
 // over keys j <= i + (skv - sq) when causal (the mask is aligned to the
 // end), over all j otherwise; a row with no visible key gives 0; any sq
-// and skv. float32 inputs stay on attn_kernel of flash_attention.cu
-// (wgmma on f32 would be TF32).
+// and skv. float32 inputs go to flash_attention_tf32.cu (error-compensated
+// TF32 on mma.sync).
 //
 // Bound on the H100: operations. 4 d flops per visible (query, key) pair
 // at 989 TFLOP/s dense bf16; q, k, v and out cross HBM once.

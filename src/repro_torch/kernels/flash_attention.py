@@ -1,17 +1,19 @@
 """Attention kernels of the LM serving path.
 
-The wrappers of ``csrc/flash_attention_wgmma.cu`` and
-``csrc/flash_attention.cu``: ``flash_attention`` replaces
-``_attn_kernel`` and ``flash_decode`` replaces ``_decode_kernel`` of
-``repro.kernels.flash_attention``. On CPU tensors they run the plain
-torch versions (``kernels/ref.py``); on CUDA tensors they launch a
-kernel or raise.
+The wrappers of ``csrc/flash_attention_wgmma.cu``,
+``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu``:
+``flash_attention`` replaces ``_attn_kernel`` and ``flash_decode``
+replaces ``_decode_kernel`` of ``repro.kernels.flash_attention``. On CPU
+tensors they run the plain torch versions (``kernels/ref.py``); on CUDA
+tensors they launch a kernel or raise.
 
-``flash_attention`` picks its kernel by type (``prefill_kernel``):
-bfloat16 goes to the tensor-core kernel (wgmma fed by TMA, launch key
-``flash_attention_wgmma``), float32 to the CUDA-core kernel (f32 FMA,
-key ``flash_attention``), because wgmma on float32 means TF32, which
-would not hold the float32 tolerance.
+``flash_attention`` picks its kernel by type (``prefill_kernel``); both
+run on the tensor cores. bfloat16 goes to wgmma fed by TMA (launch key
+``flash_attention_wgmma``), float32 to error-compensated TF32 on
+mma.sync (key ``flash_attention_tf32``): each operand is split into a
+TF32 hi and lo part and a product is lo.hi + hi.lo + hi.hi with f32
+accumulation, about 22 significant bits, which holds the float32
+tolerance where one TF32 pass (11 bits) does not.
 
 Contract (the shapes of ``repro.kernels.ops.flash_attention`` and
 ``flash_decode``):
@@ -21,9 +23,8 @@ Contract (the shapes of ``repro.kernels.ops.flash_attention`` and
 - ``flash_decode(q, k, v, kv_len)``: q [b, hq, d], k and v
   [b, hkv, S, d], kv_len an int or [b] int32; positions >= kv_len are
   masked, and kv_len = 0 gives 0.
-The kernels take d in {64, 128, 256}; the tensor-core kernel and the
-decode kernel (bulk copies and 16-byte vector reads) also need 16-byte
-aligned inputs.
+The kernels take d in {64, 128, 256} and 16-byte aligned inputs (TMA
+loads, cp.async and bulk copies, 16-byte vector reads).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
+LAUNCHES = {"flash_attention_tf32": 0, "flash_attention_wgmma": 0,
             "flash_decode": 0, "flash_decode_combine": 0}
 HEAD_DIMS = (64, 128, 256)
 SM_COUNT = 132             # the H100's streaming multiprocessors
@@ -65,10 +66,10 @@ def _check(name: str, tensors, d: int, hq: int, hkv: int) -> None:
 
 
 def prefill_kernel(dtype: torch.dtype) -> str:
-    """The kernel that serves a prefill of this dtype: "wgmma" (tensor
-    cores; bfloat16) or "cuda_core" (float32). Both take every d in
-    ``HEAD_DIMS``."""
-    return "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+    """The kernel that serves a prefill of this dtype, both on the tensor
+    cores: "wgmma" (bfloat16) or "tf32x3" (float32, error-compensated
+    TF32). Both take every d in ``HEAD_DIMS``."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _scale_log2(d: int) -> float:
@@ -87,27 +88,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, hkv, skv, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    wgmma = prefill_kernel(q.dtype) == "wgmma"
-    if wgmma and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: the tensor-core kernel's TMA "
-                         "loads need 16-byte aligned inputs")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the tensor-core kernels' TMA "
+                         "and cp.async loads need 16-byte aligned inputs")
     out = torch.empty_like(q)
     if not out.numel():
         return out
+    name = ("flash_attention_wgmma" if prefill_kernel(q.dtype) == "wgmma"
+            else "flash_attention_tf32")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if wgmma:
-            rc = _lib_wgmma().flash_attention_wgmma(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                hq, hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
-            _build.check(rc, "flash_attention_wgmma")
-            LAUNCHES["flash_attention_wgmma"] += 1
-        else:
-            rc = _lib().flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                hq, hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
-            _build.check(rc, "flash_attention")
-            LAUNCHES["flash_attention"] += 1
+        rc = _prefill_fn(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
+        _build.check(rc, name)
+        LAUNCHES[name] += 1
     return out
 
 
@@ -175,23 +170,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _lib_wgmma():
-    lib = _build.load("flash_attention_wgmma")
-    if lib.flash_attention_wgmma.argtypes is None:
+def _prefill_fn(name: str):
+    """The C entry ``name`` of ``csrc/<name>.cu``: (q, k, v, out, b, hq,
+    hkv, sq, skv, d, causal, scale_log2, stream) -> cudaError_t."""
+    fn = getattr(_build.load(name), name)
+    if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_wgmma.argtypes = [P, P, P, P, I, I, I, I, I, I,
-                                              I, F, P]
-        lib.flash_attention_wgmma.restype = I
-    return lib
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, P]
+        fn.restype = I
+    return fn
 
 
 def _lib():
     lib = _build.load("flash_attention")
-    if lib.flash_attention.argtypes is None:
+    if lib.flash_decode_split.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F,
-                                        P]
-        lib.flash_attention.restype = I
         lib.flash_decode_split.argtypes = [P, P, P, P, P, P, P, I, I, I, I,
                                            I, I, I, I, F, P]
         lib.flash_decode_split.restype = I

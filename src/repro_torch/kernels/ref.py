@@ -159,6 +159,23 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)
 
 
+def attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """``attention_ref`` computed in float64 with the exact scale
+    1 / sqrt(d), returned in float64: the yardstick for how close a
+    float32 path comes (float32 itself is off it by about the f32
+    tolerance once scores span tens of units)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kk = k.repeat_interleave(hq // hkv, dim=1).double()
+    vv = v.repeat_interleave(hq // hkv, dim=1).double()
+    logits = q.double() @ kk.transpose(-1, -2) / d ** 0.5
+    visible = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        visible = visible.tril(skv - sq)
+    return _softmax_or_zero(logits, visible) @ vv
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len, scale=None) -> torch.Tensor:
     """One query token per sequence: q [b, hq, d]; k, v [b, hkv, S, d];

@@ -313,7 +313,7 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dtype, hq, hkv, sq,
                                               skv):
     """GQA groups 1, 2 and 16; tails that are no tile multiple; a chunk
     of queries at the end of a longer cache; more queries than keys.
-    bfloat16 runs the tensor-core kernel, float32 the CUDA-core one."""
+    bfloat16 runs the wgmma kernel, float32 the 3xTF32 one."""
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=cuda)
     gen.manual_seed(d + sq)
@@ -321,7 +321,7 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dtype, hq, hkv, sq,
     k = _normal(gen, (2, hkv, skv, d), dtype, cuda)
     v = _normal(gen, (2, hkv, skv, d), dtype, cuda)
     key = ("flash_attention_wgmma" if dtype == torch.bfloat16
-           else "flash_attention")
+           else "flash_attention_tf32")
     for causal in (True, False):
         before = dict(FA.LAUNCHES)
         out = FA.flash_attention(q, k, v, causal=causal)
@@ -331,6 +331,47 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dtype, hq, hkv, sq,
         assert out.dtype == dtype and out.shape == q.shape
         rtol, atol = ATTN_TOL[dtype]
         torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", ["scores_60", "long_rows", "gqa_16"])
+def test_flash_attention_f32_where_the_split_matters(cuda, d, case):
+    """float32 on the 3xTF32 kernel, a second call giving the same bits:
+    q and k scaled so that the scores span +-60 in log2 units (as in
+    tests/test_torch_tf32_split.py), held against float64 attention,
+    because there the plain float32 version is itself off float64 by
+    about the tolerance at d = 256; 4133 keys under a chunk of 300
+    queries (long rows, a ragged last tile) and chatglm3's GQA 16:1,
+    held against the plain version."""
+    import math
+    from repro_torch.kernels import flash_attention as FA, ref
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + len(case))
+    hq, hkv, sq, skv = {"scores_60": (16, 8, 256, 256),
+                        "long_rows": (4, 2, 300, 4133),
+                        "gqa_16": (32, 2, 520, 520)}[case]
+    q = _normal(gen, (2, hq, sq, d), torch.float32, cuda)
+    k = _normal(gen, (2, hkv, skv, d), torch.float32, cuda)
+    v = _normal(gen, (2, hkv, skv, d), torch.float32, cuda)
+    if case == "scores_60":
+        s = q @ k.repeat_interleave(hq // hkv, 1).transpose(-1, -2)
+        c = math.sqrt(60 / (float(s.abs().max()) / math.sqrt(d)
+                            * math.log2(math.e)))
+        q, k = q * c, k * c
+    rtol, atol = ATTN_TOL[torch.float32]
+    for causal in (True, False):
+        before = FA.LAUNCHES["flash_attention_tf32"]
+        out = FA.flash_attention(q, k, v, causal=causal)
+        again = FA.flash_attention(q, k, v, causal=causal)
+        if case == "scores_60":
+            want = ref.attention_f64(q, k, v, causal)
+        else:
+            want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES["flash_attention_tf32"] == before + 2
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out.double(), want.double(), rtol=rtol,
                                    atol=atol)
 
 
@@ -419,6 +460,10 @@ def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
     odd = flat[1:].view(1, 4, 8, 64)
     with pytest.raises(ValueError, match="aligned"):
         FA.flash_attention(odd, q.bfloat16(), q.bfloat16())
+    # and the 3xTF32 kernel's cp.async copies
+    flat32 = torch.zeros(4 * 8 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention(flat32[1:].view(1, 4, 8, 64), q, q)
     # so do the decode kernel's bulk copies
     with pytest.raises(ValueError, match="aligned"):
         FA.flash_decode(q[:, :, 0].bfloat16().contiguous(), odd, odd, 8)
@@ -446,7 +491,7 @@ def test_transformer_on_card_matches_cpu(cuda, dtype):
                          steps)
     counts = launch_counts()
     prefill = ("flash_attention_wgmma" if dtype == "bfloat16"
-               else "flash_attention")
+               else "flash_attention_tf32")
     assert counts[prefill] == cfg.n_layers
     assert counts["flash_decode"] == counts["flash_decode_combine"] == (
         steps * cfg.n_layers)

@@ -1,11 +1,13 @@
 """Which prefill attention kernel serves which inputs, and the arithmetic
-of the tensor-core kernel emulated on the CPU.
+of the bfloat16 kernel emulated on the CPU.
 
-``flash_attention`` sends bfloat16 to the tensor-core kernel
-(``csrc/flash_attention_wgmma.cu``) and float32 to the CUDA-core one
-(``csrc/flash_attention.cu``); ``prefill_kernel`` is that choice as a
-pure function. The tensor-core kernel feeds P to its P.V product in
-bfloat16, split into a hi and a lo part; ``_emulate`` repeats its
+``flash_attention`` sends bfloat16 to the wgmma kernel
+(``csrc/flash_attention_wgmma.cu``) and float32 to the 3xTF32 one
+(``csrc/flash_attention_tf32.cu``), both on the tensor cores;
+``prefill_kernel`` is that choice as a pure function (the 3xTF32
+arithmetic is emulated in ``tests/test_torch_tf32_split.py``). The
+wgmma kernel feeds P to its P.V product in bfloat16, split into a hi
+and a lo part; ``_emulate`` repeats its
 blocked online softmax in torch so that the precision argument for the
 split is checked here against the plain version, within the tolerance
 the card's checks use. (Rounded once instead, P misses that tolerance:
@@ -26,11 +28,15 @@ def test_bf16_goes_to_the_tensor_core_kernel():
 
 
 def test_f32_goes_to_the_cuda_core_kernel():
-    assert FA.prefill_kernel(torch.float32) == "cuda_core"
+    """float32 now goes to the tensor cores too: error-compensated TF32
+    (the name is kept from when it went to the CUDA cores)."""
+    assert FA.prefill_kernel(torch.float32) == "tf32x3"
 
 
 def test_each_kernel_has_its_own_launch_key():
-    assert {"flash_attention", "flash_attention_wgmma"} <= set(FA.LAUNCHES)
+    assert {"flash_attention_tf32", "flash_attention_wgmma"} <= set(
+        FA.LAUNCHES)
+    assert "flash_attention" not in FA.LAUNCHES
 
 
 def _emulate(q, k, v, causal, bk=128):
