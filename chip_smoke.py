@@ -27,14 +27,18 @@ Phases, each printing its wall time:
              kernels' ptxas registers and spills;
 5. engine    Reach, CC and SSSP with the port's Engine on the card over a
              Graph500 Kronecker graph (scale 22, edge factor 16, A, B, C =
-             0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph;
+             0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph
+             and run a second time on the same Engine (warm);
 6. wide      Reach again under force_multiword(), so every key is two
              words and every probe takes the multi-word kernel;
 7. device    the four runs of phases 5 and 6 in the engine's device mode
              (one iteration captured as a CUDA graph and replayed), each
              held to scipy, to host mode's iterations and to zero grow
-             retries, timed beside host mode; a kernel inside the graph
-             counts once per capture, not per replay;
+             retries, then run again on the same Engine, which must
+             replay the graph memo (no capture, a memo hit a loop) and
+             give the same facts; both timed beside host mode's two
+             runs; a kernel inside the graph counts once per capture,
+             not per replay;
 8. incremental
              Reach and CC maintained in device mode under a stream seeded
              by --seed: 2 x 65,536 new random edges, 65,536 existing
@@ -44,6 +48,24 @@ Phases, each printing its wall time:
              over it byte for byte, after the last also scipy; each
              apply's latency beside the batch run's time, DRed's rounds
              and candidate rows, peak memory;
+8b. durable  the launcher's program (launch/incremental_serving.py:
+             reachability from the vertex of largest out-degree avoiding
+             1% of the vertices, quarantined, and hop counts, a MIN
+             monoid) served by DurableIncrementalEngine in device mode on
+             the same graph under 6 seeded batches of 65,536 new and
+             65,536 deleted links, a snapshot every 2: once uninterrupted
+             (the twin, its views kept on the host), each step held to a
+             host-mode batch run over the edge set kept apart with numpy
+             and the last to scipy; once under a seeded FaultPlan of
+             crashes outside captured regions, each crash followed by a
+             fresh engine, recover() and the batch re-submitted, every
+             step byte-equal to the twin (views and iteration dicts);
+             a cold recover(); and an engine whose idb_cap is the initial
+             view's size absorbing an insert batch by the ladder's
+             capacity backoff. Prints snapshot seconds and bytes, recover
+             beside initialize seconds, each apply's seconds and graph
+             captures (0 after the first apply), memo counts and peak
+             memory;
 9. serve     qwen3-1.7b at full width through repro_torch.launch.serve:
              random bf16 weights from --seed, 8 requests of 2048 prompt
              tokens, 64 greedy tokens, twice: a run that captures the
@@ -75,7 +97,9 @@ Phases, each printing its wall time:
 11. launches each kernel's launch count over the host-mode runs of
              phases 5, 6, 9 and 10 (each counted from 0 just before
              it), and apart the engine kernels' calls in phases 7 and 8
-             (once per capture); a zero in either fails.
+             and in phase durable (a kernel inside a captured graph once
+             per capture, so a memo hit adds nothing); a zero in any
+             fails.
 
 With ``--profile``, each of Reach, CC and SSSP in host and in device
 mode, the serve prefill, four decode steps, the float32 prefill and one
@@ -94,6 +118,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -447,7 +472,7 @@ def reference_answers(scale, src, dst, weights, source):
     # sum them): sort packed (x, y, w) keys, keep each (x, y)'s first
     n = 1 << scale
     key = (src.astype(np.int64) << scale | dst) << 6 | weights  # w < 64
-    key = np.unique(key)
+    key = sorted_unique(key)
     first = np.ones(key.shape[0], bool)
     first[1:] = (key[1:] >> 6) != (key[:-1] >> 6)
     key = key[first]
@@ -463,6 +488,13 @@ def reference_answers(scale, src, dst, weights, source):
     hit = np.flatnonzero(np.isfinite(dist))
     sssp = np.stack([hit, dist[hit].astype(np.int64)], axis=1)
     return reach, cc, sssp, x.astype(np.int64) << 32 | y
+
+
+def sorted_unique(keys):
+    """np.unique of int64 keys, sorted on the card (numpy takes minutes
+    for 2**26 keys on the chip host); torch's sort, not the port's."""
+    import torch
+    return torch.unique(torch.from_numpy(keys).cuda()).cpu().numpy()
 
 
 OUTPUT = {"Reach": "reach", "CC": "cc", "SSSP": "dist"}
@@ -482,29 +514,54 @@ def hold_facts(np, label, got, want, against="the scipy reference"):
 
 def run_engine(torch, name, src_text, edbs, n, edge_cap, want,
                multiword=False, mode="host", title=None,
-               against="the scipy reference"):
-    """One counted run of ``name`` -> (launch counts, stats)."""
+               against="the scipy reference", warm=False):
+    """One counted run of ``name`` -> (launch counts, stats). With
+    ``warm``, a second run on the same Engine follows, which must replay
+    the graph memo's captures (no capture, memo hits) and give the same
+    facts; its stats come back as ``stats.warm``."""
     import numpy as np
     from repro_torch.core.optimizer import compile_program
     from repro_torch.engine import Engine, Observation
+    from repro_torch.engine.observe import REGISTRY
     from repro_torch.engine.relation import force_multiword
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.fixpoint import engine_config
     obs = Observation() if mode == "device" else None
     engine = Engine(compile_program(src_text),
                     engine_config(n, edge_cap, mode, obs))
+    forced = force_multiword() if multiword else contextlib.nullcontext()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    if multiword:
-        with force_multiword():
-            out, stats = engine.run(edbs)
-    else:
+    with forced:
         out, stats = engine.run(edbs)
     torch.cuda.synchronize()
     counts = launch_counts()
     label = (f"{title or name}{' (force_multiword)' if multiword else ''}, "
              f"{mode} mode")
+    if warm:
+        captures = REGISTRY.get("engine.graph_captures")
+        hits = obs.registry.get("memo_jit.hit") if obs else 0
+        with force_multiword() if multiword else contextlib.nullcontext():
+            again, stats.warm = engine.run(edbs)
+        torch.cuda.synchronize()
+        captures = REGISTRY.get("engine.graph_captures") - captures
+        memo = (f", graph captures {captures}, memo hits "
+                f"{obs.registry.get('memo_jit.hit') - hits}" if obs else "")
+        print(f"{label}, warm second run on the same Engine: wall "
+              f"{stats.warm.wall_s:.4f} s{memo}, peak memory "
+              f"{torch.cuda.max_memory_allocated()} B allocated, "
+              f"{torch.cuda.max_memory_reserved()} B reserved", flush=True)
+        loops = sum(1 for v in stats.iterations.values() if v > 0)
+        if obs and (captures or obs.registry.get("memo_jit.hit") - hits
+                    != loops):
+            raise AssertionError(f"{label}: the warm run captured "
+                                 f"{captures} graphs, memo hits "
+                                 f"{obs.registry.get('memo_jit.hit') - hits}"
+                                 f" for {loops} loops")
+        if stats.warm.iterations != stats.iterations or any(
+                not np.array_equal(again[k], out[k]) for k in out):
+            raise AssertionError(f"{label}: the warm run differs")
     print(f"{label}: iterations {stats.iterations}, wall "
           f"{stats.wall_s:.4f} s, grow_retries {stats.grow_retries}, "
           f"peak memory {torch.cuda.max_memory_allocated()} B allocated, "
@@ -611,11 +668,12 @@ def add_counts(totals: dict, counts: dict) -> None:
 
 
 def run_engine_phases(torch, seed, scale, profile=False):
-    """Phases engine, wide, device and incremental; with ``profile``, the
-    host- and device-mode runs again under torch.profiler. Returns the
-    launch counts of the host-mode runs and, apart, the wrapper calls of
-    the device-mode and incremental runs, where a kernel inside a
-    captured graph counts once per capture and not per replay."""
+    """Phases engine, wide, device, incremental and durable; with
+    ``profile``, the host- and device-mode runs again under
+    torch.profiler. Returns the launch counts of the host-mode runs and,
+    apart, the wrapper calls of the device-mode and incremental runs and
+    of the durable phase, where a kernel inside a captured graph counts
+    once per capture and not per replay."""
     import numpy as np
     from repro_torch.launch.fixpoint import (
         CC, EDGE_FACTOR, REACH, SSSP, kronecker_edges)
@@ -650,19 +708,20 @@ def run_engine_phases(torch, seed, scale, profile=False):
     with phase("engine"):
         for name, text, edbs, want, mw in runs[:3]:
             counts, host[name, mw] = run_engine(
-                torch, name, text, edbs, n, edge_cap, want, mw)
+                torch, name, text, edbs, n, edge_cap, want, mw, warm=True)
             add_counts(totals, counts)
     with phase("wide"):
         name, text, edbs, want, mw = runs[3]
         counts, host[name, mw] = run_engine(
-            torch, name, text, edbs, n, edge_cap, want, mw)
+            torch, name, text, edbs, n, edge_cap, want, mw, warm=True)
         add_counts(totals, counts)
     with phase("device"):
         # a kernel inside the graph counts once per capture: a replay
         # calls no wrapper
         for name, text, edbs, want, mw in runs:
             counts, stats = run_engine(torch, name, text, edbs, n,
-                                       edge_cap, want, mw, mode="device")
+                                       edge_cap, want, mw, mode="device",
+                                       warm=True)
             add_counts(captured, counts)
             h = host[name, mw]
             if stats.iterations != h.iterations:
@@ -670,18 +729,26 @@ def run_engine_phases(torch, seed, scale, profile=False):
                     f"{name}: device mode's iterations {stats.iterations} "
                     f"differ from host mode's {h.iterations}")
             print(f"{name}{' (force_multiword)' if mw else ''}: device "
-                  f"mode {stats.wall_s:.4f} s, host mode {h.wall_s:.4f} s",
+                  f"mode {stats.wall_s:.4f} s (capturing), warm "
+                  f"{stats.warm.wall_s:.4f} s (memo hits); host mode "
+                  f"{h.wall_s:.4f} s, warm {h.warm.wall_s:.4f} s",
                   flush=True)
+            del stats.warm
+            gc.collect()
+            torch.cuda.empty_cache()
     with phase("incremental"):
         add_counts(captured, run_incremental(
             torch, seed, n, edge_cap, edges, edge_keys, source))
+    with phase("durable"):
+        durable = run_durable(torch, seed, n, edge_cap, edges, edge_keys,
+                              source)
     if profile:
         with phase("profile"):
             for name, text, edbs, _, _ in runs[:3]:
                 for mode in ("host", "device"):
                     profile_engine(torch, name, text, edbs, n, edge_cap,
                                    mode)
-    return totals, captured
+    return totals, captured, durable
 
 
 def new_edges(np, rng, keys, n, k):
@@ -817,6 +884,378 @@ def run_incremental(torch, seed, n, edge_cap, edges, edge_keys, source):
         del inc, batch, snap, out
         torch.cuda.empty_cache()
     return totals
+
+
+# -- phase durable: durable incremental serving -------------------------------
+
+DURABLE_BATCH = 1 << 16
+DURABLE_STEPS = 6
+LAUNCHER_SCALE = 20     # the launcher's card command in README.md
+LAUNCHER_UPDATES = 30   # and its default stream
+# crash sites outside any captured region
+DURABLE_SITES = ("wal.before_append", "resilience.after_log",
+                 "incremental.apply", "checkpoint.commit",
+                 "checkpoint.retention")
+
+
+def durable_stream(np, seed, n, edge_keys):
+    """DURABLE_STEPS batches, each of DURABLE_BATCH new random links and
+    as many existing ones deleted, drawn from the edge set kept apart
+    (sorted keys x << 32 | y) -> [(inserted keys, deleted keys, the edge
+    set after the step)]."""
+    rng = np.random.default_rng((seed, 18))
+    keys, out = edge_keys, []
+    for _ in range(DURABLE_STEPS):
+        ins = new_edges(np, rng, keys, n, DURABLE_BATCH)
+        dele = some_edges(np, rng, keys, DURABLE_BATCH)
+        srt = np.sort(ins)
+        keys = np.insert(keys, np.searchsorted(keys, srt), srt)
+        keys = np.delete(keys, np.searchsorted(keys, dele))
+        out.append((ins, dele, keys))
+    return out
+
+
+def durable_reference(np, n, keys, source, quarantined):
+    """reaches and pathlen over the edge set ``keys`` by scipy: BFS hop
+    counts from ``source`` over the links into hosts not quarantined."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+    x, y = keys >> 32, keys & 0xFFFFFFFF
+    barred = np.zeros(n, bool)
+    barred[quarantined] = True
+    keep = ~barred[y]
+    g = sp.csr_matrix((np.ones(int(keep.sum())), (x[keep], y[keep])),
+                      shape=(n, n))
+    dist = shortest_path(g, unweighted=True, indices=source)
+    hit = np.flatnonzero(np.isfinite(dist))
+    return hit, np.stack([hit, dist[hit].astype(np.int64)], axis=1)
+
+
+def durable_batch_run(np, cp, n, edge_cap, edbs, keys):
+    """The view by a host-mode batch run of the port over the edge set."""
+    from repro_torch.engine import Engine
+    from repro_torch.launch.fixpoint import engine_config
+    out, stats = Engine(cp, engine_config(n, edge_cap, "host")).run(
+        {**edbs, "link": edge_rows(np, keys)})
+    if stats.grow_retries:
+        raise AssertionError("durable batch run: grow retries")
+    return {k: out[k] for k in ("reaches", "pathlen")}, stats.wall_s
+
+
+def hold_view(np, label, got, want, got_iters=None, want_iters=None):
+    for rel in ("reaches", "pathlen"):
+        if not np.array_equal(got[rel], want[rel]):
+            raise AssertionError(f"{label}: {rel} differs ({len(got[rel])} "
+                                 f"against {len(want[rel])} rows)")
+    if got_iters != want_iters:
+        raise AssertionError(f"{label}: iterations {got_iters} differ "
+                             f"from {want_iters}")
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def run_durable(torch, seed, n, edge_cap, edges, edge_keys, source):
+    """The port's durable incremental serving (engine/resilience.py) in
+    device mode: the launcher's program (launch/incremental_serving.py)
+    over the graph, one source, 1% of the vertices quarantined, under a
+    stream of DURABLE_STEPS batches and snapshots every 2 batches.
+
+    (a)-(b) the stream uninterrupted (the twin), each step's view kept
+    on the host; (c) the same stream under a seeded FaultPlan of crashes
+    at DURABLE_SITES, each crash followed by close(), a fresh engine,
+    recover() and the batch re-submitted; (d) after every step the view
+    and the iteration dict equal the twin's, and the view equals a
+    host-mode batch run over the edge set kept apart; after the last,
+    scipy; a cold recover() gives the final view; (e) an engine whose
+    idb_cap is the initial view's size absorbs an insert batch through
+    the ladder's capacity backoff; (f) the launcher serves the Graph500
+    graph at LAUNCHER_SCALE in device mode with --durable (its crash and
+    ladder demo included), and its final view equals scipy's over the
+    links of its last snapshot. Prints snapshot, recover, initialize
+    and apply times, snapshot bytes, graph captures per apply (0 after
+    the first apply at unchanged caps), memo counts and peak memory.
+    Returns the wrapper calls of the durable path: the twin, the crash
+    run, the recoveries, the ladder's engine and the launcher, not the
+    batch runs they are checked against."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import (
+        DurableIncrementalEngine, EngineConfig, Observation,
+        ResilienceConfig,
+    )
+    from repro_torch.engine import faults as F
+    from repro_torch.engine.observe import REGISTRY
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch import incremental_serving
+    cp = compile_program(incremental_serving.PROGRAM)
+    rng = np.random.default_rng((seed, 19))
+    quarantined = rng.choice(n, size=n // 100, replace=False)
+    quarantined = np.sort(quarantined[quarantined != source])
+    edbs = {"link": edges, "monitor": np.array([[source]]),
+            "quarantined": quarantined[:, None]}
+    t0 = time.perf_counter()
+    stream = durable_stream(np, seed, n, edge_keys)
+    print(f"durable: {DURABLE_STEPS} steps of +{DURABLE_BATCH} "
+          f"-{DURABLE_BATCH} links drawn in {time.perf_counter() - t0:.3f}"
+          f" s; {len(quarantined)} hosts quarantined, source {source}",
+          flush=True)
+    batches = [dict(inserts={"link": edge_rows(np, ins)},
+                    deletes={"link": edge_rows(np, dele)})
+               for ins, dele, _ in stream]
+    cap = edge_cap + DURABLE_STEPS * DURABLE_BATCH
+    root = ROOT / "build" / "durable"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def config(obs, idb_cap=n):
+        return EngineConfig(idb_cap=idb_cap, intermediate_cap=cap,
+                            mode="device", observe=obs)
+
+    def view(out):
+        return {k: out[k] for k in ("reaches", "pathlen")}
+
+    def release():
+        # an engine's graphs and relations go with its last reference
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rcfg = ResilienceConfig(snapshot_every=2)
+    counted: dict = {}
+
+    def tally():
+        # the launches since the last reset_launch_counts() are the
+        # durable path's
+        add_counts(counted, launch_counts())
+
+    # (a), (b): the twin
+    obs = Observation("durable twin")
+    twin = DurableIncrementalEngine(cp, config(obs), directory=root / "twin",
+                                    resilience=rcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captures = REGISTRY.get("engine.graph_captures")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = twin.initialize(edbs)
+    init_s = time.perf_counter() - t0
+    snap = obs.find("resilience-snapshot")[-1]
+    print(f"durable twin: initialize {init_s:.4f} s (a device-mode batch "
+          f"run, the edge mirror, snapshot 0 in {snap.dur:.4f} s, "
+          f"{dir_bytes(root / 'twin' / 'snapshots')} B), graph captures "
+          f"{REGISTRY.get('engine.graph_captures') - captures}, "
+          f"iterations {twin.inc._stats.iterations}", flush=True)
+    views = [view(out)]
+    iters = [dict(twin.inc._stats.iterations)]
+    for step, ((ins, dele, keys), batch) in enumerate(zip(stream, batches)):
+        captures = REGISTRY.get("engine.graph_captures")
+        snaps = len(obs.find("resilience-snapshot"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = twin.apply(**batch)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        captures = REGISTRY.get("engine.graph_captures") - captures
+        mirror = twin.inc.edbs["link"].astype(np.int64)
+        if not np.array_equal(mirror[:, 0] << 32 | mirror[:, 1], keys):
+            raise AssertionError(f"durable twin step {step}: the link "
+                                 f"mirror differs from the edge set")
+        views.append(view(out))
+        iters.append(dict(twin.inc._stats.iterations))
+        ap = obs.find("durable-apply")[-1]
+        strategies = [(sp_.attrs["key"], sp_.attrs["strategy"])
+                      for sp_ in ap.find("maintain-stratum")]
+        written = obs.find("resilience-snapshot")[snaps:]
+        print(f"durable twin step {step}: apply {apply_s:.4f} s (WAL + "
+              f"maintenance {ap.dur:.4f} s"
+              + (f", snapshot {written[0].dur:.4f} s" if written else "")
+              + f"), graph captures {captures}, strategies {strategies}, "
+              f"iterations {iters[-1]}, {len(out['reaches'])} hosts "
+              f"reached", flush=True)
+        if step and captures:
+            raise AssertionError(f"durable twin step {step}: {captures} "
+                                 f"graph captures at unchanged caps")
+    tally()
+    print(f"durable twin: memo {obs.registry.counters_snapshot('memo_jit')}"
+          f", snapshots {obs.registry.get('resilience.snapshots')}, "
+          f"{dir_bytes(root / 'twin' / 'snapshots')} B kept, peak memory "
+          f"{torch.cuda.max_memory_allocated()} B allocated, "
+          f"{torch.cuda.max_memory_reserved()} B reserved", flush=True)
+    twin.close()
+    del twin
+    release()
+
+    # (d) against batch runs over the edge set, and scipy after the last
+    t0 = time.perf_counter()
+    walls = []
+    for step, (_, _, keys) in enumerate(stream):
+        want, wall = durable_batch_run(np, cp, n, cap, edbs, keys)
+        walls.append(round(wall, 4))
+        hold_view(np, f"durable twin step {step} against a batch run",
+                  views[step + 1], want)
+    reach, hops = durable_reference(np, n, stream[-1][2], source,
+                                    quarantined)
+    hold_facts(np, "durable, after the last step: reaches",
+               views[-1]["reaches"], reach)
+    if not np.array_equal(views[-1]["pathlen"], hops):
+        raise AssertionError("durable, after the last step: pathlen "
+                             "differs from scipy's hop counts")
+    print(f"durable: every step equals a host-mode batch run (wall "
+          f"{walls} s) and the last scipy's reachability and hop counts "
+          f"({len(hops)} rows), checked in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # (c) the crashing run
+    obs = Observation("durable crashes")
+    plan = F.FaultPlan.seeded(seed, DURABLE_SITES, n_faults=3, max_hit=4)
+    print(f"durable: fault plan {plan.specs}", flush=True)
+    reset_launch_counts()
+    box = {"dur": DurableIncrementalEngine(
+        cp, config(obs), directory=root / "crash", resilience=rcfg)}
+    crashes = []
+
+    def restart():
+        while True:                 # recovery itself may crash again
+            try:
+                box.pop("dur").close()
+                release()
+                box["dur"] = DurableIncrementalEngine(
+                    cp, config(obs), directory=root / "crash",
+                    resilience=rcfg)
+                if not box["dur"].recoverable():
+                    box["dur"].initialize(edbs)
+                    return
+                before = obs.registry.get("resilience.replayed_updates")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                box["dur"].recover()
+                torch.cuda.synchronize()
+                k = obs.registry.get("resilience.replayed_updates") - before
+                print(f"  recover {time.perf_counter() - t0:.4f} s: the "
+                      f"snapshot at seq {box['dur'].applied_seq - k} and "
+                      f"{k} records replayed", flush=True)
+                return
+            except F.SimulatedCrash as e:
+                crashes.append(str(e))
+
+    def until_done(op):
+        while True:
+            try:
+                return op()
+            except F.SimulatedCrash as e:
+                crashes.append(str(e))
+                print(f"  {e}", flush=True)
+                restart()           # then re-submit the in-flight op
+
+    with F.install(plan):
+        until_done(lambda: box["dur"].initialize(edbs))
+        for step, batch in enumerate(batches):
+            out = until_done(lambda: box["dur"].apply(**batch))
+            hold_view(np, f"durable crash run step {step} against the twin",
+                      view(out), views[step + 1],
+                      box["dur"].inc._stats.iterations, iters[step + 1])
+    print(f"durable: {len(crashes)} crashes absorbed ({plan.fired}); every "
+          f"step equals the twin's view and iterations byte for byte",
+          flush=True)
+    if not crashes:
+        raise AssertionError("durable: no crash fired")
+    box.pop("dur").close()
+    release()
+    obs = Observation("durable cold recover")
+    cold = DurableIncrementalEngine(cp, config(obs),
+                                    directory=root / "crash")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = cold.recover()
+    torch.cuda.synchronize()
+    tally()
+    k = obs.registry.get("resilience.replayed_updates")
+    print(f"durable: cold recover {time.perf_counter() - t0:.4f} s (the "
+          f"snapshot at seq {cold.applied_seq - k} and {k} records "
+          f"replayed) against initialize {init_s:.4f} s", flush=True)
+    hold_view(np, "durable cold recover", view(final), views[-1],
+              cold.inc._stats.iterations, iters[-1])
+    cold.close()
+    del cold, final
+    release()
+
+    # (e) the ladder: the first insert batch overflows the view
+    obs = Observation("durable ladder")
+    idb_cap = len(views[0]["reaches"])
+    reset_launch_counts()
+    lad = DurableIncrementalEngine(cp, config(obs, idb_cap),
+                                   directory=root / "ladder")
+    lad.initialize(edbs)
+    retraces = obs.registry.get("memo_jit.retrace")
+    t0 = time.perf_counter()
+    out = lad.apply(inserts=batches[0]["inserts"])
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    tally()
+    ladder = obs.registry.counters_snapshot("resilience.ladder.")
+    if (not ladder.get("resilience.ladder.capacity_backoff")
+            or ladder.get("resilience.ladder.capacity_recovered") != 1
+            or ladder.get("resilience.ladder.stratum_recompute")):
+        raise AssertionError(f"durable ladder: rungs {ladder}")
+    srt = np.sort(stream[0][0])
+    keys = np.insert(edge_keys, np.searchsorted(edge_keys, srt), srt)
+    want, _ = durable_batch_run(np, cp, n, cap, edbs, keys)
+    hold_view(np, "durable ladder against a batch run", view(out), want)
+    print(f"durable ladder: idb_cap {idb_cap} (the initial view), an insert "
+          f"batch of {DURABLE_BATCH} links absorbed in {apply_s:.4f} s by "
+          f"{ladder}, caps now {lad.engine.effective_caps()}, memo retraces "
+          f"{obs.registry.get('memo_jit.retrace') - retraces}; the view "
+          f"equals a batch run's; peak memory "
+          f"{torch.cuda.max_memory_allocated()} B allocated, "
+          f"{torch.cuda.max_memory_reserved()} B reserved", flush=True)
+    lad.close()
+    del lad
+    release()
+
+    # (f) the launcher, as a user serves a graph durably on the card
+    served_dir = root / "launcher"
+    argv = ["--graph", "kronecker", "--scale", str(LAUNCHER_SCALE),
+            "--updates", str(LAUNCHER_UPDATES), "--mode", "device",
+            "--durable", str(served_dir)]
+    print(f"durable launcher: python -m repro_torch.launch."
+          f"incremental_serving {' '.join(argv)}", flush=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served = incremental_serving.main(argv)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    tally()
+    manifest, snap = load_checkpoint(served_dir / "snapshots")
+    # a batch re-submitted after a crash that its WAL record survived is
+    # logged again, so the stream ends at a seq past LAUNCHER_UPDATES
+    if manifest["extra"]["applied_seq"] < LAUNCHER_UPDATES:
+        raise AssertionError(f"durable launcher: last snapshot at seq "
+                             f"{manifest['extra']['applied_seq']}")
+    snap = {k[2:-2]: v for k, v in snap.items()}    # "['rows::link']"
+    links = snap["rows::link"].astype(np.int64)
+    keys = np.unique(links[:, 0] << 32 | links[:, 1])
+    target = int(snap["rows::monitor"][0, 0])
+    reach, hops = durable_reference(
+        np, 1 << LAUNCHER_SCALE, keys, target,
+        snap["rows::quarantined"][:, 0].astype(np.int64))
+    hold_facts(np, "durable launcher: reaches after the stream",
+               served["reaches"], reach)
+    if not np.array_equal(np.asarray(served["pathlen"], np.int64), hops):
+        raise AssertionError("durable launcher: pathlen differs from "
+                             "scipy's hop counts")
+    print(f"durable launcher: served in {served_s:.4f} s; its view equals "
+          f"scipy's over the {len(keys)} links of its last snapshot (seq "
+          f"{manifest['extra']['applied_seq']})", flush=True)
+    del served, snap, links
+    release()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"durable: launches {counted}", flush=True)
+    return counted
 
 
 # -- attention kernels and the LM serving path --------------------------------
@@ -1567,6 +2006,9 @@ KERNELS = [
 
 # the kernels the engine's device-mode loop captures
 ENGINE_KERNELS = ("probe", "probe_multi", "segment_reduce")
+# the kernels the durable phase's program runs (pathlen's MIN monoid
+# combines with the segment reduce)
+DURABLE_KERNELS = ("probe", "segment_reduce")
 
 
 def main(argv=None) -> int:
@@ -1617,8 +2059,8 @@ def main(argv=None) -> int:
     with phase("attention"):
         run_attention_checks(torch, args.seed, torch.device("cuda"))
         torch.cuda.empty_cache()
-    totals, captured = run_engine_phases(torch, args.seed, args.scale,
-                                         args.profile)
+    totals, captured, durable = run_engine_phases(
+        torch, args.seed, args.scale, args.profile)
     torch.cuda.empty_cache()
     with phase("serve"):
         counts, serve_measured = run_serve_phase(torch, args.seed,
@@ -1640,9 +2082,13 @@ def main(argv=None) -> int:
         print("kernels " + json.dumps(totals), flush=True)
         print("kernels captured in device mode " + json.dumps(captured),
               flush=True)
+        print("kernels of the durable phase " + json.dumps(durable),
+              flush=True)
         missing = [k for k, v in totals.items() if v == 0]
         missing += [f"{k} (device mode)" for k in ENGINE_KERNELS
                     if not captured.get(k)]
+        missing += [f"{k} (durable)" for k in DURABLE_KERNELS
+                    if not durable.get(k)]
         if missing or set(totals) != set(launch_counts()):
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
@@ -1652,6 +2098,7 @@ def main(argv=None) -> int:
              "replaces": replaces, "launches": totals[count_key]}
         if count_key in ENGINE_KERNELS:
             e["captured_launches"] = captured[count_key]
+            e["durable_launches"] = durable.get(count_key, 0)
         e.update(measured[name])
         if also:
             e["also_replaces"] = also

@@ -24,12 +24,25 @@ from repro_torch.engine.semiring import (
 
 def make_engine(compiled, config: EngineConfig | None = None,
                 incremental: bool = False):
-    """Engine factory: the single-device batch ``Engine``, or with
-    ``incremental=True`` an ``IncrementalEngine`` (initialize / apply /
-    snapshot) over it. The sharded engine is not ported (ROADMAP.md)."""
+    """Engine factory: the single-device batch ``Engine`` (host or
+    device mode), or with ``incremental=True`` an ``IncrementalEngine``
+    (initialize / apply / snapshot) over it. For durable serving (WAL,
+    snapshots, recovery) build a ``DurableIncrementalEngine``
+    (engine/resilience.py). The sharded engine is not ported
+    (ROADMAP.md)."""
     if incremental:
         return IncrementalEngine(compiled, config)
     return Engine(compiled, config)
+
+
+def __getattr__(name):
+    # the resilience layer imports checkpoint/, which imports this
+    # package's faults module: load it lazily, as the reference does
+    if name in ("DurableIncrementalEngine", "ResilienceConfig",
+                "SnapshotMismatch", "UpdateLog"):
+        from repro_torch.engine import resilience
+        return getattr(resilience, name)
+    raise AttributeError(name)
 
 
 __all__ = [
@@ -41,4 +54,6 @@ __all__ = [
     "IncrementalEngine", "make_engine",
     "FaultError", "FaultPlan", "FaultSpec", "SimulatedCrash",
     "REGISTRY", "MetricsRegistry", "Observation", "validate_chrome_trace",
+    "DurableIncrementalEngine", "ResilienceConfig", "SnapshotMismatch",
+    "UpdateLog",
 ]

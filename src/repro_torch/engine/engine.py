@@ -10,18 +10,24 @@ falling back to the CPU):
   per iteration, each IDB's delta size and the overflow flag together;
   per-iteration delta sizes land in ``EngineStats.delta_sizes``.
 * ``device`` — the reference's ``lax.while_loop``. On the card one
-  iteration is captured as a CUDA graph over static state buffers after
-  one eager warm-up iteration, and replayed in place; each replay folds
+  iteration is captured as a CUDA graph over static buffers after one
+  eager warm-up iteration, and replayed in place; each replay folds
   ``any_delta`` and the overflow flag into a three-word device log that
   the host reads (a few bytes) before the next replay. Like the
   reference it runs at least one iteration, logs no per-iteration
   sizes, and stops quietly at ``max_iters``. On the CPU the same loop
-  runs without capture. A capture that fails raises; there is no
-  fallback to the eager loop.
+  runs eagerly over the same static buffers. A capture that fails
+  raises; there is no fallback to the eager loop.
+
+The graph memo (``_device_loop``) is the counterpart of the reference's
+``_memo_jit``: a stratum's captured iteration is kept across ``run()``
+and incremental ``apply()`` calls and replayed by every later loop of
+that stratum at the same capacities and carry structure, with no
+warm-up and no capture.
 
 Capacity overflow (bounded join outputs; relation.py) retries the run
 with doubled capacities (``auto_grow``); in device mode the retry
-captures again at the new capacities.
+captures again at the new capacities, replacing the memo's entry.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import torch
 from repro_torch.core import ir as I
 from repro_torch.engine import faults as F
 from repro_torch.engine import observe as O
+from repro_torch.engine import relation as RL
 from repro_torch.engine import relops as R
 from repro_torch.engine.backend import KernelDispatch, resolve_backend
 from repro_torch.engine.lower import Env, Evaluator, LowerConfig
@@ -56,6 +63,10 @@ class EngineConfig:
     auto_grow: bool = True
     max_grow_retries: int = 8
     semiring: Semiring = PRESENCE  # execution algebra (Sec. 8)
+    # device mode keeps each stratum's captured iteration across runs
+    # and applies (the graph memo); False captures every loop and frees
+    # the graph with it, as the reference's jit=False skips its memo
+    jit: bool = True
     # arrangement layer (relation.py docstring): share arrangements per
     # evaluation pass, skip no-op arranges via the sort-order witness,
     # and maintain full arrangements by rank merge. False = sort per op;
@@ -127,23 +138,74 @@ def _clone_relation(rel: Relation) -> Relation:
                     rel.n.clone(), order=rel.order)
 
 
-def _copy_carry(static: dict, new: dict) -> None:
-    """Copy a new state into the static buffers. A new tensor that
-    shares storage with a static one is cloned first, so no copy reads
-    a buffer an earlier copy wrote."""
-    owned = {t.untyped_storage().data_ptr()
-             for pair in static.values() for r in pair
-             for t in _relation_tensors(r)}
-    pairs = []
-    for name, spair in static.items():
-        for srel, nrel in zip(spair, new[name]):
-            for st, nt in zip(_relation_tensors(srel),
-                              _relation_tensors(nrel)):
-                if nt.untyped_storage().data_ptr() in owned:
-                    nt = nt.clone()
-                pairs.append((st, nt))
-    for st, nt in pairs:
-        st.copy_(nt)
+def _tree_relations(tree: dict) -> list:
+    """A loop state ({name: (full, delta)}) or base ({(name, version):
+    relation}) as a flat list of relations, in key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += list(v) if isinstance(v, tuple) else [v]
+    return out
+
+
+def _clone_tree(tree: dict) -> dict:
+    return {k: (tuple(_clone_relation(r) for r in v)
+                if isinstance(v, tuple) else _clone_relation(v))
+            for k, v in tree.items()}
+
+
+def _tree_spec(tree: dict) -> tuple:
+    """The carry spec of every relation of a state or base, by key."""
+    return tuple((k, tuple(_carry_spec(r) for r in
+                           (v if isinstance(v, tuple) else (v,))))
+                 for k, v in sorted(tree.items()))
+
+
+def _copy_into(static: dict, new: dict) -> None:
+    """Copy a state or base into static buffers of the same structure. A
+    new tensor that shares storage with a static one is cloned first, so
+    no copy reads a buffer an earlier copy wrote."""
+    dst = [t for r in _tree_relations(static) for t in _relation_tensors(r)]
+    src = [t for r in _tree_relations(new) for t in _relation_tensors(r)]
+    owned = {t.untyped_storage().data_ptr() for t in dst}
+    src = [t.clone() if t.untyped_storage().data_ptr() in owned else t
+           for t in src]
+    for d, t in zip(dst, src):
+        d.copy_(t)
+
+
+class _LoopGraph:
+    """One stratum's device-mode iteration: the static buffers it reads
+    (``base``, the relations its rules scan) and updates in place
+    (``state``, each IDB's full and delta), the three-word ``log``, the
+    CUDA graph that runs it (None on the CPU, where ``Engine._iterate``
+    runs the step eagerly over the same buffers), and the plans and
+    ``Evaluator`` it was built with. The graph memo's entry."""
+
+    __slots__ = ("rec", "idbs", "ev", "monoid_names", "log", "state",
+                 "base", "graph")
+
+    def __init__(self, rec, idbs, ev, monoid_names, device):
+        self.rec, self.idbs, self.ev = rec, idbs, ev
+        self.monoid_names = monoid_names
+        self.log = torch.zeros((3,), dtype=torch.int32, device=device)
+        self.log[0] = 1
+        self.state = self.base = self.graph = None
+
+    def load(self, state: dict, base: dict) -> None:
+        """A new loop over this entry: its state and base into the static
+        buffers, the log back to [1, 0, 0]."""
+        _copy_into(self.state, state)
+        _copy_into(self.base, base)
+        self.log.zero_()
+        self.log[0] = 1
+
+    def result(self) -> dict:
+        """The state, cloned out of the static buffers: the next loop
+        over this entry overwrites them, while the run's results, an
+        incremental engine's environment or a rollback copy may still
+        hold what is returned."""
+        return _clone_tree(self.state)
 
 
 def _resolve_device(spec: str) -> torch.device:
@@ -181,6 +243,9 @@ class Engine:
         # whether an iteration is being captured (rule spans say so)
         self._side_stream = None
         self._capturing = False
+        # the graph memo: ("device", stratum index) -> (full key, its
+        # _LoopGraph); one entry a stratum (see _memo_get)
+        self._graph_memo: dict = {}
 
     # -- effective capacities -------------------------------------------------
     @property
@@ -557,8 +622,8 @@ class Engine:
             if cfg.mode == "device":
                 with O.span(obs, "fixpoint-loop", detail="post-hoc"):
                     state, stratum_iters = self._device_loop(
-                        state, base_env_rels, rec, idbs, ev, monoid_names,
-                        stratum_key)
+                        sp.index, state, base_env_rels, rec, idbs, ev,
+                        monoid_names, stratum_key)
             else:
                 state, stratum_iters, delta_log = self._host_loop(
                     state, base_env_rels, rec, idbs, ev, monoid_names,
@@ -635,8 +700,43 @@ class Engine:
         finally:
             main.wait_stream(self._side_stream)
 
-    def _device_loop(self, state, base, rec, idbs, ev, monoid_names,
-                     stratum_key):
+    def _scanned(self, plans) -> set:
+        """Relations the plans scan, through shared subplans too."""
+        names: set = set()
+        seen: set = set()
+        stack = [p.root for p in plans]
+        while stack:
+            for n in I.iter_nodes(stack.pop()):
+                if isinstance(n, I.Scan):
+                    names.add(n.rel)
+                elif isinstance(n, I.SharedRef) and n.ref not in seen:
+                    seen.add(n.ref)
+                    stack.append(self.compiled.shared[n.ref])
+        return names
+
+    def _memo_get(self, key: tuple) -> Optional[_LoopGraph]:
+        """The graph memo's entry for ``key`` (None on a miss). ``key[0]``
+        is the structural key ("device", stratum index); the rest is what
+        a captured iteration bakes in: the capacities, ``force_multiword``
+        and the carry spec of every relation the step reads or updates.
+        One entry a structural key: a key seen at other capacities or
+        structure (auto-grow, the resilience ladder) drops its entry and
+        counts a retrace, so the memo never holds two graphs of one
+        stratum. Counts ``memo_jit.hit`` / ``.miss`` / ``.retrace`` on
+        the attached observation, as the reference's ``_memo_jit``."""
+        obs = self.cfg.observe
+        held = self._graph_memo.get(key[0])
+        if held is not None and held[0] == key:
+            O.count(obs, "memo_jit.hit")
+            return held[1]
+        O.count(obs, "memo_jit.miss")
+        if held is not None:
+            O.count(obs, "memo_jit.retrace")
+            del self._graph_memo[key[0]]
+        return None
+
+    def _device_loop(self, sp_index, state, base, rec, idbs, ev,
+                     monoid_names, stratum_key):
         """mode="device": the reference's ``lax.while_loop`` -> (state,
         iterations).
 
@@ -648,51 +748,80 @@ class Engine:
         ``max_iters`` (quietly, with the partial fixpoint). Each
         iteration is followed by one host read of the log.
 
-        On the card the first iteration runs eagerly, as the warm-up
+        On a memo miss the first iteration runs eagerly, as the warm-up
         that capture needs (it also loads every kernel library), with
         synchronizing calls turned into errors, so a hidden host read
-        fails here and not as a broken capture. The state is then
-        copied into static buffers, one iteration is captured into a
-        CUDA graph that computes the next state, folds its flags into
-        the log and copies the state back, and each replay is one
-        iteration in place. The graph lives for this loop only. On the
-        CPU every iteration runs eagerly."""
+        fails here and not as a broken capture. The state and the base
+        relations the rules scan are then copied into static buffers,
+        and on the card one iteration is captured into a CUDA graph that
+        computes the next state from them, folds its flags into the log
+        and copies the state back. The entry goes into the memo (with
+        ``cfg.jit``; without it, a loop that the warm-up already ended
+        captures nothing), and each later iteration is one replay in
+        place.
+        On a hit the run's state and base are copied into the entry's
+        buffers and the first iteration is already a replay. The state
+        is cloned out when the loop ends."""
         if self.cfg.max_iters <= 0:
             return state, 0
-        log = torch.zeros((3,), dtype=torch.int32, device=self.device)
-        log[0] = 1
-
-        def step(st):
-            new, ovf = self._stratum_iter(st, base, rec, idbs, ev,
-                                          monoid_names)
-            _check_carry(st, new, stratum_key)
-            any_delta = torch.stack([new[n][1].n > 0 for n in idbs]).any()
-            counted = (log[0] != 0) & (log[1] == 0)
-            log.copy_(torch.stack([any_delta.to(torch.int32),
-                                   ((log[1] != 0) | ovf).to(torch.int32),
-                                   log[2] + counted.to(torch.int32)]))
-            return new
-
-        if self.device.type == "cuda":
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                state = step(state)
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
+        scanned = self._scanned(rec)
+        base = {k: r for k, r in base.items() if k[0] in scanned}
+        key = (("device", sp_index), self._intermediate_cap,
+               self._idb_cap_default, tuple(sorted(self._idb_caps.items())),
+               RL.multiword_forced(), _tree_spec(state), _tree_spec(base))
+        loop = self._memo_get(key) if self.cfg.jit else None
+        if loop is None:
+            loop = _LoopGraph(rec, idbs, ev, monoid_names, self.device)
+            state = self._warm_up(loop, state, base, stratum_key)
+            flags = loop.log.tolist()
+            goes_on = self._loop_goes_on(flags, stratum_key)
+            if not (goes_on or self.cfg.jit):
+                return state, flags[2]    # nothing would replay it
+            self._capture(loop, state, base, stratum_key)
+            if self.cfg.jit:
+                self._graph_memo[key[0]] = (key, loop)
         else:
-            state = step(state)
-        graph = None
-        flags = log.tolist()
-        while self._loop_goes_on(flags, stratum_key):
-            if self.device.type != "cuda":
-                state = step(state)
-            else:
-                if graph is None:
-                    state, graph = self._capture(step, state)
-                graph.replay()
-            flags = log.tolist()
-        return state, flags[2]
+            loop.load(state, base)
+            goes_on = True
+        while goes_on:
+            self._iterate(loop, stratum_key)
+            flags = loop.log.tolist()
+            goes_on = self._loop_goes_on(flags, stratum_key)
+        return loop.result(), flags[2]
+
+    def _loop_step(self, loop: _LoopGraph, st: dict, base: dict,
+                   stratum_key) -> dict:
+        """One iteration of ``loop`` from ``st`` over ``base`` -> the next
+        state; folds its flags into the loop's log."""
+        new, ovf = self._stratum_iter(st, base, loop.rec, loop.idbs,
+                                      loop.ev, loop.monoid_names)
+        _check_carry(st, new, stratum_key)
+        log = loop.log
+        any_delta = torch.stack([new[n][1].n > 0 for n in loop.idbs]).any()
+        counted = (log[0] != 0) & (log[1] == 0)
+        log.copy_(torch.stack([any_delta.to(torch.int32),
+                               ((log[1] != 0) | ovf).to(torch.int32),
+                               log[2] + counted.to(torch.int32)]))
+        return new
+
+    def _warm_up(self, loop, state, base, stratum_key) -> dict:
+        if self.device.type != "cuda":
+            return self._loop_step(loop, state, base, stratum_key)
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self._loop_step(loop, state, base, stratum_key)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    def _iterate(self, loop: _LoopGraph, stratum_key) -> None:
+        """One iteration in place: a replay, or on the CPU the step run
+        eagerly over the same static buffers."""
+        if loop.graph is not None:
+            loop.graph.replay()
+        else:
+            _copy_into(loop.state, self._loop_step(loop, loop.state,
+                                                   loop.base, stratum_key))
 
     def _loop_goes_on(self, log: list, stratum_key) -> bool:
         any_delta, overflow, iters = log
@@ -700,22 +829,26 @@ class Engine:
             raise OverflowError_(f"overflow in stratum {stratum_key}")
         return bool(any_delta) and iters < self.cfg.max_iters
 
-    def _capture(self, step, state):
-        """Copy ``state`` into static buffers and capture one ``step``
-        over them that writes the next state back into them ->
-        (static state, graph). Raises if the capture fails."""
-        static = {name: tuple(_clone_relation(r) for r in pair)
-                  for name, pair in state.items()}
+    def _capture(self, loop: _LoopGraph, state, base, stratum_key) -> None:
+        """Copy ``state`` and ``base`` into the loop's static buffers and,
+        on the card, capture one step over them that writes the next
+        state back into them. Raises if the capture fails, leaving
+        ``loop`` without a graph (and out of the memo)."""
+        loop.state = _clone_tree(state)
+        loop.base = _clone_tree(base)
+        if self.device.type != "cuda":
+            return
         graph = torch.cuda.CUDAGraph()
         O.trace_count("engine.graph_captures")
         self._capturing = True
         try:
             with O.span(self.cfg.observe, "graph-capture"), \
                     torch.cuda.graph(graph, stream=self._side_stream):
-                _copy_carry(static, step(static))
+                _copy_into(loop.state, self._loop_step(
+                    loop, loop.state, loop.base, stratum_key))
         finally:
             self._capturing = False
-        return static, graph
+        loop.graph = graph
 
     # -- public ---------------------------------------------------------------
     def run(self, edbs: dict[str, np.ndarray],

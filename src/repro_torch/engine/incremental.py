@@ -159,6 +159,15 @@ class _RowSet:
         self.keys = keys
         self._rows = None
 
+    def copy(self) -> "_RowSet":
+        """A set that later changes of this one leave as it is: ``_set``
+        replaces the arrays and never writes into them, so they are
+        shared."""
+        out = _RowSet.__new__(_RowSet)
+        out.arity, out.device = self.arity, self.device
+        out.keys, out._rows = self.keys, self._rows
+        return out
+
     def __len__(self) -> int:
         return len(self.keys)
 
@@ -342,6 +351,30 @@ class IncrementalEngine:
         self._env = self.engine.last_env
         self._stats = stats
         return out
+
+    def restore_mirror(self, rows_by_name: dict) -> None:
+        """Replace the EDB mirror with these rows per EDB (a snapshot's,
+        engine/resilience.py). Values outside int32 are refused with a
+        ValueError, as in ``apply``."""
+        self._mirror = {name: self._row_set(self._arity(name, rows), rows)
+                        for name, rows in rows_by_name.items()}
+
+    def rollback_point(self) -> tuple:
+        """What a maintenance pass changes — the environment, the EDB
+        mirror and the iteration counts — as a copy that ``rollback``
+        gives back (the resilience ladder's retry point). Relations are
+        never written in place and a ``_RowSet`` replaces its arrays, so
+        shallow copies are enough."""
+        return (dict(self._env),
+                {k: s.copy() for k, s in self._mirror.items()},
+                dict(self._stats.iterations))
+
+    def rollback(self, point: tuple) -> None:
+        """Return to the state of ``rollback_point``'s ``point``."""
+        env, mirror, iterations = point
+        self._env = dict(env)
+        self._mirror = {k: s.copy() for k, s in mirror.items()}
+        self._stats.iterations = dict(iterations)
 
     def _check_edbs(self, names) -> None:
         for name in names:

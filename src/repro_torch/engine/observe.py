@@ -61,10 +61,16 @@ What is traced at which layer
   steady-state execution (one compiled step is opaque below the
   iteration span); they carry ``phase="trace"``. With ``jit=False``
   they measure real execution.
-* **memo-jit** (``Engine._memo_jit``) — ``memo_jit.hit`` /
-  ``memo_jit.miss`` / ``memo_jit.retrace`` counters per observation
-  (retrace = same structural key re-traced at new capacities, i.e. an
-  auto-grow recompile).
+* **graph memo** (``Engine._memo_get``, the counterpart of the
+  reference's ``_memo_jit``) — the port traces nothing, so these count
+  device mode's captured CUDA graphs (on the CPU, the entries whose
+  iteration runs eagerly over the same static buffers):
+  ``memo_jit.hit`` (a stratum loop replayed an entry: no warm-up, no
+  capture), ``memo_jit.miss`` (an entry warmed up and captured) and
+  ``memo_jit.retrace`` (a structural key captured again at new
+  capacities or carry structure, dropping its old entry: an auto-grow
+  or ladder growth) per observation; ``engine.graph_captures`` on the
+  global REGISTRY counts the captures on the card.
 * **auto-grow** — ``engine.grow_retries`` counter + a ``grow-retry``
   span per overflow retry with the doubled capacities.
 * **arrangements** (``relation.py`` / ``relops.py``) — the ``arrange.*``

@@ -337,6 +337,12 @@ def pack_key_words(data: torch.Tensor, cols: tuple[int, ...],
     return torch.stack(words, dim=1)
 
 
+def multiword_forced() -> bool:
+    """Whether ``force_multiword`` is in effect (a captured iteration
+    bakes it in, so the graph memo keys on it)."""
+    return _FORCE_MULTIWORD
+
+
 @contextlib.contextmanager
 def force_multiword():
     """Test hook: make every key >= 2 words by appending a constant word

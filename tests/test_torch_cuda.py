@@ -242,16 +242,19 @@ def _device_mode(program, device, **cfg):
     return engine, dict(edbs)
 
 
+@pytest.mark.parametrize("jit", [True, False])
 @pytest.mark.parametrize("program", ["TC", "Negation", "WideReach2", "CC"])
-def test_device_mode_on_card_matches_cpu(cuda, program):
+def test_device_mode_on_card_matches_cpu(cuda, program, jit):
     """One captured CUDA graph per recursive stratum, replayed to the
     fixpoint: the same facts, iterations and (empty) delta logs as the
-    same loop run eagerly on the CPU; the kernels launch inside it."""
+    same loop run eagerly on the CPU; the kernels launch inside it.
+    With the graph memo every loop is captured on its miss (a later run
+    replays it); without it only a loop that goes on past its warm-up."""
     from repro_torch.engine.observe import REGISTRY
     from repro_torch.kernels import launch_counts, reset_launch_counts
     reset_launch_counts()
     before = REGISTRY.get("engine.graph_captures")
-    engine, edbs = _device_mode(program, "cuda")
+    engine, edbs = _device_mode(program, "cuda", jit=jit)
     gpu, gst = engine.run(edbs)
     captures = REGISTRY.get("engine.graph_captures") - before
     counts = launch_counts()
@@ -261,10 +264,83 @@ def test_device_mode_on_card_matches_cpu(cuda, program):
         np.testing.assert_array_equal(gpu[name], cpu[name])
     assert gst.iterations == cst.iterations
     assert gst.delta_sizes == cst.delta_sizes
-    assert captures == sum(1 for v in gst.iterations.values() if v > 1)
+    assert captures == sum(1 for v in gst.iterations.values()
+                           if v > (0 if jit else 1))
     assert counts["probe_multi" if program == "WideReach2" else "probe"] > 0
     if program == "CC":
         assert counts["segment_reduce"] > 0
+
+
+@pytest.mark.parametrize("program", ["TC", "CC"])
+def test_graph_memo_replays_without_capture_on_card(cuda, program):
+    """A second run on the same Engine replays the memo's graphs: no
+    capture, one memo hit a loop, the same facts and iterations, and the
+    first run's results unchanged by the replays."""
+    from repro_torch.engine import Observation
+    from repro_torch.engine.observe import REGISTRY
+    obs = Observation()
+    engine, edbs = _device_mode(program, "cuda", observe=obs)
+    first, fst = engine.run(edbs)
+    kept = {k: v.copy() for k, v in first.items()}
+    held = {k: (r.data.clone(), int(r.n))
+            for k, r in engine.last_env.items()}
+    env = engine.last_env
+    loops = sum(1 for v in fst.iterations.values() if v > 0)
+    before = REGISTRY.get("engine.graph_captures")
+    # other data at the same capacities (as many rows), then the first
+    other = {k: np.asarray(v) + 1 for k, v in edbs.items()}
+    engine.run(other)
+    second, sst = engine.run(edbs)
+    assert REGISTRY.get("engine.graph_captures") == before
+    assert obs.registry.get("memo_jit.hit") >= loops
+    assert sst.iterations == fst.iterations
+    for name in kept:
+        np.testing.assert_array_equal(second[name], kept[name])
+        np.testing.assert_array_equal(first[name], kept[name])
+    for k, (data, n) in held.items():
+        assert int(env[k].n) == n
+        assert torch.equal(env[k].data, data)
+
+
+def test_durable_recover_on_card_matches_uninterrupted(cuda, tmp_path):
+    """Snapshot + WAL replay on the card: a cold recover() equals the
+    uninterrupted engine's state and iterations, and both equal the
+    same stream on the CPU."""
+    from benchmarks.programs import equivalence_datasets
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import (
+        DurableIncrementalEngine, EngineConfig, ResilienceConfig,
+    )
+    src, edbs = equivalence_datasets()["TC"]
+    rng = np.random.default_rng(6)
+    steps = [({"edge": rng.integers(0, 16, size=(4, 2))}, {}),
+             ({}, {"edge": np.asarray(edbs["edge"])[:5]}),
+             ({"edge": rng.integers(0, 16, size=(3, 2))},
+              {"edge": np.asarray(edbs["edge"])[5:8]})]
+    runs = []
+    for device in ("cuda", "cpu"):
+        cfg = EngineConfig(device=device, mode="device", idb_cap=1 << 10,
+                           intermediate_cap=1 << 12)
+        d = tmp_path / device
+        dur = DurableIncrementalEngine(
+            compile_program(src), cfg, directory=d,
+            resilience=ResilienceConfig(snapshot_every=2))
+        dur.initialize(dict(edbs))
+        for ins, dele in steps:
+            out = dur.apply(inserts=ins, deletes=dele)
+        dur.close()
+        cold = DurableIncrementalEngine(compile_program(src), cfg,
+                                        directory=d)
+        rec = cold.recover()
+        assert cold.applied_seq == len(steps)
+        for name in out:
+            np.testing.assert_array_equal(rec[name], out[name])
+        assert cold.inc._stats.iterations == dur.inc._stats.iterations
+        runs.append((out, dur.inc._stats.iterations))
+    (gpu, git), (cpu, cit) = runs
+    for name in cpu:
+        np.testing.assert_array_equal(gpu[name], cpu[name])
+    assert git == cit
 
 
 def test_incremental_device_mode_on_card_matches_cpu(cuda):
@@ -636,3 +712,30 @@ def test_device_mode_capture_failure_raises(cuda):
     engine._stratum_iter = reads_host_always
     with pytest.raises(RuntimeError, match="synchroniz"):
         engine.run(edbs)
+
+
+def test_device_mode_after_a_failed_capture(cuda):
+    """A capture that fails leaves no entry in the graph memo and the
+    side stream usable: the same Engine then runs, captures and
+    replays."""
+    from repro_torch.engine.observe import REGISTRY
+    engine, edbs = _device_mode("TC", "cuda")
+    real = engine._stratum_iter
+
+    def reads_host(*args):
+        state, ovf = real(*args)
+        if engine._capturing:
+            int(state["tc"][1].n)
+        return state, ovf
+    engine._stratum_iter = reads_host
+    with pytest.raises(RuntimeError):
+        engine.run(edbs)
+    assert engine._graph_memo == {}
+    engine._stratum_iter = real
+    before = REGISTRY.get("engine.graph_captures")
+    out, stats = engine.run(edbs)
+    assert REGISTRY.get("engine.graph_captures") == before + 1
+    cpu_engine, _ = _device_mode("TC", "cpu")
+    want, wst = cpu_engine.run(edbs)
+    np.testing.assert_array_equal(out["tc"], want["tc"])
+    assert stats.iterations == wst.iterations

@@ -65,7 +65,7 @@ def test_default_config_refuses_cpu_fallback(monkeypatch):
         Engine(compile_program(".input e\n.output t\nt(x) :- e(x).\n"))
 
 
-def test_device_mode_not_ported():
+def test_device_mode_runs_and_unknown_modes_are_refused():
     """Device mode is ported (tests/test_torch_device_mode.py); a mode
     that neither package has is refused by name."""
     from repro_torch.core.optimizer import compile_program

@@ -27,6 +27,18 @@ import torch
 
 from repro_torch.kernels import ref
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's torch ops on one thread: the test workers share
+    the cores, and torch's idle OpenMP threads spinning on an
+    oversubscribed host make them tens of times slower (alone, the
+    module takes as long on one thread as on eight)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
 RTOL, ATOL = 2e-5, 2e-5     # ATTN_TOL for float32 (chip_smoke.py)
 SPAN = 60.0                 # max |score| in log2 units
 # keys per KV tile and d steps per fresh fragment of the kernel, by d
