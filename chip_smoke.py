@@ -66,6 +66,25 @@ Phases, each printing its wall time:
              beside initialize seconds, each apply's seconds and graph
              captures (0 after the first apply), memo counts and peak
              memory;
+8c. sharded the sharded engine (engine/shard.py), its shards on the
+             one card, one thread each: Reach, CC and SSSP at 2 shards on
+             the same graph in host mode, each held to scipy, to the
+             unsharded host-mode run's facts byte for byte and its
+             iterations, and to zero grow retries; Reach and Reach under
+             force_multiword() at 4 shards on a graph of scale 20 in host
+             and in device mode (device mode eager: a sharded iteration is
+             not captured), held the same way, device mode to host mode's
+             iterations; Reach (DRed) and CC (recompute) maintained at 2
+             shards under one seeded batch of 65,536 new and 65,536
+             deleted edges, the state byte-equal to the unsharded
+             IncrementalEngine's and to a batch run over the edge set kept
+             apart; the launcher's program served durably at scale 20, a
+             2-shard snapshot recovered by an unsharded engine and an
+             unsharded one by a 2-shard engine, each counting
+             resilience.restore.rehomed and giving the writer's view.
+             Prints wall s beside the unsharded runs', live rows per
+             shard, one shard's all-to-all bytes, peak memory, apply and
+             recover s;
 9. serve     qwen3-1.7b at full width through repro_torch.launch.serve:
              random bf16 weights from --seed, 8 requests of 2048 prompt
              tokens, 64 greedy tokens, twice: a run that captures the
@@ -96,10 +115,11 @@ Phases, each printing its wall time:
              on the host, the bags against the plain version;
 11. launches each kernel's launch count over the host-mode runs of
              phases 5, 6, 9 and 10 (each counted from 0 just before
-             it), and apart the engine kernels' calls in phases 7 and 8
-             and in phase durable (a kernel inside a captured graph once
-             per capture, so a memo hit adds nothing); a zero in any
-             fails.
+             it), and apart the engine kernels' calls in phases 7 and 8,
+             in phase durable (a kernel inside a captured graph once
+             per capture, so a memo hit adds nothing) and in the sharded
+             engines' runs of phase sharded (every shard's launches); a
+             zero in any fails.
 
 With ``--profile``, each of Reach, CC and SSSP in host and in device
 mode, the serve prefill, four decode steps, the float32 prefill and one
@@ -576,6 +596,7 @@ def run_engine(torch, name, src_text, edbs, n, edge_cap, want,
     if stats.grow_retries:
         raise AssertionError(f"{label}: {stats.grow_retries} grow retries")
     hold_facts(np, label, out[OUTPUT[name]], want, against)
+    stats.facts = out[OUTPUT[name]]     # phase sharded holds its runs to it
     return counts, stats
 
 
@@ -668,12 +689,12 @@ def add_counts(totals: dict, counts: dict) -> None:
 
 
 def run_engine_phases(torch, seed, scale, profile=False):
-    """Phases engine, wide, device, incremental and durable; with
-    ``profile``, the host- and device-mode runs again under
+    """Phases engine, wide, device, incremental, durable and sharded;
+    with ``profile``, the host- and device-mode runs again under
     torch.profiler. Returns the launch counts of the host-mode runs and,
-    apart, the wrapper calls of the device-mode and incremental runs and
-    of the durable phase, where a kernel inside a captured graph counts
-    once per capture and not per replay."""
+    apart, the wrapper calls of the device-mode and incremental runs, of
+    the durable phase (where a kernel inside a captured graph counts once
+    per capture and not per replay) and of the sharded engines."""
     import numpy as np
     from repro_torch.launch.fixpoint import (
         CC, EDGE_FACTOR, REACH, SSSP, kronecker_edges)
@@ -742,13 +763,16 @@ def run_engine_phases(torch, seed, scale, profile=False):
     with phase("durable"):
         durable = run_durable(torch, seed, n, edge_cap, edges, edge_keys,
                               source)
+    with phase("sharded"):
+        sharded = run_sharded(torch, seed, n, edge_cap, runs, host,
+                              edges, edge_keys, source)
     if profile:
         with phase("profile"):
             for name, text, edbs, _, _ in runs[:3]:
                 for mode in ("host", "device"):
                     profile_engine(torch, name, text, edbs, n, edge_cap,
                                    mode)
-    return totals, captured, durable
+    return totals, captured, durable, sharded
 
 
 def new_edges(np, rng, keys, n, k):
@@ -1255,6 +1279,318 @@ def run_durable(torch, seed, n, edge_cap, edges, edge_keys, source):
     release()
     shutil.rmtree(root, ignore_errors=True)
     print(f"durable: launches {counted}", flush=True)
+    return counted
+
+
+# -- phase sharded: the sharded engine, its shards on the one card ------------
+
+SHARDS = 2              # at the engine phase's scale
+SHARDS_WIDE = 4         # at SHARD_SCALE
+SHARD_SCALE = 20
+SHARD_BATCH = 1 << 16
+
+
+def run_sharded_engine(torch, label, name, text, edbs, n, edge_cap, want,
+                       shards, mode="host", multiword=False, unsharded=None):
+    """One run of ``name`` on the sharded engine -> (launch counts,
+    stats). Held to ``want`` (scipy), to zero grow retries and, given the
+    unsharded host-mode run's stats, to its facts byte for byte and its
+    iterations. Prints wall s beside the unsharded run's, the output's
+    live rows per shard, one shard's all-to-all bytes
+    (``shard.all_to_all.bytes``, the reference's count: S x cap x planes
+    x 4 a launch), the edge relation's send buffer by that formula, and
+    peak memory."""
+    import numpy as np
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import make_engine
+    from repro_torch.engine.observe import REGISTRY
+    from repro_torch.engine.relation import force_multiword, pow2_cap
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.fixpoint import engine_config
+    engine = make_engine(compile_program(text),
+                         engine_config(n, edge_cap, mode, shards=shards))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    sent = REGISTRY.get("shard.all_to_all.bytes")
+    with force_multiword() if multiword else contextlib.nullcontext():
+        out, stats = engine.run(edbs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    sent = REGISTRY.get("shard.all_to_all.bytes") - sent
+    rel = OUTPUT[name]
+    per_shard = [int(x) for x in engine.last_env[(rel, "full")].n]
+    engine.close()
+    del engine
+    label = (f"{label}{' (force_multiword)' if multiword else ''}, "
+             f"{shards} shards, {mode} mode")
+    edge_send = shards * pow2_cap(len(edbs["edge"])) * edbs["edge"].shape[
+        1] * 4
+    wall = (f"; unsharded host mode {unsharded.wall_s:.4f} s"
+            if unsharded is not None else "")
+    print(f"{label}: wall {stats.wall_s:.4f} s{wall}; iterations "
+          f"{stats.iterations}, grow_retries {stats.grow_retries}; {rel} "
+          f"rows per shard {per_shard}; all-to-all {sent} B a shard "
+          f"({shards * sent} B over the shards; the edge relation's send "
+          f"buffer {edge_send} B a shard, {shards * edge_send} B over the "
+          f"shards); peak memory {torch.cuda.max_memory_allocated()} B "
+          f"allocated, {torch.cuda.max_memory_reserved()} B reserved; "
+          f"launches {counts}", flush=True)
+    if stats.grow_retries:
+        raise AssertionError(f"{label}: {stats.grow_retries} grow retries")
+    hold_facts(np, label, out[rel], want)
+    if unsharded is not None:
+        if (out[rel].dtype != unsharded.facts.dtype
+                or out[rel].tobytes() != unsharded.facts.tobytes()):
+            raise AssertionError(f"{label}: facts differ from the "
+                                 f"unsharded run's bytes")
+        if stats.iterations != unsharded.iterations:
+            raise AssertionError(
+                f"{label}: iterations {stats.iterations} differ from the "
+                f"unsharded run's {unsharded.iterations}")
+        print(f"{label}: facts and iterations equal the unsharded host-"
+              f"mode run's byte for byte", flush=True)
+    return counts, stats
+
+
+def run_sharded(torch, seed, n, edge_cap, runs, host, edges, edge_keys,
+                source):
+    """Phase sharded: (a) Reach, CC and SSSP at ``SHARDS`` shards on the
+    engine phase's graph in host mode, each held to scipy and to the
+    unsharded host-mode run (``host``); (b) Reach and Reach under
+    force_multiword() at ``SHARDS_WIDE`` shards on a Graph500 graph of
+    scale ``SHARD_SCALE``, in host and in device mode, held the same way
+    and device mode to host mode's iterations; (c) Reach (DRed) and CC
+    (recompute) maintained at ``SHARDS`` shards under one seeded batch of
+    SHARD_BATCH new and SHARD_BATCH deleted edges, the state equal to the
+    unsharded IncrementalEngine's and to a batch run over the edge set
+    kept apart; (d) durable snapshots of the launcher's program at
+    SHARD_SCALE cross-loaded from 2 shards into one and back, each
+    restore counting ``resilience.restore.rehomed`` and giving the
+    writer's view. Returns the sharded engines' launch counts."""
+    import numpy as np
+    from repro_torch.launch.fixpoint import EDGE_FACTOR, kronecker_edges
+    counted: dict = {}
+    # (a)
+    for name, text, edbs, want, mw in runs[:3]:
+        counts, _ = run_sharded_engine(
+            torch, name, name, text, edbs, n, edge_cap, want, SHARDS,
+            unsharded=host[name, mw])
+        add_counts(counted, counts)
+    # (b)
+    n20 = 1 << SHARD_SCALE
+    src, dst, _ = kronecker_edges(SHARD_SCALE, EDGE_FACTOR, seed)
+    source20 = int(np.argmax(np.bincount(src, minlength=n20)))
+    keys20 = sorted_unique(src.astype(np.int64) << 32 | dst)
+    x, y = (keys20 >> 32).astype(np.int32), (keys20 & 0xFFFFFFFF).astype(
+        np.int32)
+    import scipy.sparse as sp
+    g = sp.csr_matrix((np.ones(len(keys20)), (x, y)), shape=(n20, n20))
+    want20, _ = reach_and_cc(g, n20, x, y, source20)
+    edbs20 = {"edge": np.stack([src, dst], axis=1),
+              "source": np.array([[source20]])}
+    text = runs[0][1]
+    cap20 = EDGE_FACTOR * n20
+    print(f"sharded: graph of scale {SHARD_SCALE}, {n20} vertices, "
+          f"{len(src)} directed edges, source {source20}, {len(want20)} "
+          f"reached (scipy)", flush=True)
+    for mw in (False, True):
+        _, one = run_engine(torch, "Reach", text, edbs20, n20, cap20,
+                            want20, mw, title=f"Reach at scale "
+                            f"{SHARD_SCALE}, unsharded")
+        modes = {}
+        for mode in ("host", "device"):
+            counts, modes[mode] = run_sharded_engine(
+                torch, f"Reach at scale {SHARD_SCALE}", "Reach", text,
+                edbs20, n20, cap20, want20, SHARDS_WIDE, mode, mw, one)
+            add_counts(counted, counts)
+        if modes["device"].iterations != modes["host"].iterations:
+            raise AssertionError("sharded device mode's iterations differ "
+                                 "from host mode's")
+    # (c)
+    add_counts(counted, run_sharded_incremental(
+        torch, seed, n, edge_cap, edges, edge_keys, source))
+    # (d)
+    add_counts(counted, run_sharded_durable(
+        torch, seed, n20, cap20, edbs20["edge"], keys20, source20))
+    print(f"sharded: launches {counted}", flush=True)
+    return counted
+
+
+def run_sharded_incremental(torch, seed, n, edge_cap, edges, edge_keys,
+                            source):
+    """Reach and CC maintained at SHARDS shards in host mode under one
+    seeded batch of SHARD_BATCH new and SHARD_BATCH deleted edges: the
+    state after initialize and after the apply byte-equal to the
+    unsharded IncrementalEngine's (iterations too), and to a batch run
+    over the edge set kept apart; the edge mirror equal to that set.
+    Prints initialize and apply s of both beside the batch run's.
+    Returns the sharded engine's launch counts."""
+    import numpy as np
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import Engine, Observation, make_engine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.fixpoint import CC, REACH, engine_config
+    counted: dict = {}
+    cap = edge_cap + SHARD_BATCH
+    for name, text in (("Reach", REACH), ("CC", CC)):
+        rng = np.random.default_rng((seed, 23, len(name)))
+        ins = new_edges(np, rng, edge_keys, n, SHARD_BATCH)
+        dele = some_edges(np, rng, edge_keys, SHARD_BATCH)
+        srt = np.sort(ins)
+        keys = np.insert(edge_keys, np.searchsorted(edge_keys, srt), srt)
+        keys = np.delete(keys, np.searchsorted(keys, dele))
+        edbs = {"edge": edges}
+        if name == "Reach":
+            edbs["source"] = np.array([[source]])
+        cp = compile_program(text)
+        states = {}
+        for shards in (SHARDS, 0):
+            obs = Observation()
+            inc = make_engine(cp, engine_config(n, cap, "host", obs,
+                                                shards=shards),
+                              incremental=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            first = inc.initialize(edbs)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            snap = inc.apply(inserts={"edge": edge_rows(np, ins)},
+                             deletes={"edge": edge_rows(np, dele)})
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t0
+            if shards:
+                add_counts(counted, launch_counts())
+            mirror = inc.edbs["edge"].astype(np.int64)
+            if not np.array_equal(mirror[:, 0] << 32 | mirror[:, 1], keys):
+                raise AssertionError(f"sharded incremental {name}: the "
+                                     f"edge mirror differs from the edge set")
+            strategies = [(sp_.attrs["key"], sp_.attrs["strategy"])
+                          for sp_ in obs.find("maintain-stratum")]
+            print(f"incremental {name}, {shards or 1} shard(s): initialize "
+                  f"{init_s:.4f} s, apply (+{SHARD_BATCH} -{SHARD_BATCH} "
+                  f"edges) {apply_s:.4f} s, strategies {strategies}, "
+                  f"iterations {inc._stats.iterations}; peak memory "
+                  f"{torch.cuda.max_memory_allocated()} B allocated, "
+                  f"{torch.cuda.max_memory_reserved()} B reserved",
+                  flush=True)
+            states[shards] = (first, snap, dict(inc._stats.iterations))
+            if shards:
+                inc.engine.close()
+            del inc, first, snap
+        for when in (0, 1):
+            a, b = states[SHARDS][when], states[0][when]
+            if a.keys() != b.keys() or any(
+                    a[k].dtype != b[k].dtype or a[k].tobytes()
+                    != b[k].tobytes() for k in a):
+                raise AssertionError(
+                    f"sharded incremental {name}: the state after "
+                    f"{('initialize', 'the apply')[when]} differs from the "
+                    f"unsharded engine's")
+        if states[SHARDS][2] != states[0][2]:
+            raise AssertionError(f"sharded incremental {name}: iterations "
+                                 f"differ from the unsharded engine's")
+        out, stats = Engine(cp, engine_config(n, cap, "host")).run(
+            {**edbs, "edge": edge_rows(np, keys)})
+        snap = states[SHARDS][1]
+        for rel in out:
+            if not np.array_equal(snap[rel], out[rel]):
+                raise AssertionError(f"sharded incremental {name}: {rel} "
+                                     f"differs from the batch run")
+        print(f"incremental {name}, {SHARDS} shards: the state equals the "
+              f"unsharded engine's byte for byte after initialize and "
+              f"apply, iterations too, and a batch run over the edge set "
+              f"kept apart ({stats.wall_s:.4f} s)", flush=True)
+        del states, out
+    return counted
+
+
+def run_sharded_durable(torch, seed, n, edge_cap, edges, edge_keys, source):
+    """The launcher's program at SHARD_SCALE in host mode, durable: an
+    engine at SHARDS shards initializes and applies one batch (+4096
+    -4096 links), and its snapshot and WAL recover into an unsharded
+    engine; an unsharded engine does the same, and its recover into one
+    at SHARDS shards. Each restore counts resilience.restore.rehomed once
+    and gives the writer's view. Returns the sharded engines' launch
+    counts."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import (
+        DurableIncrementalEngine, EngineConfig, Observation,
+        ResilienceConfig,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import incremental_serving
+    cp = compile_program(incremental_serving.PROGRAM)
+    rng = np.random.default_rng((seed, 29))
+    quarantined = rng.choice(n, size=n // 100, replace=False)
+    quarantined = np.sort(quarantined[quarantined != source])
+    edbs = {"link": edges, "monitor": np.array([[source]]),
+            "quarantined": quarantined[:, None]}
+    k = 1 << 12
+    batch = dict(inserts={"link": edge_rows(np, new_edges(
+        np, rng, edge_keys, n, k))},
+        deletes={"link": edge_rows(np, some_edges(np, rng, edge_keys, k))})
+    root = ROOT / "build" / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    counted: dict = {}
+
+    def config(shards, obs=None):
+        return EngineConfig(idb_cap=n, intermediate_cap=edge_cap + k,
+                            mode="host", observe=obs, shards=shards)
+
+    views = {}
+    for writer, reader in ((SHARDS, 0), (0, SHARDS)):
+        reset_launch_counts()
+        dur = DurableIncrementalEngine(
+            cp, config(writer), directory=root / f"w{writer}",
+            resilience=ResilienceConfig(snapshot_every=1))
+        dur.initialize(edbs)
+        out = dur.apply(**batch)
+        dur.close()
+        views[writer] = {r: out[r] for r in ("reaches", "pathlen")}
+        if writer:
+            dur.engine.close()
+            add_counts(counted, launch_counts())
+        del dur
+        d = root / f"w{writer}-r{reader}"
+        shutil.copytree(root / f"w{writer}", d)
+        obs = Observation()
+        reset_launch_counts()
+        cold = DurableIncrementalEngine(cp, config(reader, obs),
+                                        directory=d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cold.recover()
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        if reader:
+            cold.engine.close()
+            add_counts(counted, launch_counts())
+        hold_view(np, f"durable cross-load {writer or 1} -> {reader or 1} "
+                  f"shard(s)", got, views[writer])
+        rehomed = obs.registry.get("resilience.restore.rehomed")
+        if rehomed != 1:
+            raise AssertionError(f"durable cross-load: rehomed {rehomed}")
+        print(f"durable cross-load: a snapshot of {writer or 1} shard(s) "
+              f"(+{k} -{k} links applied) recovered by an engine of "
+              f"{reader or 1} in {rec_s:.4f} s, rehomed {rehomed}, its "
+              f"view ({len(got['reaches'])} hosts reached) the writer's",
+              flush=True)
+        cold.close()
+        del cold, got
+    hold_view(np, "durable: the sharded writer's view against the "
+              "unsharded writer's", views[SHARDS], views[0])
+    shutil.rmtree(root, ignore_errors=True)
     return counted
 
 
@@ -2059,7 +2395,7 @@ def main(argv=None) -> int:
     with phase("attention"):
         run_attention_checks(torch, args.seed, torch.device("cuda"))
         torch.cuda.empty_cache()
-    totals, captured, durable = run_engine_phases(
+    totals, captured, durable, sharded = run_engine_phases(
         torch, args.seed, args.scale, args.profile)
     torch.cuda.empty_cache()
     with phase("serve"):
@@ -2084,11 +2420,15 @@ def main(argv=None) -> int:
               flush=True)
         print("kernels of the durable phase " + json.dumps(durable),
               flush=True)
+        print("kernels of the sharded engines " + json.dumps(
+            {k: sharded.get(k, 0) for k in ENGINE_KERNELS}), flush=True)
         missing = [k for k, v in totals.items() if v == 0]
         missing += [f"{k} (device mode)" for k in ENGINE_KERNELS
                     if not captured.get(k)]
         missing += [f"{k} (durable)" for k in DURABLE_KERNELS
                     if not durable.get(k)]
+        missing += [f"{k} (sharded)" for k in ENGINE_KERNELS
+                    if not sharded.get(k)]
         if missing or set(totals) != set(launch_counts()):
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
@@ -2099,6 +2439,7 @@ def main(argv=None) -> int:
         if count_key in ENGINE_KERNELS:
             e["captured_launches"] = captured[count_key]
             e["durable_launches"] = durable.get(count_key, 0)
+            e["sharded_launches"] = sharded.get(count_key, 0)
         e.update(measured[name])
         if also:
             e["also_replaces"] = also

@@ -1,5 +1,5 @@
 """The FlowLog fixpoint engine on torch (host and device mode, batch and
-incremental, one device)."""
+incremental, on one device or sharded)."""
 from repro_torch.engine.backend import (
     CUDA, TORCH, CudaDispatch, KernelDispatch, TorchDispatch,
     resolve_backend,
@@ -24,14 +24,18 @@ from repro_torch.engine.semiring import (
 
 def make_engine(compiled, config: EngineConfig | None = None,
                 incremental: bool = False):
-    """Engine factory: the single-device batch ``Engine`` (host or
-    device mode), or with ``incremental=True`` an ``IncrementalEngine``
-    (initialize / apply / snapshot) over it. For durable serving (WAL,
-    snapshots, recovery) build a ``DurableIncrementalEngine``
-    (engine/resilience.py). The sharded engine is not ported
-    (ROADMAP.md)."""
+    """Engine factory: ``config.shards >= 2`` selects the sharded driver
+    (engine/shard.py), else the single-device ``Engine`` (host or device
+    mode either way). The two are byte-identical in results and
+    iteration counts. ``incremental=True`` wraps the selected driver in
+    an ``IncrementalEngine`` (initialize / apply / snapshot): the two
+    axes compose. For durable serving (WAL, snapshots, recovery) build a
+    ``DurableIncrementalEngine`` (engine/resilience.py)."""
     if incremental:
         return IncrementalEngine(compiled, config)
+    if config is not None and int(config.shards or 0) >= 2:
+        from repro_torch.engine.shard import ShardedEngine
+        return ShardedEngine(compiled, config)
     return Engine(compiled, config)
 
 

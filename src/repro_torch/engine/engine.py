@@ -80,6 +80,13 @@ class EngineConfig:
     # where relations live and relops run; "cuda" runs the hand-written
     # kernels (csrc/), "cpu" their plain torch versions
     device: str = "cuda"
+    # sharded execution (engine/shard.py): ``shards >= 2`` makes
+    # ``make_engine`` return a ShardedEngine over that many shards;
+    # ``shard_mesh`` optionally supplies a prebuilt ShardMesh whose sole
+    # axis is named "shards" (default: every shard on ``device``,
+    # launch.mesh.make_shard_mesh)
+    shards: int = 0
+    shard_mesh: object = None
 
 
 @dataclass
@@ -524,7 +531,7 @@ class Engine:
 
     def _stored(self, rels: dict) -> dict:
         """Host-built Relations -> this driver's storage form (identity
-        on one device)."""
+        here; ShardedEngine scatters each to its home shards)."""
         return rels
 
     def _stored_empty_idb(self, name: str) -> Relation:
@@ -545,8 +552,8 @@ class Engine:
         return out
 
     def _host_relation(self, rel: Relation) -> Relation:
-        """An environment relation as one Relation (identity on one
-        device)."""
+        """An environment relation as one Relation (identity here;
+        ShardedEngine gathers)."""
         return rel
 
     # -- runtime invariant sanitizer (core/analysis/sanitize.py) ---------------
@@ -566,11 +573,14 @@ class Engine:
         if not self._sanitize_due():
             return
         from repro_torch.core.analysis.sanitize import sanitize_env
-        host = {k: Relation(r.data.cpu(),
-                            None if r.val is None else r.val.cpu(),
-                            r.n.cpu(), order=r.order)
-                for k, r in env.items()}
+        host = {k: self._sanitize_copy(r) for k, r in env.items()}
         sanitize_env(self, host, where, layer or self._sanitize_layer)
+
+    def _sanitize_copy(self, rel: Relation) -> Relation:
+        """A stored relation's host copy for the sanitizer."""
+        return Relation(rel.data.cpu(),
+                        None if rel.val is None else rel.val.cpu(),
+                        rel.n.cpu(), order=rel.order)
 
     # -- stratum execution ----------------------------------------------------
     def _run_stratum(self, sp: I.StratumPlan, env_rels, stats,
@@ -907,7 +917,7 @@ class Engine:
             key = (name, I.FULL)
             if key not in env_rels:
                 continue
-            rel = env_rels[key]
+            rel = self._host_relation(env_rels[key])
             if name in self.monoid:
                 out[name] = self.export_monoid(name, rel)
             else:
@@ -921,7 +931,7 @@ class Engine:
         stats = EngineStats()
         with O.span(self.cfg.observe, "run",
                     strata=len(self.compiled.strata),
-                    mode=self.cfg.mode, shards=1,
+                    mode=self.cfg.mode, shards=self.cfg.shards or 1,
                     backend=type(self.backend).__name__):
             env_rels = self._edb_env(edbs, edb_caps)
             for sp in self.compiled.strata:

@@ -1,11 +1,15 @@
 """Incremental Datalog maintenance (paper Sec. 9 'Algebraic Semantics')
-on one device — the counterpart of ``repro.engine.incremental``.
+— the counterpart of ``repro.engine.incremental``.
 
 FlowLog supports both batch and incremental execution from the same IR.
-This module maintains materialized IDBs under EDB insertions/deletions;
-every maintenance pass runs through the engine's own hooks, so the
+This module maintains materialized IDBs under EDB insertions/deletions
+over whichever driver ``make_engine`` selects for the config (one
+device, or ``shards >= 2`` -> ``ShardedEngine``); every maintenance pass
+runs through the driver's hooks (``run_rule_pass``, ``_stored``,
+``_host_relation``, ``_difference_stored``, ``_union_stored``), so the
 seeded continuations and recomputes run whichever loop
-``EngineConfig.mode`` selects (in device mode, the captured loop).
+``EngineConfig.mode`` selects (in device mode on one device, the
+captured loop) and a sharded state stays home-partitioned.
 
 Maintenance algorithm
 =====================
@@ -57,7 +61,7 @@ import torch
 from repro_torch.core import ir as I
 from repro_torch.engine import faults as F
 from repro_torch.engine import observe as O
-from repro_torch.engine.engine import Engine, EngineConfig, EngineStats
+from repro_torch.engine.engine import EngineConfig, EngineStats
 from repro_torch.engine.relation import (
     Relation, from_numpy, pow2_cap, to_numpy,
 )
@@ -242,13 +246,14 @@ def _retag_one_changed(root: I.IR, rel: str, occ: int) -> I.IR:
 
 
 class IncrementalEngine:
-    """Materialized-view maintenance over a CompiledProgram, on one
-    device, in either engine mode."""
+    """Materialized-view maintenance over a CompiledProgram, one-device
+    or sharded (``config.shards``), in either engine mode."""
 
     def __init__(self, compiled: I.CompiledProgram,
                  config: EngineConfig | None = None):
+        from repro_torch.engine import make_engine
         self.compiled = compiled
-        self.engine = Engine(compiled, config)
+        self.engine = make_engine(compiled, config)
         # the EDB mirror: name -> the current rows as a _RowSet
         self._mirror: dict[str, _RowSet] = {}
         self._env: dict[tuple[str, str], Relation] = {}

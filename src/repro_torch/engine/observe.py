@@ -87,7 +87,10 @@ What is traced at which layer
   time: the padded buffer IS the wire volume (each launch moves the
   whole ``[S, cap, arity]`` buffer regardless of live rows), so the
   byte counter is exact, static, and free. Host-side gathers/scatters
-  get real-time spans.
+  get real-time spans. In the port one thread runs each shard's body;
+  the reference traces that body once, so the port records its spans
+  and counters from shard 0 only (``muted``): the counts are one
+  shard's, per call.
 * **incremental** (``incremental.py``) — ``apply`` > per-stratum
   maintenance spans tagged with the chosen strategy (``seed-insert`` /
   ``dred`` / ``recompute``), DRed round counts, and per-update
@@ -116,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from typing import Optional
 
@@ -213,11 +217,34 @@ class MetricsRegistry:
 REGISTRY = MetricsRegistry()
 
 
+# Per-thread switch: the sharded engine's worker threads of shards 1 to
+# S - 1 run with it set, so every span and counter of a shard body is
+# recorded once, by shard 0 (the reference traces that body once).
+_THREAD = threading.local()
+
+
+def muted() -> bool:
+    """Whether this thread records no spans and counts nothing."""
+    return getattr(_THREAD, "muted", False)
+
+
+@contextlib.contextmanager
+def mute(on: bool = True):
+    """Turn this thread's spans and counters off (``on``) for a block."""
+    prev = muted()
+    _THREAD.muted = on
+    try:
+        yield
+    finally:
+        _THREAD.muted = prev
+
+
 def trace_count(name: str, amount: int = 1) -> None:
     """Global trace-time launch counter (see REGISTRY). Under jit these
     advance while *tracing* — once per compilation — which is exactly
     the per-iteration launch count structural benches report."""
-    REGISTRY.inc(name, amount)
+    if not muted():
+        REGISTRY.inc(name, amount)
 
 
 # -- spans --------------------------------------------------------------------
@@ -296,7 +323,7 @@ def span(obs: Optional["Observation"], name: str, **attrs):
     """Span helper tolerating ``obs=None`` (the zero-overhead default):
     engine layers write ``with O.span(self._obs, ...)`` unconditionally
     and pay one None check when observability is off."""
-    if obs is None:
+    if obs is None or muted():
         yield None
         return
     with obs.span(name, **attrs) as sp:
@@ -306,7 +333,7 @@ def span(obs: Optional["Observation"], name: str, **attrs):
 def count(obs: Optional["Observation"], name: str,
           amount: int = 1) -> None:
     """Observation-scoped counter, no-op when obs is None."""
-    if obs is not None:
+    if obs is not None and not muted():
         obs.registry.inc(name, amount)
 
 

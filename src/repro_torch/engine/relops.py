@@ -174,6 +174,25 @@ class ArrangementCache:
         self._entries[key] = (rel.data, rel.val, rel.n, arranged)
         return arranged
 
+    def memo(self, tag, keyed_leaves: tuple, compute):
+        """Generic sharing for non-sort physical work keyed on a
+        relation's identity — e.g. a sharded repartition whose result
+        many ops of the same pass reuse (shard.ShardedEvaluator).
+        ``keyed_leaves`` is the tuple of objects the work depends on;
+        every leaf is held strongly and re-verified with ``is``."""
+        key = (tag,) + tuple(id(x) for x in keyed_leaves)
+        ent = self._entries.get(key)
+        if ent is not None and all(
+                a is b for a, b in zip(ent[0], keyed_leaves)):
+            self.hits += 1
+            trace_count("arrange.cache_hits")
+            return ent[1]
+        self.misses += 1
+        trace_count("arrange.cache_misses")
+        out = compute()
+        self._entries[key] = (keyed_leaves, out)
+        return out
+
 
 def _arrange(cache: Optional[ArrangementCache], rel: Relation,
              key_cols: tuple[int, ...]) -> Relation:

@@ -1,7 +1,7 @@
 """Fault-tolerant engine state (the serving durability layer) — the
-counterpart of ``repro.engine.resilience``, on one device, in the same
-on-disk format: a snapshot or update log written by either package
-restores in the other.
+counterpart of ``repro.engine.resilience``, in the same on-disk format:
+a snapshot or update log written by either package restores in the
+other.
 
 Wraps ``IncrementalEngine`` with durable snapshots, a write-ahead
 update log, and a graceful maintenance degradation ladder, so a
@@ -42,13 +42,14 @@ invalid JSON and truncates replay at the last complete record.
 **Mismatch-refusal rules.** Every snapshot manifest carries a
 ``schema_version``, the program hash (over the compiled IR's
 deterministic pretty-print + arities/EDBs/monoid table), the
-``EngineConfig`` fingerprint (semiring), and the shard count (0 here:
-the port has one device). ``restore_snapshot`` refuses loudly
-(``SnapshotMismatch``) on any schema/program/semiring mismatch, and
-with a ValueError on EDB values outside int32 (the EDB mirror's
-limit). A snapshot of a sharded reference engine holds its rows in
-host (gathered) form and restores here (counted as
-``resilience.restore.rehomed``).
+``EngineConfig`` fingerprint (semiring), and the shard count
+(``EngineConfig.shards``, 0 for one device). ``restore_snapshot``
+refuses loudly (``SnapshotMismatch``) on any schema/program/semiring
+mismatch, and with a ValueError on EDB values outside int32 (the EDB
+mirror's limit). Rows are saved in host (gathered) form, so a snapshot
+restores at any shard count, either package's: a shard count other
+than the engine's re-homes every row through the target driver's
+``_stored`` scatter (counted as ``resilience.restore.rehomed``).
 
 **Degradation ladder.** Maintenance overflows escalate instead of
 raising: (1) retry with capacity backoff — roll the in-memory state
@@ -145,7 +146,7 @@ def save_snapshot(inc: IncrementalEngine, directory: str | Path,
         "schema_version": SCHEMA_VERSION,
         "program": program_hash(inc.compiled),
         "config": config_fingerprint(eng.cfg),
-        "shards": 0,
+        "shards": int(eng.cfg.shards or 0),
         "applied_seq": int(seq),
         "caps": eng.effective_caps(),
         "iterations": {k: int(v)
@@ -177,14 +178,15 @@ def restore_snapshot(inc: IncrementalEngine, directory: str | Path,
                      step: Optional[int] = None) -> int:
     """Restore the newest (or ``step``) snapshot into ``inc``; returns
     the snapshot's ``applied_seq``. Refuses loudly on schema / program
-    / semiring mismatch and on EDB values outside int32; rows of a
-    sharded snapshot are in host form and restore onto this device."""
+    / semiring mismatch and on EDB values outside int32; a different
+    shard count re-homes every row through the target driver's
+    ``_stored`` scatter."""
     manifest, arrays = load_checkpoint(directory, step)
     extra = manifest.get("extra") or {}
     _check_compat(inc, extra)
     eng = inc.engine
     obs = eng.cfg.observe
-    if int(extra.get("shards", 0)) != 0:
+    if int(extra.get("shards", 0)) != int(eng.cfg.shards or 0):
         O.count(obs, "resilience.restore.rehomed")
     by_name: dict[str, dict] = {}
     for key, arr in arrays.items():

@@ -103,6 +103,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(launches: dict, name: str) -> None:
+    """One more launch of ``name`` in a wrapper module's ``LAUNCHES``;
+    under a lock, since the sharded engine launches from one thread a
+    shard."""
+    with _count_lock:
+        launches[name] += 1
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:

@@ -102,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
             hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
         _build.check(rc, name)
-        LAUNCHES[name] += 1
+        _build.count_launch(LAUNCHES, name)
     return out
 
 
@@ -161,12 +161,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), bf16,
             b, hq, hkv, S, d, n_splits, split_len, _scale_log2(d), stream)
         _build.check(rc, "flash_decode_split")
-        LAUNCHES["flash_decode"] += 1
+        _build.count_launch(LAUNCHES, "flash_decode")
         rc = lib.flash_decode_combine(
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             out.data_ptr(), bf16, b * hq, d, n_splits, stream)
         _build.check(rc, "flash_decode_combine")
-        LAUNCHES["flash_decode_combine"] += 1
+        _build.count_launch(LAUNCHES, "flash_decode_combine")
     return out
 
 

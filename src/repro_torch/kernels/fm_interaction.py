@@ -78,7 +78,7 @@ def fm_interaction(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                 int(x.dtype == torch.bfloat16), b, f, v.shape[-1],
                 out.data_ptr(), stream)
         _build.check(rc, "fm_interaction")
-        LAUNCHES["fm_interaction"] += 1
+        _build.count_launch(LAUNCHES, "fm_interaction")
     return out
 
 

@@ -93,7 +93,7 @@ def merge_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
                 stride, n_samples, lo.data_ptr(),
                 hi.data_ptr() if upper else None, stream)
         _build.check(rc, "merge_probe")
-        LAUNCHES["probe" if w == 1 else "probe_multi"] += 1
+        _build.count_launch(LAUNCHES, "probe" if w == 1 else "probe_multi")
     return (lo, hi) if upper else lo
 
 

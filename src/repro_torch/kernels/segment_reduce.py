@@ -75,7 +75,7 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
                 seg_ids.data_ptr(), n, d, num_segments, OPS[op],
                 out.data_ptr(), scratch.data_ptr(), stream)
         _build.check(rc, "segment_reduce")
-        LAUNCHES["segment_reduce"] += 1
+        _build.count_launch(LAUNCHES, "segment_reduce")
     return out
 
 

@@ -4,6 +4,8 @@
         --scale 22 --programs Reach,CC,SSSP,Reach-mw --modes host,device
     PYTHONPATH=src python -m repro_torch.launch.fixpoint --graph grid \
         --side 2048 --programs Reach --modes host,device
+    PYTHONPATH=src python -m repro_torch.launch.fixpoint --shards 2 \
+        --programs Reach,CC,SSSP --modes host
 
 Graphs, made from ``--seed``:
 
@@ -18,18 +20,21 @@ Graphs, made from ``--seed``:
 
 Each program runs in each mode, in the order given, on the card, with
 capacities that cannot overflow (every IDB fact is keyed by a vertex,
-every join row is one edge). One line per run, then a JSON list of the
-runs: wall seconds (``EngineStats.wall_s``: host clock around a run that
-ends in the facts' device-to-host read), iterations, grow retries, peak
-device memory, and whether the facts were checked. On the grid, Reach
-(every vertex) and CC (every vertex labelled 0) are checked; on the
-Kronecker graph ``chip_smoke.py`` holds the facts to scipy.
+every join row is one edge); with ``--shards N`` (N >= 2) on the sharded
+engine, N shards on the one card. One line per run, then a JSON list of
+the runs: wall seconds (``EngineStats.wall_s``: host clock around a run
+that ends in the facts' device-to-host read), iterations, grow retries,
+peak device memory, the shard count and one shard's all-to-all bytes
+(``shard.all_to_all.bytes``), and whether the facts were checked. On
+the grid, Reach (every vertex) and CC (every vertex labelled 0) are
+checked; on the Kronecker graph ``chip_smoke.py`` holds the facts to
+scipy.
 ``Reach-mw`` is Reach under ``force_multiword()``.
 
-The script reaches the port through ``compile_program``, ``Engine`` and
-``EngineConfig`` only, so it also times an older checkout of the port in
-host mode: run it by its path with that checkout's ``src`` on
-``PYTHONPATH``.
+The script reaches the port through ``compile_program``, ``make_engine``
+and ``EngineConfig`` only (``shards`` only when ``--shards`` is given),
+so it also times an older checkout of the port in host mode: run it by
+its path with that checkout's ``src`` on ``PYTHONPATH``.
 """
 from __future__ import annotations
 
@@ -111,32 +116,40 @@ def graph_edbs(src, dst, weights, source: int) -> dict:
                      "source": sources}}
 
 
-def engine_config(n: int, edge_cap: int, mode: str, observe=None):
+def engine_config(n: int, edge_cap: int, mode: str, observe=None,
+                  shards: int = 0):
     """Capacities that cannot overflow on a graph of n vertices and at
-    most edge_cap edges, on the card."""
+    most edge_cap edges, on the card (``shards`` >= 2: that many shards
+    of the sharded engine)."""
     from repro_torch.engine import EngineConfig
     return EngineConfig(idb_cap=n, intermediate_cap=edge_cap,
-                        device="cuda", mode=mode, observe=observe)
+                        device="cuda", mode=mode, observe=observe,
+                        **({"shards": shards} if shards else {}))
 
 
 def run_one(program: str, edbs: dict, n: int, edge_cap: int, mode: str,
-            want: dict) -> dict:
+            want: dict, shards: int = 0) -> dict:
     """One run of ``program`` in ``mode``; returns its numbers. ``want``:
     output relation -> its expected rows, for the programs checked."""
     import torch
     from repro_torch.core.optimizer import compile_program
-    from repro_torch.engine import Engine
+    from repro_torch.engine import make_engine
+    from repro_torch.engine.observe import REGISTRY
     from repro_torch.engine.relation import force_multiword
     name = program.removesuffix("-mw")
-    engine = Engine(compile_program(PROGRAMS[name]),
-                    engine_config(n, edge_cap, mode))
+    engine = make_engine(compile_program(PROGRAMS[name]),
+                         engine_config(n, edge_cap, mode, shards=shards))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sent = REGISTRY.get("shard.all_to_all.bytes")
     if program.endswith("-mw"):
         with force_multiword():
             out, stats = engine.run(edbs[name])
     else:
         out, stats = engine.run(edbs[name])
+    sent = REGISTRY.get("shard.all_to_all.bytes") - sent
+    if hasattr(engine, "close"):
+        engine.close()
     checked = name in want
     if checked:
         rel, rows = want[name]
@@ -148,6 +161,7 @@ def run_one(program: str, edbs: dict, n: int, edge_cap: int, mode: str,
             "grow_retries": stats.grow_retries,
             "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
             "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "shards": shards or 1, "all_to_all_bytes": sent,
             "facts_checked": checked}
 
 
@@ -163,6 +177,8 @@ def main(argv=None) -> list:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--programs", default="Reach,CC,SSSP,Reach-mw")
     ap.add_argument("--modes", default="host,device")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="N >= 2: the sharded engine, N shards on the card")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     want: dict = {}
@@ -186,12 +202,15 @@ def main(argv=None) -> list:
     runs = []
     for program in args.programs.split(","):
         for mode in args.modes.split(","):
-            r = run_one(program, edbs, n, src.shape[0], mode, want)
-            print(f"{label}: {r['program']} {r['mode']}: wall "
+            r = run_one(program, edbs, n, src.shape[0], mode, want,
+                        args.shards)
+            print(f"{label}: {r['program']} {r['mode']}, shards "
+                  f"{r['shards']}: wall "
                   f"{r['wall_s']:.4f} s, iterations {r['iterations']}, "
                   f"grow_retries {r['grow_retries']}, peak allocated "
                   f"{r['peak_allocated_bytes']} B, reserved "
-                  f"{r['peak_reserved_bytes']} B, facts "
+                  f"{r['peak_reserved_bytes']} B, all-to-all "
+                  f"{r['all_to_all_bytes']} B a shard, facts "
                   f"{'checked' if r['facts_checked'] else 'not checked'}",
                   flush=True)
             runs.append(r)

@@ -6,6 +6,8 @@ stream, answer after every update batch, track latency.
         [--updates 30] [--hosts 200] [--durable [DIR]] [--mode device]
     PYTHONPATH=src python -m repro_torch.launch.incremental_serving \\
         --graph kronecker --scale 20 --mode device --durable
+    PYTHONPATH=src python -m repro_torch.launch.incremental_serving \\
+        --shards 8 --device cpu
 
 The view: which hosts the monitoring target reaches over the links,
 avoiding quarantined hosts (negation), and each one's hop count (a MIN
@@ -25,8 +27,12 @@ overflow in two maintenance rule passes, restarts from snapshot + log
 replay, and prints the ``resilience.*`` counters. The port runs every
 rule pass eagerly, so the overflow fires in either ``--mode``.
 
+``--shards N`` (N >= 2) serves the same stream from the sharded engine
+(engine/shard.py), N shards on the one device, as the reference
+example's ``--shards`` does on its mesh.
+
 Runs on the card; ``--device cpu`` runs the plain torch path (the
-tests). The sharded engine is not ported, so ``--shards`` is refused.
+tests).
 """
 from __future__ import annotations
 
@@ -88,16 +94,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", choices=("host", "device"), default="host")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--shards", type=int, default=0,
-                    help="refused: the sharded engine is not ported")
+                    help="N >= 2: the sharded engine, N shards on the "
+                         "device")
     ap.add_argument("--durable", nargs="?", const="", default=None,
                     metavar="DIR",
                     help="serve through the durable resilience layer "
                          "(WAL + snapshots in DIR, default a tempdir), "
                          "with a mid-stream crash/recover demo")
     args = ap.parse_args(argv)
-    if args.shards:
-        ap.error("--shards: the sharded engine is not ported to "
-                 "repro_torch (ROADMAP.md, Queue 1)")
+    if args.shards < 0:
+        ap.error(f"--shards: a shard count, not {args.shards}")
 
     rng = np.random.default_rng(1)
     edbs = serving_edbs(args.graph, args.hosts, args.scale, rng)
@@ -113,7 +119,7 @@ def main(argv=None) -> dict:
     # IDB rows actually changed per batch — engine/observe.py
     obs = Observation("serving")
     cfg = EngineConfig(mode=args.mode, device=args.device, observe=obs,
-                       **caps)
+                       shards=args.shards, **caps)
     cp = compile_program(PROGRAM)
     tmp = None
     plan = None

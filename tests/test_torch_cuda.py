@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain torch versions, the
-port's engine on the card (host mode, device mode's captured loop, and
-incremental maintenance) against the same engine on the CPU, and the
+port's engine on the card (host mode, device mode's captured loop,
+incremental maintenance and two shards) against the same engine on the
+CPU or unsharded, and the
 port's transformer on the card against itself on the CPU. Needs an
 NVIDIA GPU and nvcc; run there with
 
@@ -366,6 +367,40 @@ def test_incremental_device_mode_on_card_matches_cpu(cuda):
         for name in c:
             np.testing.assert_array_equal(g[name], c[name])
     assert git == cit
+
+
+@pytest.mark.parametrize("mode", ["host", "device"])
+@pytest.mark.parametrize("program", ["Reach", "CC"])
+def test_sharded_engine_on_card_matches_unsharded(cuda, program, mode):
+    """Two shards on the card (one thread each, one stream) give the
+    unsharded run's facts and iterations; the probe and, for CC, the
+    segment reduce launch on the shards' threads."""
+    from benchmarks.programs import CC, equivalence_datasets
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import Engine, EngineConfig, make_engine
+    from repro_torch.engine.shard import ShardedEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    if program == "CC":
+        rng = np.random.default_rng(3)
+        src, edbs = CC, {"edge": rng.integers(0, 1 << 20, size=(600, 2))}
+    else:
+        src, edbs = equivalence_datasets()[program]
+    caps = dict(idb_cap=1 << 10, intermediate_cap=1 << 12, mode=mode)
+    want, wst = Engine(compile_program(src),
+                       EngineConfig(**caps)).run(dict(edbs))
+    reset_launch_counts()
+    engine = make_engine(compile_program(src), EngineConfig(shards=2,
+                                                            **caps))
+    assert isinstance(engine, ShardedEngine)
+    got, gst = engine.run(dict(edbs))
+    engine.close()
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name])
+    assert gst.iterations == wst.iterations
+    counts = launch_counts()
+    assert counts["probe"] > 0
+    if program == "CC":
+        assert counts["segment_reduce"] > 0
 
 
 # -- attention kernels --------------------------------------------------------

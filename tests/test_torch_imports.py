@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(len(names), bad)\n"
-        "assert len(names) >= 25 and not bad, bad\n")
+        "assert len(names) >= 25 and not bad, bad\n"
+        "assert {'repro_torch.engine.shard', 'repro_torch.launch.mesh'}"
+        " <= set(names)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -63,6 +65,22 @@ def test_default_config_refuses_cpu_fallback(monkeypatch):
     assert EngineConfig().device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(compile_program(".input e\n.output t\nt(x) :- e(x).\n"))
+
+
+def test_sharded_engine_refuses_cpu_fallback(monkeypatch):
+    """make_engine with shards >= 2 builds the sharded driver on the card
+    by default, and raises without one."""
+    from repro_torch.core.optimizer import compile_program
+    from repro_torch.engine import EngineConfig, make_engine
+    from repro_torch.engine.shard import ShardedEngine
+    cp = compile_program(".input e\n.output t\nt(x) :- e(x).\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_engine(cp, EngineConfig(shards=2))
+    engine = make_engine(cp, EngineConfig(shards=2, device="cpu"))
+    assert isinstance(engine, ShardedEngine)
+    assert engine.run({"e": [[1], [2]]})[0]["t"].tolist() == [[1], [2]]
+    engine.close()
 
 
 def test_device_mode_runs_and_unknown_modes_are_refused():

@@ -16,6 +16,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from benchmarks.programs import CC, UNREACH, equivalence_datasets
 from repro.core.optimizer import compile_program as j_compile
@@ -28,6 +29,17 @@ from repro_torch.engine import Observation, make_engine
 
 CAPS = dict(idb_cap=1 << 10, intermediate_cap=1 << 12)
 MODES = ("host", "device")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops (up to eight shard threads): under a parallel
+    run the workers share the cores, and torch's idle OpenMP threads
+    spinning on an oversubscribed host make such ops far slower."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 # program -> (steps, stream seed)
 STREAMS = {"TC": (30, 201), "Negation": (30, 202), "WideReach2": (30, 203),
            "CC": (30, 204)}
@@ -132,22 +144,23 @@ def assert_same(got: dict, want: dict, ctx: str) -> None:
                                       err_msg=f"{name} {ctx}")
 
 
-def port_engine(src: str, mode: str, incremental: bool = True):
+def port_engine(src: str, mode: str, incremental: bool = True,
+                shards: int = 0):
     return make_engine(t_compile(src), TConfig(device="cpu", mode=mode,
-                                               **CAPS),
+                                               shards=shards, **CAPS),
                        incremental=incremental)
 
 
-def assert_stream_matches(program: str, mode: str) -> None:
+def assert_stream_matches(program: str, mode: str, shards: int = 0) -> None:
     want = reference_stream(program, mode)
     src = _source(program)
-    inc = port_engine(src, mode)
+    inc = port_engine(src, mode, shards=shards)
     batch = port_engine(src, mode, incremental=False)
     snap = inc.initialize({k: v.copy() for k, v in _edbs(program).items()})
     assert_same(snap, want[0][0], "initialize")
     assert inc._stats.iterations == want[0][1]
     for step, (ins, dele) in enumerate(_stream(program)):
-        ctx = f"program={program} mode={mode} step={step}"
+        ctx = f"program={program} mode={mode} shards={shards} step={step}"
         snap = inc.apply(inserts=ins, deletes=dele)
         ref_snap, ref_iters, ref_mirror = want[step + 1]
         assert_same(snap, ref_snap, ctx)
@@ -163,6 +176,17 @@ def test_stream_matches_reference_and_batch(program):
     tests/test_torch_incremental_device.py (a file of their own, so a
     parallel run can give them to another worker)."""
     assert_stream_matches(program, "host")
+
+
+@pytest.mark.parametrize("shards", (2, 8))
+@pytest.mark.parametrize("program", list(STREAMS))
+def test_sharded_stream_matches_reference_and_batch(program, shards):
+    """The same streams over the sharded driver (``shards`` through
+    make_engine): seeded continuations and DRed run shard-local, CC's and
+    Negation's recomputes through the sharded loop, and after every step
+    the state, iterations and mirror are the reference's unsharded
+    IncrementalEngine's and the port's batch run's."""
+    assert_stream_matches(program, "host", shards)
 
 
 TC_SRC = """

@@ -1,9 +1,9 @@
 """The port's serving entry point (``repro_torch.launch.incremental_serving``)
 at the reference example's default size (examples/incremental_serving.py:
-200 hosts, 30 update batches) on the CPU: it prints what the example
-prints, ending ``incremental_serving OK``, and its final view equals the
-view a batch run of the reference engine gives over the stream the
-example draws from the same seed."""
+200 hosts, 30 update batches) on the CPU, unsharded and sharded: it
+prints what the example prints, ending ``incremental_serving OK``, and
+its final view equals the view a batch run of the reference engine
+gives over the stream the example draws from the same seed."""
 import numpy as np
 import pytest
 import torch
@@ -45,8 +45,9 @@ def _reference_final_view(updates=30, hosts=200) -> dict:
 
 
 @pytest.mark.parametrize("flags", [
-    ["--durable"], [], ["--mode", "device", "--durable"]],
-    ids=["durable", "plain", "device-durable"])
+    ["--durable"], [], ["--mode", "device", "--durable"],
+    ["--shards", "2"]],
+    ids=["durable", "plain", "device-durable", "sharded"])
 def test_serving_matches_reference_example(flags, capsys, tmp_path):
     if flags and flags[-1] == "--durable":
         flags = flags + [str(tmp_path / "state")]
@@ -66,8 +67,10 @@ def test_serving_matches_reference_example(flags, capsys, tmp_path):
 
 
 def test_serving_refuses_shards_by_name(capsys):
+    """--shards N serves sharded (above); a negative count is refused by
+    the option's name."""
     with pytest.raises(SystemExit):
-        S.main(["--device", "cpu", "--shards", "8"])
+        S.main(["--device", "cpu", "--shards", "-1"])
     assert "--shards" in capsys.readouterr().err
 
 

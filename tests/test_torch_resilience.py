@@ -266,6 +266,49 @@ def test_cross_load(writer, program, tmp_path):
     assert iters["port"] == iters["ref"]
 
 
+@pytest.mark.parametrize("writer", ["ref", "port-sharded", "port"])
+def test_sharded_cross_load(writer, tmp_path):
+    """Snapshots cross shard counts and packages both ways: a 2-shard
+    port engine's snapshot and WAL tail recover into the reference's and
+    the port's unsharded engines, an unsharded engine's (either
+    package's) into a 2-shard port engine; each restore across shard
+    counts counts ``resilience.restore.rehomed``, and every reader gives
+    the writer's view, then the same state after one more batch."""
+    src, edbs = SERVING, _serving_edbs()
+    steps = _stream(edbs, "link", seed=8, n_steps=5)
+    pkg = "ref" if writer == "ref" else "port"
+    writer_shards = 2 if writer == "port-sharded" else 0
+    dur = _durable(pkg, src, tmp_path / "w",
+                   rcfg=(JR if pkg == "ref" else R).ResilienceConfig(
+                       snapshot_every=3),
+                   **({"shards": 2} if writer_shards else {}))
+    dur.initialize({k: v.copy() for k, v in edbs.items()})
+    for ins, dele in steps[:4]:
+        want = dur.apply(inserts=ins, deletes=dele)
+    dur.close()
+    readers = [("port", 2)] if not writer_shards else [("ref", 0),
+                                                       ("port", 0)]
+    outs = []
+    for reader, shards in readers:
+        d = tmp_path / f"{reader}{shards}"
+        shutil.copytree(tmp_path / "w", d)
+        obs = (JObservation if reader == "ref" else Observation)()
+        kw = {"observe": obs, **({"shards": shards} if shards else {})}
+        eng = _durable(reader, src, d, **kw)
+        _same(eng.recover(), want, f"{reader} shards={shards} recovered")
+        assert obs.registry.get("resilience.restore.rehomed") == 1
+        ins, dele = steps[4]
+        outs.append(eng.apply(inserts=ins, deletes=dele))
+        eng.close()
+    ref = _durable("ref", src, tmp_path / "x")
+    ref.initialize({k: v.copy() for k, v in edbs.items()})
+    for ins, dele in steps:
+        last = ref.apply(inserts=ins, deletes=dele)
+    ref.close()
+    for out in outs:
+        _same(out, last, "after one more batch")
+
+
 @pytest.mark.parametrize("program", sorted(
     [n for n, t in vars(P).items()
      if n.isupper() and isinstance(t, str) and ".output" in t]
@@ -463,6 +506,19 @@ def test_crash_replay_matches_uninterrupted(plan_name, mode, tmp_path):
     reference's trail byte for byte, iteration dicts included (the
     reference's where the mode is host's), and so does a cold recover
     after the stream."""
+    _crash_replay(plan_name, mode, tmp_path)
+
+
+@pytest.mark.parametrize("shards", (2, 8))
+def test_sharded_crash_replay_matches_uninterrupted(shards, tmp_path):
+    """The same differential over the sharded driver (the fault sites
+    stay on the controlling thread, so one plan serves every shard
+    count): each step equal to the unsharded trails, the reference's
+    included."""
+    _crash_replay("seeded-31", "host", tmp_path, shards)
+
+
+def _crash_replay(plan_name, mode, tmp_path, shards=0):
     edbs = _tc_edbs()
     steps = gen_stream(STREAM_SEED, edbs, N_STEPS)
     outs, iters = _trail("port", mode)
@@ -473,8 +529,8 @@ def test_crash_replay_matches_uninterrupted(plan_name, mode, tmp_path):
 
     def fresh():
         return R.DurableIncrementalEngine(
-            t_compile(TC_SRC), _tcfg(mode), directory=tmp_path,
-            resilience=rcfg)
+            t_compile(TC_SRC), _tcfg(mode, shards=shards),
+            directory=tmp_path, resilience=rcfg)
 
     def restart():
         while True:                 # recovery itself may crash again
@@ -506,7 +562,8 @@ def test_crash_replay_matches_uninterrupted(plan_name, mode, tmp_path):
             out = until_done(lambda: box["dur"].apply(
                 inserts={k: v.copy() for k, v in ins.items()},
                 deletes={k: v.copy() for k, v in dele.items()}))
-            ctx = f"plan={plan_name} mode={mode} step={i} {plan.fired}"
+            ctx = (f"plan={plan_name} mode={mode} shards={shards} "
+                   f"step={i} {plan.fired}")
             _assert_states_equal(out, outs[i + 1], ctx)
             _assert_states_equal(out, ref_outs[i + 1], ctx)
             got = box["dur"].inc._stats.iterations
