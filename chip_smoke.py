@@ -101,6 +101,22 @@ Phases, each printing its wall time:
              prefill's kernel line), then a counted run that must give
              the same tokens as it and as the run through the plain
              versions;
+9b. moe      granite-moe-3b-a800m (64 greedy tokens) and
+             granite-moe-1b-a400m (16) at full width and depth the same
+             way: random bf16 weights from --seed, 8 x 2048 prompt
+             tokens, a capturing run, then a counted run that must give
+             its tokens; the attention kernels at head dim 64 and GQA
+             24:8 / 16:8 held against their plain versions on the
+             captured inputs; the captured MoE layers (first and last, at
+             the prefill and the last decode step) on the card against
+             float64 on the host (expert sets for every token of float64
+             margin >= 1e-5, slots, keep and gates from the card's own
+             choices, the output in bf16 and cast to f32, the dropped
+             share, the routing's and the layer's time); then the same
+             weights cast to float32, 2 x 96 tokens and 2 steps through
+             the kernels against the plain attention with the kernel
+             run's expert choices replayed (tokens equal, logits within
+             1e-3 of scale);
 10. recsys   the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
              row table, random weights from --seed): the interaction kernel
              against its plain version at the reference's kernel-test
@@ -114,7 +130,7 @@ Phases, each printing its wall time:
              ids; logits and scores held against a float64 numpy forward
              on the host, the bags against the plain version;
 11. launches each kernel's launch count over the host-mode runs of
-             phases 5, 6, 9 and 10 (each counted from 0 just before
+             phases 5, 6, 9, 9b and 10 (each counted from 0 just before
              it), and apart the engine kernels' calls in phases 7 and 8,
              in phase durable (a kernel inside a captured graph once
              per capture, so a memo hit adds nothing) and in the sharded
@@ -122,8 +138,10 @@ Phases, each printing its wall time:
              zero in any fails.
 
 With ``--profile``, each of Reach, CC and SSSP in host and in device
-mode, the serve prefill, four decode steps, the float32 prefill and one
-serve_bulk batch then run once more under
+mode, the serve prefill, four decode steps, the float32 prefill,
+granite-moe-3b-a800m's prefill, four decode steps and one MoE layer at
+decode (with a "moe dispatch" family) and one serve_bulk batch then run
+once more under
 torch.profiler, which prints device time by kernel family, the device's
 busy share of the run's wall time and the busiest host ops (not part of
 the checks).
@@ -600,34 +618,42 @@ def run_engine(torch, name, src_text, edbs, n, edge_cap, want,
     return counts, stats
 
 
-def kernel_family(name: str) -> str:
+FAMILIES = (("fm_interaction (ours)", ("fm_kernel",)),
+            ("probe (ours)", ("probe_kernel",)),
+            ("segment_reduce (ours)", ("segment_reduce", "reduce_tiles",
+                                       "fill_identity", "combine_crossing")),
+            ("attention (ours)", ("attn_tf32", "attn_wgmma", "decode_split",
+                                  "decode_combine")),
+            ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+            ("sort", ("sort", "radix")),
+            ("memcpy/memset", ("memcpy", "memset")),
+            ("index/scatter/gather", ("index", "scatter", "gather")))
+# in a MoE model's profile, after gemm: the router's softmax and top-k,
+# the dispatch's sort, searchsorted and scatter, the buffer's index copy
+# and gather (with them the embedding gather and the KV cache's index
+# put, two kernels a layer at decode, which share their names)
+MOE_DISPATCH = ("moe dispatch", ("softmax", "topk", "sort", "radix",
+                                 "searchsorted", "scatter", "gather",
+                                 "index"))
+
+
+def kernel_family(name: str, moe: bool = False) -> str:
     low = name.lower()
-    for family, marks in (("fm_interaction (ours)", ("fm_kernel",)),
-                          ("probe (ours)", ("probe_kernel",)),
-                          ("segment_reduce (ours)", ("segment_reduce",
-                                                     "reduce_tiles",
-                                                     "fill_identity",
-                                                     "combine_crossing")),
-                          ("attention (ours)", ("attn_tf32",
-                                                "attn_wgmma",
-                                                "decode_split",
-                                                "decode_combine")),
-                          ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
-                          ("sort", ("sort", "radix")),
-                          ("memcpy/memset", ("memcpy", "memset")),
-                          ("index/scatter/gather",
-                           ("index", "scatter", "gather"))):
+    families = (FAMILIES[:5] + (MOE_DISPATCH,) + FAMILIES[5:] if moe
+                else FAMILIES)
+    for family, marks in families:
         if any(m in low for m in marks):
             return family
     return "other elementwise/reduce"
 
 
-def profile_run(torch, name, fn):
+def profile_run(torch, name, fn, moe=False):
     """``fn()`` under torch.profiler, once as a warm-up step and once
     recorded (a profile that is not the process's first drops the first
-    kernels it sees): device time per kernel family, the device's
-    busy share (kernel time over the recorded run's wall time), and the
-    host ops with the most self CPU time."""
+    kernels it sees): device time per kernel family (``moe``: with the
+    MoE dispatch's), the device's busy share (kernel time over the
+    recorded run's wall time) and kernel count, and the host ops with
+    the most self CPU time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -652,7 +678,7 @@ def profile_run(torch, name, fn):
             continue
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0))
-        fam = kernel_family(e.key)
+        fam = kernel_family(e.key, moe)
         ms, count = families.get(fam, (0.0, 0))
         families[fam] = (ms + us / 1e3, count + e.count)
         top.append((us / 1e3, e.count, e.key[:90]))
@@ -661,8 +687,10 @@ def profile_run(torch, name, fn):
         print(f"profile {name}: the profiler saw no device time "
               f"(not measured)", flush=True)
         return
+    kernels = sum(count for _, count in families.values())
     print(f"profile {name}: wall {wall_ms:.3f} ms under the profiler, "
-          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
+          f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) in "
+          f"{kernels} kernels")
     for fam, (ms, count) in sorted(families.items(), key=lambda x: -x[1][0]):
         print(f"  {fam}: {ms:.3f} ms in {count} kernels "
               f"({100 * ms / wall_ms:.1f}% of wall)")
@@ -1851,47 +1879,305 @@ def check_captured(torch, captured, prefix, in_f32=False):
     return measured
 
 
+# -- the MoE layer ---------------------------------------------------------
+
+# the router's float32 product sums d = 1536 terms in a row, partial
+# sums of a few units: a random walk of sqrt(d) roundings of up to 2**-23
+# each, a few 1e-6 in the logits; this bounds it
+ROUTER_ATOL = 1e-5
+# a token whose float64 p_(k) - p_(k+1) is below this may take another
+# expert set on the card: a logit error of ROUTER_ATOL moves a
+# probability p by p * 1e-5, under 1e-5
+MOE_MARGIN = 1e-5
+
+
+@contextlib.contextmanager
+def moe_captured(M, layers, gen_tokens):
+    """Keep a clone of the MoE input of the first and last layer, with
+    that layer's weights, at the prefill and at the last decode step:
+    yields {(kind, layer): (weights, x)}. The calls still go to
+    ``moe_ffn``."""
+    keep = (0, layers - 1)
+    captured, calls = {}, [0]
+    ffn = M.moe_ffn
+
+    def wrapped(params, x, cfg, groups=1):
+        step, layer = divmod(calls[0], layers)
+        calls[0] += 1
+        if layer in keep and step in (0, gen_tokens):
+            captured[("prefill" if step == 0 else "decode", layer)] = (
+                params, x.clone())
+        return ffn(params, x, cfg, groups)
+
+    M.moe_ffn = wrapped
+    try:
+        yield captured
+    finally:
+        M.moe_ffn = ffn
+
+
+def top_k_margin(torch, probs, k):
+    """p_(k) - p_(k+1) of each row of ``probs`` (inf when k is every
+    expert): how far a token's expert set is from another."""
+    if k == probs.shape[-1]:
+        return torch.full_like(probs[..., 0], math.inf)
+    ranked = probs.sort(-1, descending=True).values
+    return ranked[..., k - 1] - ranked[..., k]
+
+
+def renormalised(probs, top_e):
+    """``probs`` at the experts ``top_e``, renormalised as ``route``
+    renormalises its top-k."""
+    p = probs.gather(-1, top_e)
+    return p / p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def check_moe_layer(torch, label, params, x, cfg, groups, timed=False):
+    """One MoE layer on the card (x [T, d] and the layer's weights, in
+    their dtype) against a float64 run of ``moe_ffn``'s pieces on the
+    host, on float64 copies:
+    - expert sets equal for every token whose float64 margin p_(k) -
+      p_(k+1) is at least MOE_MARGIN (the others may flip);
+    - the router's float32 logits within ROUTER_ATOL of float64's;
+    - slots and keep equal to a float64 dispatch of the card's own
+      expert choices; gates within twice the largest logit error
+      relative (a renormalised softmax moves by at most that) plus
+      float32's rounding, and plus bfloat16's in bfloat16;
+    - the output within 2e-2 of its scale of the float64 output with the
+      card's routing, and within 1e-4 with the input and weights cast to
+      float32.
+    The card's calls run under sync debug mode "error": none may read the
+    device from the host. Returns the dropped share, and with ``timed``
+    the CUDA-event times of routing plus dispatch and of the layer."""
+    from repro_torch.models import moe as M
+    t, d = x.shape
+    k, e = cfg.top_k, cfg.n_experts
+    g, tg, cap = M.group_plan(t, groups, cfg)
+    p32 = {n: w.float() for n, w in params.items()}
+    x32 = x.float()
+
+    def card(p, xx):
+        _, top_p, top_e = M.route(p["router"], xx.reshape(g, tg, d), k)
+        return top_e, M.dispatch(top_p, top_e, e, cap, xx.dtype)
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = M.moe_ffn(params, x, cfg, groups)
+        top_e, (slot, keep, gates) = card(params, x)
+        y32, _ = M.moe_ffn(p32, x32, cfg, groups)
+        top_e32, (slot32, keep32, gates32) = card(p32, x32)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    h64 = {n: w.double().cpu() for n, w in params.items()}
+    x64 = x.double().cpu()
+    probs64, _, want_e = M.route(h64["router"], x64.reshape(g, tg, d), k)
+    logit_err = float((x32 @ p32["router"]).cpu().double().sub(
+        x64 @ h64["router"]).abs().max())
+    if logit_err > ROUTER_ATOL:
+        raise AssertionError(f"{label}: router logits off float64 by "
+                             f"{logit_err}")
+    margin = top_k_margin(torch, probs64, k)
+    got_e = top_e.cpu()
+    differ = (got_e.sort(-1).values != want_e.sort(-1).values).any(-1)
+    near = margin < MOE_MARGIN
+    bad = differ & ~near
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{label}: expert sets differ from float64 at {int(bad.sum())} "
+            f"tokens of margin >= {MOE_MARGIN} (smallest "
+            f"{float(margin[bad].min())})")
+    if not torch.equal(top_e32, top_e):
+        raise AssertionError(f"{label}: the float32 cast routed otherwise "
+                             f"than the same router product in {x.dtype}")
+    p64 = renormalised(probs64, got_e)
+    slot64, keep64, gates64 = M.dispatch(p64, got_e, e, cap, torch.float64)
+    gate_rel = {}
+    for name, (sl, kp, ga) in {str(x.dtype): (slot, keep, gates),
+                               "float32": (slot32, keep32, gates32)}.items():
+        if not (torch.equal(sl.cpu(), slot64)
+                and torch.equal(kp.cpu(), keep64)):
+            raise AssertionError(f"{label}: {name} slots or keep differ "
+                                 f"from the float64 dispatch")
+        rounding = 2.0 ** -8 if ga.dtype == torch.bfloat16 else 0.0
+        rel = 2 * logit_err + 2.0 ** -21 + rounding
+        gerr = (ga.cpu().double() - gates64).abs()
+        gate_rel[name] = float((gerr / gates64.abs().clamp_min(1e-30))
+                               .max())
+        if bool((gerr > rel * gates64.abs() + 1e-12).any()):
+            raise AssertionError(f"{label}: {name} gates off the float64 "
+                                 f"ones by {gate_rel[name]} relative, "
+                                 f"over {rel}")
+    y64 = M.mix(h64, x64, p64, got_e, cfg, cap)
+    aux64 = float(M.load_balance(probs64, got_e, e))
+    scale = float(y64.abs().max())
+    err = float((y.cpu().double() - y64).abs().max())
+    err32 = float((y32.cpu().double() - y64).abs().max())
+    dropped = 1.0 - float(keep64.double().mean())
+    print(f"{label}: T {t} in {g} groups of {tg}, capacity {cap}; "
+          f"{int(near.sum())} tokens of float64 margin < {MOE_MARGIN}, "
+          f"{int(differ.sum())} expert sets differ from float64; router "
+          f"logits off by {logit_err}, gates by {gate_rel} relative; "
+          f"dropped {dropped} of {t * k} assignments; y max abs err {err} "
+          f"({x.dtype}), {err32} (float32) of scale {scale}; aux "
+          f"{float(aux)} against {aux64}", flush=True)
+    if not (err <= (2e-2 if x.dtype == torch.bfloat16 else 1e-4) * scale
+            and err32 <= 1e-4 * scale):
+        raise AssertionError(f"{label}: the output is off the float64 one")
+    if abs(float(aux) - aux64) > 1e-4 * abs(aux64):
+        raise AssertionError(f"{label}: aux {float(aux)} against {aux64}")
+    out = dict(dropped=dropped)
+    if timed:
+        out["dispatch_ms"] = cuda_ms(torch, lambda: card(params, x))
+        out["layer_ms"] = cuda_ms(torch, lambda: M.moe_ffn(params, x, cfg,
+                                                           groups))
+        print(f"{label}: routing + dispatch {out['dispatch_ms']:.4f} ms, "
+              f"the layer {out['layer_ms']:.4f} ms", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def moe_routing(torch, M, replay=None):
+    """Without ``replay``: record each MoE call's expert choices, yielding
+    the list. With ``replay`` (such a list from an earlier run): each call
+    routes to the recorded experts, its gates its own probabilities at
+    them, renormalised; yields a list of (call, tokens whose own expert
+    set differs, their float32 margins p_(k) - p_(k+1))."""
+    ffn = M.moe_ffn
+    log = []
+
+    def record(params, x, cfg, groups=1):
+        t, d = x.shape
+        g, tg, _ = M.group_plan(t, groups, cfg)
+        log.append(M.route(params["router"], x.reshape(g, tg, d),
+                           cfg.top_k)[2])
+        return ffn(params, x, cfg, groups)
+
+    def replayed(params, x, cfg, groups=1):
+        t, d = x.shape
+        g, tg, cap = M.group_plan(t, groups, cfg)
+        probs, _, own = M.route(params["router"], x.reshape(g, tg, d),
+                                cfg.top_k)
+        forced = replay[len(log)]
+        differ = (own.sort(-1).values != forced.sort(-1).values).any(-1)
+        margin = top_k_margin(torch, probs, cfg.top_k)
+        log.append((len(log), differ.nonzero().tolist(),
+                    margin[differ].tolist()))
+        y = M.mix(params, x, renormalised(probs, forced), forced, cfg, cap)
+        return y, M.load_balance(probs, forced, cfg.n_experts)
+
+    M.moe_ffn = record if replay is None else replayed
+    try:
+        yield log
+    finally:
+        M.moe_ffn = ffn
+
+
+def check_moe_float32(torch, model, prompts, tag):
+    """The float32 end to end of a MoE model: 2 x 96 prompt tokens and 2
+    greedy steps through the kernels and again through the plain
+    attention. In float32 and not bfloat16, because routing is discrete:
+    a bfloat16 rounding difference (about 4e-3) between the kernels and
+    the plain versions flips a few percent of the tokens' expert choices
+    a layer, and a flip changes the token's output by its gate times the
+    difference of two experts. In float32 the attention outputs differ by
+    about 1e-6, which still flips a choice where the k-th and (k+1)-th
+    probabilities nearly tie; so the plain run takes the kernel run's
+    recorded expert choices (gates from its own probabilities), every
+    token whose own choice differs must have a float32 margin under
+    MOE_MARGIN, and then the greedy tokens must be equal and the logits
+    within 1e-3 of their scale."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as M
+    short = prompts[:2, :96]
+    with moe_routing(torch, M) as recorded:
+        a = serve.generate(model, short, 2)
+    with attention_swapped(FA, FA.flash_attention_plain,
+                           FA.flash_decode_plain), \
+            moe_routing(torch, M, replay=recorded) as differing:
+        b = serve.generate(model, short, 2)
+    flips = [(call, tokens, margins) for call, tokens, margins in differing
+             if tokens]
+    vocab = model.cfg.vocab     # not the padded entries' -1e30
+    diff = float((a.logits - b.logits)[:, :vocab].abs().max())
+    scale = float(b.logits[:, :vocab].abs().max())
+    print(f"{tag} float32 (2 x 96 tokens, 2 steps): tokens "
+          f"{a.tokens.tolist()} vs plain {b.tokens.tolist()}, logits max "
+          f"abs diff {diff} of scale {scale}; expert choices the plain run "
+          f"would have changed (call, tokens, float32 margins): {flips}",
+          flush=True)
+    wide = [m for _, _, margins in flips for m in margins
+            if m >= MOE_MARGIN]
+    if wide:
+        raise AssertionError(f"{tag} float32: the plain run routes "
+                             f"otherwise at margins {wide}")
+    if not (np.array_equal(a.tokens, b.tokens) and diff <= 1e-3 * scale):
+        raise AssertionError(f"{tag} float32: kernels and plain versions "
+                             f"disagree")
+
+
 def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
                     gen_tokens=64, arch="qwen3-1.7b", smoke=False,
                     device="cuda", profile=False):
-    """qwen3-1.7b (``arch``) at full width (``smoke`` False) through
+    """``arch`` at full width (``smoke`` False) through
     repro_torch.launch.serve: random bf16 weights from ``seed``,
     ``requests`` prompts of ``prompt_len`` tokens, ``gen_tokens`` greedy
     tokens. A first run captures the attention inputs of the first and
-    last layer at the prefill and at the last decode step; a second run,
-    with nothing wrapped, is the timed and counted one and must give the
-    same tokens. The kernels' outputs on the captured inputs are held
-    against the plain versions, in bf16 and again in f32; then a short
-    run through the kernels is held against the same run through the
-    plain versions. Returns (launch counts of the timed run, measured
+    last layer at the prefill and at the last decode step (and a MoE
+    model's MoE inputs there); a second run, with nothing wrapped, is the
+    timed and counted one and must give the same tokens. The kernels'
+    outputs on the captured inputs are held against the plain versions,
+    in bf16 and again in f32, and the MoE layers against float64
+    (``check_moe_layer``). Then a dense model's short run through the
+    kernels is held against the same run through the plain versions in
+    bf16; a MoE model's in float32 (``check_moe_float32``), with the same
+    weights cast. Returns (launch counts of the timed run, measured
     numbers per kernel at the captured shapes)."""
+    import dataclasses
     import numpy as np
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
 
     t0 = time.perf_counter()
     model, cfg = serve.build(arch, smoke, device, seed)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    tag = "serve" if cfg.moe is None else cfg.name
+    ffn = (f"d_ff {cfg.d_ff}" if cfg.moe is None else
+           f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.d_ff}, {cfg.moe_groups} groups")
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters in "
-          f"{cfg.dtype} from seed {seed} in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {ffn}, vocab "
+          f"{cfg.vocab}; {n_params} parameters in {cfg.dtype} from seed "
+          f"{seed} in {time.perf_counter() - t0:.3f} s", flush=True)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab, size=(requests, prompt_len))
     L, cap = cfg.n_layers, prompt_len + gen_tokens
-    with attention_captured(FA, L, gen_tokens) as captured:
+    moe_inputs = (moe_captured(M, L, gen_tokens) if cfg.moe
+                  else contextlib.nullcontext({}))
+    with attention_captured(FA, L, gen_tokens) as captured, \
+            moe_inputs as moe_in:
         g = serve.generate(model, prompts, gen_tokens)
     steps = g.registry.percentiles("serve.decode_step_s")
-    print(f"serve, capturing run: prefill_s {g.prefill_s}, decode step "
+    print(f"{tag}, capturing run: prefill_s {g.prefill_s}, decode step "
           f"p50 {steps['p50'] * 1e3} ms, p99 {steps['p99'] * 1e3} ms",
           flush=True)
     captured_tokens = g.tokens
     del g
-    measured = check_captured(torch, captured, "serve", in_f32=True)
+    measured = check_captured(torch, captured, tag, in_f32=True)
     captured.clear()
+    for (kind, layer), (params, x) in sorted(moe_in.items()):
+        check_moe_layer(torch, f"{tag} MoE {kind} layer {layer}", params, x,
+                        cfg.moe, cfg.moe_groups, timed=layer == 0)
+        if profile and kind == "decode" and layer == 0:
+            profile_run(torch, f"{tag} one MoE layer at decode", lambda: (
+                M.moe_ffn(params, x, cfg.moe, cfg.moe_groups)), moe=True)
+    moe_in.clear()
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1900,8 +2186,8 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = g.registry.percentiles("serve.decode_step_s")
-    print(f"serve: {serve.summary(g, requests, gen_tokens)}")
-    print(f"serve (unrounded): prefill_s {g.prefill_s}, decode_s "
+    print(f"{tag}: {serve.summary(g, requests, gen_tokens)}")
+    print(f"{tag} (unrounded): prefill_s {g.prefill_s}, decode_s "
           f"{g.decode_s}, decode step p50 {steps['p50'] * 1e3} ms, p99 "
           f"{steps['p99'] * 1e3} ms, tokens/s "
           f"{requests * gen_tokens / g.decode_s}, prefill tokens/s "
@@ -1912,34 +2198,41 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
             "flash_decode_combine": L * gen_tokens}
     got = {k: counts[k] for k in want}
     if got != want:
-        raise AssertionError(f"serve: launches {got}, expected {want}")
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
     if not bool(torch.isfinite(g.logits.float()).all()):
-        raise AssertionError("serve: non-finite logits")
+        raise AssertionError(f"{tag}: non-finite logits")
     if not (g.tokens.shape == (requests, gen_tokens)
             and ((g.tokens >= 0) & (g.tokens < cfg.vocab)).all()):
-        raise AssertionError(f"serve: tokens out of range {g.tokens}")
+        raise AssertionError(f"{tag}: tokens out of range {g.tokens}")
     if g.cache.length.tolist() != [cap] * requests:
-        raise AssertionError(f"serve: cache lengths {g.cache.length}")
+        raise AssertionError(f"{tag}: cache lengths {g.cache.length}")
     if not np.array_equal(g.tokens, captured_tokens):
-        raise AssertionError("serve: the capturing run gave other tokens")
+        raise AssertionError(f"{tag}: the capturing run gave other tokens")
+    del g
 
-    # a short run through the kernels against the same run through the
-    # plain versions: the same greedy token, logits within 2e-2 of scale
-    short = prompts[:2, :96]
-    a = serve.generate(model, short, 2)
-    with attention_swapped(FA, FA.flash_attention_plain,
-                           FA.flash_decode_plain):
-        b = serve.generate(model, short, 2)
-    diff = float((a.logits.float() - b.logits.float()).abs().max())
-    scale = float(b.logits.float().abs().max())
-    print(f"serve reference (2 x 96 tokens, 2 steps): tokens "
-          f"{a.tokens.tolist()} vs plain {b.tokens.tolist()}, logits max "
-          f"abs diff {diff} of scale {scale}", flush=True)
-    if not (np.array_equal(a.tokens, b.tokens) and diff <= 2e-2 * scale):
-        raise AssertionError("serve: kernels and plain versions disagree")
+    if cfg.moe is None:
+        # a short run through the kernels against the same run through
+        # the plain versions: the same greedy token, logits within 2e-2
+        # of scale
+        short = prompts[:2, :96]
+        a = serve.generate(model, short, 2)
+        with attention_swapped(FA, FA.flash_attention_plain,
+                               FA.flash_decode_plain):
+            b = serve.generate(model, short, 2)
+        diff = float((a.logits.float() - b.logits.float()).abs().max())
+        scale = float(b.logits.float().abs().max())
+        print(f"serve reference (2 x 96 tokens, 2 steps): tokens "
+              f"{a.tokens.tolist()} vs plain {b.tokens.tolist()}, logits "
+              f"max abs diff {diff} of scale {scale}", flush=True)
+        if not (np.array_equal(a.tokens, b.tokens) and diff <= 2e-2 * scale):
+            raise AssertionError("serve: kernels and plain versions "
+                                 "disagree")
+        del a, b
     if profile:     # warm: the prefill, then 4 decode steps alone
-        profile_run(torch, "serve prefill", lambda: model.prefill(
-            torch.as_tensor(prompts, device=model.device), capacity=cap))
+        moe = cfg.moe is not None
+        profile_run(torch, f"{tag} prefill", lambda: model.prefill(
+            torch.as_tensor(prompts, device=model.device), capacity=cap),
+            moe)
         _, cache = model.prefill(torch.as_tensor(prompts, device=model.device),
                                  capacity=cap)
         tok = torch.zeros((requests, 1), dtype=torch.int32,
@@ -1950,8 +2243,26 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
             for _ in range(4):
                 _, c = model.decode_step(tok, c)
                 torch.cuda.synchronize()
-        profile_run(torch, "serve 4 decode steps", steps)
-    del model, g, a, b
+        profile_run(torch, f"{tag} 4 decode steps", steps, moe)
+        del cache
+    if cfg.moe is not None:
+        # the served weights again from the seed (serve.build's draw),
+        # cast to float32
+        router = model.layers[0].moe_weights["router"].clone()
+        del model
+        torch.cuda.empty_cache()
+        dev = torch.device(device)
+        tree = T.tree_map(lambda w: w.float(), T.init_params(
+            cfg, torch.Generator(dev).manual_seed(seed), dev))
+        if not torch.equal(tree["layers"]["moe"]["router"][0],
+                           router.float()):
+            raise AssertionError(f"{tag}: the float32 copy is not the "
+                                 f"served weights")
+        model = T.Transformer(dataclasses.replace(cfg, dtype="float32"),
+                              tree, device=dev)
+        del tree
+        check_moe_float32(torch, model, prompts, tag)
+    del model
     torch.cuda.empty_cache()
     return counts, measured
 
@@ -2315,6 +2626,9 @@ def run_recsys_phase(torch, seed, profile=False):
     return counts, measured
 
 
+# the MoE phase's models and greedy tokens; 8 requests of 2048 tokens
+MOE_SERVES = (("granite-moe-3b-a800m", 64), ("granite-moe-1b-a400m", 16))
+
 KERNELS = [
     ("merge_probe", "probe", "src/repro_torch/csrc/merge_probe.cu",
      "src/repro/kernels/merge_probe.py:53", None),
@@ -2355,7 +2669,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile Reach, CC, SSSP (host and device "
                          "mode), the serve path (bf16 prefill and decode, "
-                         "f32 prefill) and a serve_bulk batch on the card")
+                         "f32 prefill, the granite-3b MoE prefill and "
+                         "decode) and a serve_bulk batch on the card")
     args = ap.parse_args(argv)
 
     import torch
@@ -2409,6 +2724,14 @@ def main(argv=None) -> int:
         measured.update(f32_measured)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
+    with phase("moe"):
+        for arch, gen_tokens in MOE_SERVES:
+            counts, moe_measured = run_serve_phase(
+                torch, args.seed, gen_tokens=gen_tokens, arch=arch,
+                profile=args.profile and arch == MOE_SERVES[0][0])
+            for name, numbers in moe_measured.items():
+                measured[name][arch] = numbers
+            add_counts(totals, counts)
     with phase("recsys"):
         counts, measured["fm_interaction"] = run_recsys_phase(
             torch, args.seed, profile=args.profile)

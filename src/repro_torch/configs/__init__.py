@@ -1,21 +1,23 @@
 """Architecture registry, after ``repro.configs``: ``get_arch(name)``
 -> ArchSpec.
 
-The dense LM configs and the FM recommender are ported; the other
-names of the reference's registry raise ``NotImplementedError``."""
+The LM configs (dense and MoE) and the FM recommender are ported; the
+GNN names of the reference's registry raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
 
 _ARCH_MODULES = {
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "fm": "repro_torch.configs.fm",
 }
 # in the reference's registry, not ported yet (ROADMAP.md Queue 1)
-NOT_PORTED = ("granite-moe-3b-a800m", "granite-moe-1b-a400m", "gatedgcn",
-              "dimenet", "nequip", "gat-cora")
+NOT_PORTED = ("gatedgcn", "dimenet", "nequip", "gat-cora")
+
 
 def get_arch(name: str):
     if name in NOT_PORTED:

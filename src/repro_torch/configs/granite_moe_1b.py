@@ -1,0 +1,20 @@
+"""granite-moe-1b-a400m [hf:ibm-granite/granite-3.0-1b-a400m-base]:
+24L, d_model=1024, 16 heads (GQA kv=8, head_dim=64), per-expert
+d_ff=512, vocab=49155, 32 experts top-8."""
+from repro_torch.configs.base import LMArch
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.transformer import TransformerConfig
+
+_FULL = TransformerConfig(
+    name="granite-moe-1b-a400m", n_layers=24, d_model=1024, n_heads=16,
+    n_kv_heads=8, d_ff=0, vocab=49155, act="silu", glu=True,
+    moe=MoEConfig(n_experts=32, top_k=8, d_ff=512, glu=True),
+)
+
+_SMOKE = TransformerConfig(
+    name="granite-moe-1b-a400m-smoke", n_layers=2, d_model=64, n_heads=4,
+    n_kv_heads=2, d_ff=0, vocab=256, act="silu", glu=True, dtype="float32",
+    moe=MoEConfig(n_experts=4, top_k=2, d_ff=32, glu=True),
+)
+
+ARCH = LMArch("granite-moe-1b-a400m", _FULL, _SMOKE)

@@ -1,8 +1,9 @@
 """Decoder-only transformer LM, after ``repro.models.transformer``.
 
-Covers the dense LM configs: GQA KV-head count, head_dim override
-(gemma's 256), GeGLU/SwiGLU, qk-norm (qwen3), partial rotary (chatglm3's
-2d RoPE), tied or untied embeddings. A ``Transformer`` is an
+Covers every LM config of the reference: GQA KV-head count, head_dim
+override (gemma's 256), GeGLU/SwiGLU, qk-norm (qwen3), partial rotary
+(chatglm3's 2d RoPE), tied or untied embeddings, and a dense or MoE FFN
+(granite; ``models/moe.py``). A ``Transformer`` is an
 ``nn.Module`` of per-layer ``Block``s with three entry points,
 ``forward`` (logits for every position), ``prefill`` (last-position
 logits and the KV cache) and ``decode_step`` (one token against the
@@ -12,14 +13,15 @@ Attention runs through ``kernels.flash_attention`` (prefill) and
 ``kernels.flash_decode`` (decode): the hand-written CUDA kernels on a
 CUDA device, their plain torch versions on the CPU. The projections, the
 FFN and the unembedding are plain matmuls (``x @ w`` on ``[in, out]``
-weights, the reference's layout).
+weights, the reference's layout); the MoE FFN is ``moe.moe_ffn``, called
+through its module so that a caller may wrap it.
 
 ``TransformerConfig`` keeps the fields that define the model. The
 reference's ``attn_backend`` is gone (the device picks the kernel), and
-so are ``scan_layers``, ``remat``, ``seq_parallel``, ``batch_shard_all``
-and ``moe_groups`` (TPU compile and mesh plumbing). A config with
-``moe`` set raises ``NotImplementedError``: the MoE FFN
-(``models/moe.py``) is not ported yet (ROADMAP.md).
+so are ``scan_layers``, ``remat``, ``seq_parallel`` and
+``batch_shard_all`` (TPU compile and mesh plumbing). ``moe_groups``
+stays: the MoE routes each of its token groups on its own, so the group
+count decides which tokens exceed an expert's capacity and drop.
 
 Unlike the reference, whose functions return new arrays, ``decode_step``
 writes the new token's K and V into the cache in place.
@@ -34,6 +36,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.models import moe
 from repro_torch.models.common import (
     act_fn, apply_rope, frozen, normal_init, resolve_device, rms_norm,
     rope_angles,
@@ -57,7 +60,8 @@ class TransformerConfig:
     qk_norm: bool = False
     rope_fraction: float = 1.0               # chatglm3: 0.5 ('RoPE 2d')
     rope_theta: float = 10000.0
-    moe: Optional[object] = None             # not ported: raises
+    moe: Optional[moe.MoEConfig] = None
+    moe_groups: int = 32                     # GShard group axis
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
     logit_softcap: float = 0.0               # gemma-style soft capping
@@ -84,10 +88,25 @@ class TransformerConfig:
     def param_count(self) -> int:
         d, hd = self.d_model, self.hd
         attn = d * hd * (self.n_heads * 2 + self.n_kv_heads * 2)
-        ff = d * self.d_ff * (3 if self.glu else 2)
+        if self.moe:
+            ff = self.moe.n_experts * d * self.moe.d_ff * (
+                3 if self.moe.glu else 2) + d * self.moe.n_experts
+        else:
+            ff = d * self.d_ff * (3 if self.glu else 2)
         per_layer = attn + ff + 2 * d
         embed = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + embed + d
+
+    def active_param_count(self) -> int:
+        """FLOP-relevant parameters (MoE: top-k experts only)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.hd * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ff = self.moe.top_k * d * self.moe.d_ff * (
+            3 if self.moe.glu else 2) + d * self.moe.n_experts
+        embed = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * (attn + ff + 2 * d) + embed + d
 
 
 class KVCache(NamedTuple):
@@ -96,14 +115,9 @@ class KVCache(NamedTuple):
     length: torch.Tensor  # [B] int32
 
 
-def _no_moe(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN (models/moe.py) is not ported to "
-            f"repro_torch yet; see ROADMAP.md")
-
-
 def _layer_shapes(cfg: TransformerConfig) -> dict:
+    """name -> (shape, init std or None for a zero norm) of one layer's
+    weights; the MoE's under "moe", a dict of the same form."""
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
     shapes = {
         "wq": ((d, cfg.n_heads * hd), d ** -0.5),
@@ -116,6 +130,9 @@ def _layer_shapes(cfg: TransformerConfig) -> dict:
     if cfg.qk_norm:
         shapes["qnorm"] = ((hd,), None)
         shapes["knorm"] = ((hd,), None)
+    if cfg.moe:
+        shapes["moe"] = moe.param_shapes(cfg.moe, d)
+        return shapes
     shapes["w_in"] = ((d, f), d ** -0.5)
     shapes["w_out"] = ((f, d), f ** -0.5)
     if cfg.glu:
@@ -123,12 +140,20 @@ def _layer_shapes(cfg: TransformerConfig) -> dict:
     return shapes
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a parameter tree (nested
+    dicts)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> dict:
     """The reference's parameter tree with its distributions and scales:
-    every per-layer leaf stacked [L, ...]; norms zero (they scale by
-    1 + gamma); the embedding N(0, 1), [vocab_padded, d]."""
-    _no_moe(cfg)
+    every per-layer leaf stacked [L, ...] (the MoE's under
+    ``layers["moe"]``); norms zero (they scale by 1 + gamma); the
+    embedding N(0, 1), [vocab_padded, d]."""
     device = generator.device if device is None else torch.device(device)
     dt, L, d = cfg.compute_dtype, cfg.n_layers, cfg.d_model
 
@@ -137,8 +162,12 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
             return torch.zeros(shape, dtype=dt, device=device)
         return normal_init(shape, std, dt, generator, device)
 
-    layers = {name: draw((L,) + shape, std)
-              for name, (shape, std) in _layer_shapes(cfg).items()}
+    def draw_layers(shapes):
+        return {name: (draw_layers(spec) if isinstance(spec, dict)
+                       else draw((L,) + spec[0], spec[1]))
+                for name, spec in shapes.items()}
+
+    layers = draw_layers(_layer_shapes(cfg))
     params = {"embed": draw((cfg.vocab_padded, d), 1.0),
               "ln_f": draw((d,), None), "layers": layers}
     if not cfg.tie_embeddings:
@@ -160,29 +189,26 @@ def _tensor_from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
 def params_from_numpy(tree: dict, cfg: TransformerConfig,
                       device="cuda") -> dict:
     """The reference's parameter tree as numpy arrays (stacked [L, ...]
-    layer leaves) -> the tree of tensors a ``Transformer`` takes, in the
-    config's dtype on ``device``."""
-    _no_moe(cfg)
-    if "moe" in tree.get("layers", {}):
-        raise NotImplementedError("MoE parameters: not ported (ROADMAP.md)")
+    layer leaves, the MoE's under ``layers["moe"]``) -> the tree of
+    tensors a ``Transformer`` takes, in the config's dtype on
+    ``device``."""
     dt = cfg.compute_dtype
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor_from_numpy(x, dt, device)
-
-    return conv(tree)
+    return tree_map(lambda a: _tensor_from_numpy(a, dt, device), tree)
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention, then the (gated) FFN."""
+    """One pre-norm decoder layer: attention, then the (gated) FFN, dense
+    or MoE (its weights in ``moe_weights``)."""
 
     def __init__(self, cfg: TransformerConfig, weights: dict):
         super().__init__()
         self.cfg = cfg
         for name in _layer_shapes(cfg):
-            setattr(self, name, frozen(weights[name]))
+            if name == "moe":
+                self.moe_weights = nn.ParameterDict(
+                    {k: frozen(w) for k, w in weights["moe"].items()})
+            else:
+                setattr(self, name, frozen(weights[name]))
 
     def forward(self, x, sin, cos, cache_kv=None, pos=None):
         """x [B, S, d]. Prefill (no cache): returns (y, (k, v)) with k, v
@@ -215,6 +241,10 @@ class Block(nn.Module):
             new_kv = (kt, vt)
         x = x + attn.reshape(B, S, hq * hd) @ self.wo
         h2 = rms_norm(x, self.ln2)
+        if cfg.moe:
+            y, _ = moe.moe_ffn(self.moe_weights, h2.reshape(B * S, -1),
+                               cfg.moe, groups=cfg.moe_groups)
+            return x + y.reshape(B, S, -1), new_kv
         up = h2 @ self.w_in
         if cfg.glu:
             up = act_fn(cfg.act)(h2 @ self.w_gate) * up
@@ -244,22 +274,19 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, params: Optional[dict] = None,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_moe(cfg)
         self.cfg = cfg
         self.device = resolve_device(device, "Transformer")
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
             params = init_params(cfg, generator, self.device)
-        params = {k: (v if isinstance(v, dict) else v.to(self.device))
-                  for k, v in params.items()}
-        layers = {k: v.to(self.device) for k, v in params["layers"].items()}
+        params = tree_map(lambda t: t.to(self.device), params)
         self.embed = frozen(params["embed"])
         self.ln_f = frozen(params["ln_f"])
         self.unembed = (None if cfg.tie_embeddings
                         else frozen(params["unembed"]))
         self.layers = nn.ModuleList(
-            Block(cfg, {k: v[i] for k, v in layers.items()})
+            Block(cfg, tree_map(lambda t: t[i], params["layers"]))
             for i in range(cfg.n_layers))
 
     # -- pieces shared by the entry points ----------------------------------

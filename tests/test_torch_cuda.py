@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain torch versions, the
 port's engine on the card (host mode, device mode's captured loop,
 incremental maintenance and two shards) against the same engine on the
-CPU or unsharded, and the
-port's transformer on the card against itself on the CPU. Needs an
+CPU or unsharded, the
+port's transformer (dense and MoE) on the card against itself on the
+CPU, and the MoE layer on the card against float64. Needs an
 NVIDIA GPU and nvcc; run there with
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
@@ -10,11 +11,16 @@ NVIDIA GPU and nvcc; run there with
 (``--noconftest`` because tests/conftest.py imports the JAX package,
 which the port and this file do not need), and skipped with the reason
 where no CUDA device is present."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.engine.relation import KEY_PAD
+
+ROOT = Path(__file__).resolve().parents[1]
 
 pytestmark = pytest.mark.gpu
 
@@ -445,6 +451,28 @@ def test_flash_attention_kernel_matches_plain(cuda, d, dtype, hq, hkv, sq,
                                    atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(24, 8), (16, 8)])
+@pytest.mark.parametrize("sq,skv", [(128, 128), (77, 77), (33, 200),
+                                    (2048, 2048)])
+def test_flash_attention_granite_heads(cuda, dtype, hq, hkv, sq, skv):
+    """The granite MoE models' attention: head dim 64, GQA 3:1
+    (granite-moe-3b-a800m, 24:8) and 2:1 (granite-moe-1b-a400m, 16:8),
+    tails, a chunk and the served prompt length."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(hq + sq)
+    q = _normal(gen, (2, hq, sq, 64), dtype, cuda)
+    k = _normal(gen, (2, hkv, skv, 64), dtype, cuda)
+    v = _normal(gen, (2, hkv, skv, 64), dtype, cuda)
+    out = FA.flash_attention(q, k, v, causal=True)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", ["scores_60", "long_rows", "gqa_16"])
 def test_flash_attention_f32_where_the_split_matters(cuda, d, case):
@@ -613,6 +641,86 @@ def test_transformer_on_card_matches_cpu(cuda, dtype):
     else:   # cuBLAS and the CPU round bf16 products at other places
         assert float((got - want).abs().max()) <= 2e-2 * float(
             want.abs().max())
+
+
+def _chip_smoke():
+    """chip_smoke.py, whose MoE checks these tests share."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_granite_moe_on_card_matches_cpu(cuda):
+    """granite-moe-3b-a800m's smoke config (4 experts, top-2) with head
+    dim 64 in float32: prefill + 3 greedy steps on the card against the
+    same weights on the CPU. The card's run takes the CPU run's expert
+    choices; a token whose own choice differs must have a float32 margin
+    p_(k) - p_(k+1) under chip_smoke.MOE_MARGIN."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    C = _chip_smoke()
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").smoke_cfg,
+                              d_model=128, head_dim=64)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(3, 37))
+    with C.moe_routing(torch, M) as recorded:
+        cpu = serve.generate(T.Transformer(cfg, params, device="cpu"),
+                             prompts, 3)
+    reset_launch_counts()
+    replay = [e.to(cuda) for e in recorded]
+    with C.moe_routing(torch, M, replay=replay) as log:
+        gpu = serve.generate(T.Transformer(cfg, params, device=cuda),
+                             prompts, 3)
+    counts = launch_counts()
+    assert counts["flash_attention_tf32"] == cfg.n_layers
+    assert counts["flash_decode"] == 3 * cfg.n_layers
+    assert all(m < C.MOE_MARGIN for _, _, margins in log for m in margins)
+    np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
+    torch.testing.assert_close(gpu.logits.cpu(), cpu.logits, rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("t,groups", [(2048, 4), (8, 32)])
+def test_moe_ffn_on_card_at_the_served_group_shape(cuda, t, groups):
+    """granite-moe-3b-a800m's MoE layer (d 1536, 40 experts of 512,
+    top-8) in bf16 at the served prefill's group shape (tg = 512, cap
+    128) and at a decode step's (8 groups of one token), under the chip
+    phase's gates (chip_smoke.check_moe_layer: routing, slots, keep,
+    gates and output against float64, no host read)."""
+    from repro_torch.models import moe as M
+    cfg = M.MoEConfig(n_experts=40, top_k=8, d_ff=512)
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    params = M.init_moe(cfg, 1536, torch.bfloat16, gen)
+    x = torch.randn((t, 1536), generator=gen, device=cuda).bfloat16()
+    out = _chip_smoke().check_moe_layer(torch, f"moe t={t}", params, x, cfg,
+                                        groups)
+    assert 0.0 <= out["dropped"] < 0.2
+    if t == 8:
+        assert out["dropped"] == 0.0
+
+
+def test_moe_route_refuses_tf32(cuda):
+    """With TF32 matmuls allowed process-wide, the router raises on the
+    card (it must be float32); the flag is left as it was found."""
+    from repro_torch.models import moe as M
+    cfg = M.MoEConfig(n_experts=4, top_k=2, d_ff=8)
+    params = M.init_moe(cfg, 64, torch.float32,
+                        torch.Generator(device=cuda).manual_seed(0))
+    x = torch.ones((3, 64), device=cuda)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            M.moe_ffn(params, x, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert M.moe_ffn(params, x, cfg)[0].shape == (3, 64)
 
 
 # -- the FM interaction kernel ------------------------------------------------

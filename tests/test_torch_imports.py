@@ -33,8 +33,8 @@ def test_every_module_imports_without_jax():
         f"{FORBIDDEN!r})\n"
         "print(len(names), bad)\n"
         "assert len(names) >= 25 and not bad, bad\n"
-        "assert {'repro_torch.engine.shard', 'repro_torch.launch.mesh'}"
-        " <= set(names)\n")
+        "assert {'repro_torch.engine.shard', 'repro_torch.launch.mesh',"
+        " 'repro_torch.models.moe'} <= set(names)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -2,7 +2,7 @@
 the JAX package's serve loop, replayed here (repro/launch/serve.py,
 prefill, the cache padded to prompt_len + gen_tokens, greedy decode),
 with the reference's weights carried over: the greedy tokens must be
-identical (float32 smoke configs)."""
+identical (float32 smoke configs, dense and MoE)."""
 import dataclasses
 
 import jax
@@ -38,7 +38,9 @@ def _jax_serve_tokens(params, cfg, prompts, gen_tokens):
     return np.stack(generated, axis=1), np.asarray(logits), cache
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b", "chatglm3-6b", "gemma-7b"])
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "chatglm3-6b", "gemma-7b",
+                                  "granite-moe-3b-a800m",
+                                  "granite-moe-1b-a400m"])
 def test_generate_matches_the_jax_serve_loop(name):
     jcfg = jax_arch(name).smoke_cfg
     tcfg = get_arch(name).smoke_cfg
@@ -60,8 +62,9 @@ def test_generate_matches_the_jax_serve_loop(name):
     assert g.registry.get_gauge("serve.prefill_s") == g.prefill_s > 0
 
 
-def test_main_smoke_on_cpu_prints_the_reference_dict(capsys):
-    out = serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_main_smoke_on_cpu_prints_the_reference_dict(capsys, name):
+    out = serve.main(["--arch", name, "--smoke", "--device", "cpu",
                       "--requests", "2", "--prompt-len", "5",
                       "--gen-tokens", "3", "--seed", "4"])
     assert set(out) == {"requests", "prefill_s", "decode_s",
@@ -69,7 +72,7 @@ def test_main_smoke_on_cpu_prints_the_reference_dict(capsys):
                         "tokens_per_s", "sample_output"}
     assert out["requests"] == 2 and len(out["sample_output"]) == 3
     assert str(out) in capsys.readouterr().out
-    again = serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+    again = serve.main(["--arch", name, "--smoke", "--device", "cpu",
                         "--requests", "2", "--prompt-len", "5",
                         "--gen-tokens", "3", "--seed", "4"])
     assert again["sample_output"] == out["sample_output"]   # from --seed

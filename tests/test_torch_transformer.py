@@ -1,7 +1,8 @@
 """The port's transformer (repro_torch.models) against the JAX package's
 on the CPU: the building blocks of models.common at 1e-6, and prefill
-plus greedy decode of the dense LM smoke configs with the reference's
-weights carried over by ``params_from_numpy``.
+plus greedy decode of the LM smoke configs (dense and MoE) with the
+reference's weights carried over by ``params_from_numpy``, and
+granite-moe-1b-a400m at full width with one layer.
 
 Logits are held at atol = rtol = 1e-4 in float32 and at 2e-2 of their
 scale in bfloat16; greedy tokens must be identical. The JAX side runs
@@ -24,6 +25,7 @@ from repro_torch.models import common as tc
 from repro_torch.models import transformer as T
 
 SMOKE_ARCHS = ("qwen3-1.7b", "chatglm3-6b", "gemma-7b")
+MOE_ARCHS = ("granite-moe-3b-a800m", "granite-moe-1b-a400m")
 
 
 def _t(a):
@@ -86,11 +88,16 @@ def test_rope(head_dim, fraction, theta):
 
 # -- the model -------------------------------------------------------------
 
-def _carried(name, dtype="float32", backend="xla", seed=0):
-    """(JAX cfg, JAX params, port cfg, port model) from one seed."""
-    jcfg = dataclasses.replace(jax_arch(name).smoke_cfg, dtype=dtype,
-                               attn_backend=backend)
-    tcfg = dataclasses.replace(get_arch(name).smoke_cfg, dtype=dtype)
+def _carried(name, dtype="float32", backend="xla", seed=0, full=False,
+             **changes):
+    """(JAX cfg, JAX params, port cfg, port model) from one seed: the
+    smoke config, or the full one (``full``), with ``changes``."""
+    def cfg_of(arch):
+        return arch.cfg if full else arch.smoke_cfg
+    jcfg = dataclasses.replace(cfg_of(jax_arch(name)), dtype=dtype,
+                               attn_backend=backend, **changes)
+    tcfg = dataclasses.replace(cfg_of(get_arch(name)), dtype=dtype,
+                               **changes)
     params = JT.init_params(jax.random.PRNGKey(seed), jcfg)
     tree = jax.tree.map(np.asarray, params)
     model = T.Transformer(tcfg, T.params_from_numpy(tree, tcfg, "cpu"),
@@ -99,11 +106,11 @@ def _carried(name, dtype="float32", backend="xla", seed=0):
 
 
 def _run_both(name, dtype="float32", backend="xla", prompt_len=13,
-              cap=None, steps=4, batch=3):
+              cap=None, steps=4, batch=3, **config):
     """Prefill + ``steps`` greedy decode steps on each side; each side
     feeds back its own argmax. Returns per-step (jax logits, port
-    logits, jax tokens, port tokens)."""
-    jcfg, params, tcfg, model = _carried(name, dtype, backend)
+    logits, jax tokens, port tokens). ``config`` goes to ``_carried``."""
+    jcfg, params, tcfg, model = _carried(name, dtype, backend, **config)
     cap = prompt_len + steps if cap is None else cap
     prompts = np.random.default_rng(5).integers(
         0, tcfg.vocab, size=(batch, prompt_len)).astype(np.int32)
@@ -133,7 +140,7 @@ def _run_both(name, dtype="float32", backend="xla", prompt_len=13,
     return out
 
 
-@pytest.mark.parametrize("name", SMOKE_ARCHS)
+@pytest.mark.parametrize("name", SMOKE_ARCHS + MOE_ARCHS)
 @pytest.mark.parametrize("backend", ["xla", "interpret"])
 def test_prefill_decode_match_jax(name, backend):
     # interpret: the Pallas kernels need block multiples (prompt 16,
@@ -157,7 +164,20 @@ def test_prefill_decode_match_jax_bf16():
         np.testing.assert_array_equal(ttok, jtok)
 
 
-@pytest.mark.parametrize("name", SMOKE_ARCHS)
+def test_granite_1b_full_width_one_layer_matches_jax():
+    """granite-moe-1b-a400m at its real widths (d 1024, GQA 16:8 of head
+    dim 64, 32 experts of 512, the vocab padded 49155 -> 49280) with one
+    layer in float32: 2 x 16 prompt tokens (32 groups of one token),
+    prefill and 2 decode steps (8 groups of one)."""
+    out = _run_both("granite-moe-1b-a400m", prompt_len=16, steps=2,
+                    batch=2, full=True, n_layers=1)
+    for jl, tl, jtok, ttok in out:
+        assert tl.shape == (2, 49280)
+        np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(ttok, jtok)
+
+
+@pytest.mark.parametrize("name", SMOKE_ARCHS + MOE_ARCHS)
 def test_forward_matches_jax(name):
     jcfg, params, tcfg, model = _carried(name)
     tokens = np.random.default_rng(2).integers(
@@ -210,10 +230,12 @@ def test_params_from_numpy_takes_bf16_without_ml_dtypes_names():
         tree["layers"]["wq"].astype(np.float32))
 
 
-def test_init_params_shapes_and_scales():
-    """The reference's tree, shapes and scales, from a torch.Generator."""
-    cfg = get_arch("chatglm3-6b").smoke_cfg
-    jcfg = jax_arch("chatglm3-6b").smoke_cfg
+@pytest.mark.parametrize("name", ["chatglm3-6b", "granite-moe-3b-a800m"])
+def test_init_params_shapes_and_scales(name):
+    """The reference's tree, shapes and scales, from a torch.Generator
+    (granite's MoE weights stacked under layers["moe"])."""
+    cfg = get_arch(name).smoke_cfg
+    jcfg = jax_arch(name).smoke_cfg
     got = T.init_params(cfg, torch.Generator().manual_seed(0))
     want = jax.tree.map(np.asarray,
                         JT.init_params(jax.random.PRNGKey(0), jcfg))
@@ -228,11 +250,37 @@ def test_init_params_shapes_and_scales():
     assert cfg.param_count() == jcfg.param_count()
 
 
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_moe_param_counts_match_the_reference(name):
+    """Both full configs: param_count and active_param_count as the
+    reference's, moe_groups 32, and the smoke tree carried across by
+    params_from_numpy, the MoE subtree included, value for value."""
+    cfg, jcfg = get_arch(name).cfg, jax_arch(name).cfg
+    assert cfg.moe_groups == jcfg.moe_groups == 32
+    assert tuple(cfg.moe) == tuple(jcfg.moe)
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    assert cfg.active_param_count() < cfg.param_count()
+    scfg = get_arch(name).smoke_cfg
+    tree = jax.tree.map(np.asarray, JT.init_params(
+        jax.random.PRNGKey(1), jax_arch(name).smoke_cfg))
+    got = T.params_from_numpy(tree, scfg, "cpu")
+    assert set(got["layers"]["moe"]) == {"router", "w_in", "w_out",
+                                         "w_gate"}
+    for key, want in tree["layers"]["moe"].items():
+        np.testing.assert_array_equal(got["layers"]["moe"][key].numpy(),
+                                      want)
+    model = T.Transformer(scfg, got, device="cpu")
+    assert model.layers[1].moe_weights["w_in"].shape == (4, 64, 32)
+    assert sum(p.numel() for p in model.parameters()) == (
+        scfg.param_count() + (scfg.vocab_padded - scfg.vocab) * 64)
+
+
 def test_moe_and_unported_archs_raise():
-    cfg = dataclasses.replace(get_arch("qwen3-1.7b").smoke_cfg, moe=object())
+    """What the port still lacks: the GNN archs raise, an unknown name
+    raises KeyError (both granites resolve since MoE was ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("granite-moe-1b-a400m")
+        get_arch("gatedgcn")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+    assert get_arch("granite-moe-1b-a400m").cfg.moe.n_experts == 32
