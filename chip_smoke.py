@@ -129,9 +129,30 @@ Phases, each printing its wall time:
              negative ids, and embedding_bag over 262,144 bags of 0 to 8
              ids; logits and scores held against a float64 numpy forward
              on the host, the bags against the plain version;
+10b. train  training through launch/train.py's pieces and the archs'
+             train steps, deterministic algorithms on: the attention
+             backward (csrc/flash_attention_bwd.cu) against
+             attention_bwd_ref on adversarial shapes (d 64 and 128, GQA
+             1:1 to 16:1, causal and not, s 77 to 4096), the forward's lse
+             against attention_lse_ref, every check run twice for the same
+             bits; qwen3-1.7b at full width and depth (28 layers, bf16
+             weights from --seed, float32 AdamW moments, remat) at
+             train_4k's 4096 tokens a sequence and the largest per-step
+             batch of {8, 4, 2, 1} that its reckoned memory fits in 90% of
+             the card, one warm-up step capturing the backward's inputs of
+             layers 0 and 27, then 6 counted, timed steps (loss, ce and
+             gnorm each step; step p50, tokens/s, peak memory, model-FLOP
+             share), the backward kernels held against their plain version
+             on the captured inputs and timed beside SDPA's backward; one
+             step at 2 layers, B = 1, through the kernels against the same
+             step through the plain versions; crash after step 4 and
+             --resume at 2 layers, the final state byte-equal to an
+             uninterrupted run's; the fm config at train_batch (65,536 x
+             39 ids): its backward kernel on a step's rows, 20 counted,
+             timed steps, crash and resume the same way;
 11. launches each kernel's launch count over the host-mode runs of
-             phases 5, 6, 9, 9b and 10 (each counted from 0 just before
-             it), and apart the engine kernels' calls in phases 7 and 8,
+             phases 5, 6, 9, 9b, 10 and 10b (each counted from 0 just
+             before it), and apart the engine kernels' calls in phases 7 and 8,
              in phase durable (a kernel inside a captured graph once
              per capture, so a memo hit adds nothing) and in the sharded
              engines' runs of phase sharded (every shard's launches); a
@@ -140,8 +161,9 @@ Phases, each printing its wall time:
 With ``--profile``, each of Reach, CC and SSSP in host and in device
 mode, the serve prefill, four decode steps, the float32 prefill,
 granite-moe-3b-a800m's prefill, four decode steps and one MoE layer at
-decode (with a "moe dispatch" family) and one serve_bulk batch then run
-once more under
+decode (with a "moe dispatch" family), one serve_bulk batch and one
+qwen3-1.7b train step (with the cross-entropy and the AdamW update also
+timed alone by CUDA events) then run once more under
 torch.profiler, which prints device time by kernel family, the device's
 busy share of the run's wall time and the busiest host ops (not part of
 the checks).
@@ -627,7 +649,9 @@ FAMILIES = (("fm_interaction (ours)", ("fm_kernel",)),
             ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
             ("sort", ("sort", "radix")),
             ("memcpy/memset", ("memcpy", "memset")),
-            ("index/scatter/gather", ("index", "scatter", "gather")))
+            ("index/scatter/gather", ("index", "scatter", "gather")),
+            ("attention backward (ours)", ("bwd_dkdv", "bwd_dq", "bwd_pre")),
+            ("fm_interaction backward (ours)", ("fm_bwd_kernel",)))
 # in a MoE model's profile, after gemm: the router's softmax and top-k,
 # the dispatch's sort, searchsorted and scatter, the buffer's index copy
 # and gather (with them the embedding gather and the KV cache's index
@@ -2626,6 +2650,514 @@ def run_recsys_phase(torch, seed, profile=False):
     return counts, measured
 
 
+# -- phase train ------------------------------------------------------------
+
+# bf16 gradients against the float32 plain version on the same inputs:
+# |got - want| <= rtol |want| + atol_share * max |want| per output. The
+# kernel's products are exact to about 2^-16 (P and dS split hi + lo) and
+# its outputs round once to bf16 (2^-9 of a value), as the plain
+# version's cast does; sums in another order move a value that cancels
+# to near 0 by float32 units of the terms, well under the scale share.
+BWD_RTOL, BWD_ATOL_SHARE = 1e-2, 1e-3
+LSE_ATOL = 1e-4          # natural-log units; lse is O(1 to 10) in float32
+TRAIN_TIMED_STEPS = 6
+FM_TIMED_STEPS = 20
+TRAIN_DIR = ROOT / "build" / "train"     # the resume check's checkpoints
+# the adversarial shapes of the attention backward: (b, hq, hkv, s, d,
+# causal): head dims 64 and 128, GQA 1:1, 2:1 and 16:1, causal and not,
+# s of 77 (a ragged tile), 128 and 4096
+BWD_SHAPES = [(1, 16, 8, 4096, 128, True), (2, 16, 16, 128, 128, False),
+              (1, 32, 2, 77, 128, True), (2, 8, 8, 77, 64, False),
+              (1, 16, 8, 4096, 64, True), (1, 16, 1, 128, 64, True),
+              (1, 4, 2, 4096, 128, False)]
+
+
+def attention_bwd_bound(q, causal):
+    """(flops, their ms at the bf16 tensor peak) of the attention
+    backward: five products of 2 d flops per visible (query, key) pair (s
+    (s + 1) / 2 of them a head under causal, s^2 otherwise)."""
+    b, hq, s, d = q.shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 5 * 2 * d * pairs * b * hq
+    return flops, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def bwd_bytes(q, k, lse):
+    """Bytes the backward must move: q, k, v, o, dO and lse read once,
+    dq, dk and dv written once."""
+    es = q.element_size()
+    return (4 * q.numel() + 4 * k.numel()) * es + lse.numel() * 4
+
+
+def sdpa_backward(torch, q, k, v, do, causal):
+    """The library yardstick: autograd of one scaled_dot_product_attention
+    call on the same inputs (never called by the port); returns a function
+    that runs its backward."""
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qq, kk, vv, is_causal=causal, enable_gqa=True)
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                       retain_graph=True)
+
+
+def hold_bwd(torch, label, got, want):
+    """Each of dq, dk, dv within BWD_RTOL of the value plus BWD_ATOL_SHARE
+    of the output's largest value; returns the largest absolute error."""
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        bad = int((err > BWD_RTOL * w.abs() + BWD_ATOL_SHARE * scale).sum())
+        if bad or not bool(torch.isfinite(g).all()):
+            raise AssertionError(
+                f"{label}: {name} has {bad} values outside rtol {BWD_RTOL} "
+                f"+ {BWD_ATOL_SHARE} of max |want| {scale} (max abs err "
+                f"{float(err.max())})")
+        worst = max(worst, float(err.max()))
+        print(f"{label}: {name} max abs err {float(err.max())} of max |want| "
+              f"{scale}", flush=True)
+    return worst
+
+
+def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
+                        lse=None, timed=False):
+    """The forward kernel's lse against attention_lse_ref (LSE_ATOL), and
+    the backward kernels against attention_bwd_ref in float32 on the same
+    bf16 inputs (``hold_bwd``), the plain version taken a batch element at
+    a time; a second launch must give the same bits. With ``timed``, CUDA
+    event times of the three launches, the plain version and SDPA's
+    backward beside the bound."""
+    from repro_torch.kernels import flash_attention as FA, ref
+    if lse is None:     # else the captured forward's output and lse
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        o = FA._prefill(q, k, v, causal, lse)
+    lse_err = 0.0
+    for i in range(q.shape[0]):
+        _, want = ref.attention_lse_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        causal)
+        lse_err = max(lse_err, float((lse[i:i + 1] - want).abs().max()))
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"{label}: lse off attention_lse_ref by "
+                             f"{lse_err} (limit {LSE_ATOL})")
+
+    def kernel():
+        return FA.flash_attention_bwd(q, k, v, o, do, lse, causal)
+
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: a second launch gave other bits")
+    want = [torch.cat(parts) for parts in zip(*(
+        ref.attention_bwd_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                              o[i:i + 1], do[i:i + 1], lse[i:i + 1], causal)
+        for i in range(q.shape[0])))]
+    err = hold_bwd(torch, label, got, want)
+    del want, again
+    print(f"{label}: lse max abs err {lse_err}; a repeat gave the same bits",
+          flush=True)
+    if not timed:
+        return dict(max_abs_err=err)
+    ms = cuda_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, lambda: ref.attention_bwd_ref(
+        q, k, v, o, do, lse, causal), reps=2, warmup=1)
+    library_ms = cuda_ms(torch, sdpa_backward(torch, q, k, v, do, causal))
+    flops, t_ops = attention_bwd_bound(q, causal)
+    t_bytes = bound_ms(bwd_bytes(q, k, lse))
+    b_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"{label}: backward kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA backward {library_ms:.4f} ms, bound {b_ms:.4f} ms by "
+          f"{bound_by} ({flops:.4g} flop; {100 * b_ms / ms:.1f}% of it)",
+          flush=True)
+    fwd = cuda_ms(torch, lambda: FA._prefill(q, k, v, causal, None))
+    fwd_lse = cuda_ms(torch, lambda: FA._prefill(q, k, v, causal, lse))
+    print(f"{label}: wgmma forward {fwd:.4f} ms without lse, {fwd_lse:.4f} "
+          f"ms with it", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+@contextlib.contextmanager
+def attention_bwd_captured(FA, layers):
+    """Keep clones of the backward's inputs of the first and last layer
+    (the backward runs the last layer first): yields {layer: (q, k, v, o,
+    do, lse)}. The calls still go to the kernels."""
+    captured, calls = {}, [0]
+    kernel = FA.flash_attention_bwd
+
+    def bwd(q, k, v, o, do, lse, causal=True):
+        layer = layers - 1 - calls[0] % layers
+        calls[0] += 1
+        if layer in (0, layers - 1) and layer not in captured:
+            captured[layer] = tuple(t.clone() for t in (q, k, v, o, do, lse))
+        return kernel(q, k, v, o, do, lse, causal)
+
+    FA.flash_attention_bwd = bwd
+    try:
+        yield captured
+    finally:
+        FA.flash_attention_bwd = kernel
+
+
+def train_batch_size(torch, cfg, seq) -> tuple:
+    """The largest per-step batch of {8, 4, 2, 1} whose reckoned memory
+    fits in 90% of the card: the state (bf16 parameters and gradients,
+    float32 mu and nu: 12 bytes a parameter) plus, a sequence, the
+    cross-entropy's buffers (20 bytes a token and vocab entry: the float32
+    logits and, at the backward's peak, four more logits-sized float32
+    buffers; the first full-depth run peaked at 21.1 bytes an entry at
+    4 x 4096) and the checkpointed layer inputs (bf16, one a layer).
+    Returns (batch, reckoned bytes, card bytes)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    n = cfg.param_count() + (cfg.vocab_padded - cfg.vocab) * cfg.d_model
+    state = 12 * n
+    per_seq = seq * (20 * cfg.vocab_padded + 2 * cfg.d_model * cfg.n_layers)
+    for b in (8, 4, 2, 1):
+        if state + b * per_seq <= 0.9 * total:
+            return b, state + b * per_seq, total
+    raise AssertionError(f"{cfg.name}: not even one sequence of {seq} fits")
+
+
+def snapshot(tree):
+    from repro_torch.training.optim import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def hold_close(torch, label, got, want, share, what):
+    """Every leaf within ``share`` of its largest |want| (float32)."""
+    from repro_torch.training.optim import tree_leaves
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        a, b = a.float(), b.float()
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not (err <= share * scale and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{label}: {what} leaf {i} off by {err} of "
+                                 f"scale {scale} (limit {share} of it)")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"{label}: {what} within {worst:.3g} of each leaf's scale (limit "
+          f"{share})", flush=True)
+
+
+def check_train_step_plain(torch, seed, device="cuda"):
+    """One train_4k step of qwen3-1.7b at full width and 2 layers, B = 1,
+    through the kernels and through the plain versions (the same autograd
+    Function on attention_lse_ref and attention_bwd_ref), from the same
+    weights and batch: loss and ce within 2e-3 relative, gnorm 1e-2,
+    every gradient leaf and mu within 2e-2 of the leaf's scale, nu 4e-2
+    (bf16 activations differ by a unit here and there between the two
+    attention routes, and the differences add up through two layers), and
+    each parameter within 2 lr (an Adam step moves a parameter by at most
+    lr, its sign set by the gradient's, which may differ where that is
+    near 0) plus one bf16 unit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    from repro_torch.training.optim import (
+        schedule, train_state_init, tree_leaves)
+    arch = train.cut_layers(get_arch("qwen3-1.7b"), 2)
+    dev = torch.device(device)
+    out = {}
+    for route in ("kernels", "plain"):
+        model = train.build_model(arch, False, dev, seed)
+        state = train_state_init(model.param_tree())
+        batch = next(train.make_batches(arch, "train_4k", False, dev, 1))
+        swap = (attention_swapped(FA, FA.attention_plain_autograd,
+                                  FA.flash_decode)
+                if route == "plain" else contextlib.nullcontext())
+        with train.deterministic(dev), swap:
+            state, m = arch.step_fn("train_4k")(model, state, batch)
+        out[route] = (m, snapshot(model.grads),
+                      snapshot(state.params), snapshot(state.mu),
+                      snapshot(state.nu))
+        del model, state
+        torch.cuda.empty_cache()
+    (mk, gk, pk, muk, nuk), (mp, gp, pp, mup, nup) = (out["kernels"],
+                                                      out["plain"])
+    label = "train step, 2 layers, kernels against plain"
+    for k, rel in (("loss", 2e-3), ("ce", 2e-3), ("gnorm", 1e-2)):
+        a, b = float(mk[k]), float(mp[k])
+        print(f"{label}: {k} {a} against {b}", flush=True)
+        if not (math.isfinite(a) and abs(a - b) <= rel * abs(b)):
+            raise AssertionError(f"{label}: {k} {a} against {b}")
+    hold_close(torch, label, gk, gp, 2e-2, "gradient")
+    hold_close(torch, label, muk, mup, 2e-2, "mu")
+    hold_close(torch, label, nuk, nup, 4e-2, "nu")
+    lr = float(schedule(arch.opt, torch.tensor(1.0)))
+    for i, (a, b) in enumerate(zip(tree_leaves(pk), tree_leaves(pp))):
+        a, b = a.float(), b.float()
+        unit = torch.exp2(torch.floor(torch.log2(
+            b.abs().clamp_min(1e-30))) - 7)
+        if not bool(((a - b).abs() <= 2 * lr + unit).all()):
+            raise AssertionError(f"{label}: parameter leaf {i} off by more "
+                                 f"than 2 lr + one bf16 unit")
+    print(f"{label}: every parameter within 2 lr ({2 * lr:.3g}) plus one "
+          f"bf16 unit", flush=True)
+
+
+def check_resume(torch, arch_name, extra, label):
+    """launch/train.py: 6 steps with a checkpoint every 3, uninterrupted,
+    and killed after step 4 (a crash at its train.step fault site) then
+    resumed with --resume: the two final checkpoints must be byte-equal.
+    Returns the seconds of the three runs."""
+    import shutil
+    import threading
+    from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.engine.faults import (
+        FaultPlan, FaultSpec, SimulatedCrash, install)
+    from repro_torch.launch import train
+    root = TRAIN_DIR / arch_name
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--arch", arch_name, "--steps", "6", "--ckpt-every", "3",
+              "--log-every", "100"] + extra
+    t0 = time.perf_counter()
+    whole = train.main(common + ["--ckpt-dir", str(root / "whole")])
+    plan = FaultPlan([FaultSpec("train.step", hit=5)])
+    try:
+        with install(plan):
+            train.main(common + ["--ckpt-dir", str(root / "crashed")])
+        raise AssertionError(f"{label}: the planned crash did not fire")
+    except SimulatedCrash:
+        pass
+    for t in threading.enumerate():     # the crashed run's writer
+        if t.name == CK.WRITER_THREAD:
+            t.join()
+    resumed = train.main(common + ["--ckpt-dir", str(root / "crashed"),
+                                   "--resume"])
+    seconds = time.perf_counter() - t0
+    ma, a = CK.load_checkpoint(root / "whole", 6)
+    mb, b = CK.load_checkpoint(root / "crashed", 6)
+    same = ma == mb and set(a) == set(b) and all(
+        a[key].dtype == b[key].dtype and a[key].tobytes() == b[key].tobytes()
+        for key in a)
+    print(f"{label}: crashed after step 4 ({plan.fired}), resumed "
+          f"{resumed['steps']} steps; final state of {len(a)} leaves "
+          f"byte-equal to the uninterrupted run's: {same}; last loss "
+          f"{resumed['last_loss']} against {whole['last_loss']}; "
+          f"{seconds:.3f} s for the three runs", flush=True)
+    if not same or resumed["last_loss"] != whole["last_loss"]:
+        raise AssertionError(f"{label}: the resumed state differs")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def run_train_phase(torch, seed, profile=False, device="cuda"):
+    """Training on the card through launch/train.py's pieces and the
+    arch's train_4k / train_batch step functions: the attention backward
+    on adversarial shapes; qwen3-1.7b at full width and depth, random bf16
+    weights from ``seed``, float32 moments, train_4k's 4096 tokens a
+    sequence at the largest batch that fits, one warm-up step (capturing
+    the attention backward's inputs of layers 0 and 27), then the counted
+    timed steps; the kernels held against their plain versions on the
+    captured inputs; one 2-layer step through the kernels against the
+    plain versions; crash and resume at 2 layers; the FM at train_batch
+    (the backward kernel on a step's rows, the timed steps, crash and
+    resume). Returns (launch counts of the timed runs, measured numbers
+    of the backward kernels)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.common import cross_entropy_loss
+    from repro_torch.training.optim import adamw_update, train_state_init
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for b, hq, hkv, s, d, causal in BWD_SHAPES:
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        do = torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
+        check_attention_bwd(torch, f"attention backward b={b} hq={hq} "
+                            f"hkv={hkv} s={s} d={d} "
+                            f"{'causal' if causal else 'not causal'}",
+                            q, k, v, do, causal)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+
+    arch = get_arch("qwen3-1.7b")
+    cfg = arch.cfg
+    seq = arch.input_sizes("train_4k")["tokens"][1]
+    B, reckoned, total = train_batch_size(torch, cfg, seq)
+    print(f"qwen3-1.7b training: per-step batch {B} x {seq} (train_4k is "
+          f"256 x {seq}); reckoned {reckoned} B of the card's {total}",
+          flush=True)
+    counts = {}
+    measured = {}
+    with train.deterministic(dev):
+        t0 = time.perf_counter()
+        model = train.build_model(arch, False, dev, seed)
+        state = train_state_init(model.param_tree())
+        step = arch.step_fn("train_4k")
+        batches = train.make_batches(arch, "train_4k", False, dev, B)
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, remat "
+              f"{cfg.remat}; {n_params} bf16 parameters, float32 moments, "
+              f"from seed {seed} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        with attention_bwd_captured(FA, cfg.n_layers) as captured:
+            state, m = step(model, state, next(batches))
+            warm = float(m["loss"])
+        print(f"warm-up step: loss {warm}", flush=True)
+        reset_launch_counts()
+        times, tokens = [], B * seq
+        for i in range(TRAIN_TIMED_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(model, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            vals = {k: float(v) for k, v in m.items()}
+            print(f"step {i + 1}: loss {vals['loss']} ce {vals['ce']} gnorm "
+                  f"{vals['gnorm']} ({times[-1]:.4f} s)", flush=True)
+            if not all(math.isfinite(x) for x in vals.values()):
+                raise AssertionError(f"step {i + 1}: not finite: {vals}")
+        add_counts(counts, launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        p50 = float(np.median(times))
+        n_model = cfg.param_count()
+        print(f"qwen3-1.7b train_4k at {B} x {seq}: step p50 {p50} s over "
+              f"{len(times)} steps (min {min(times)}, max {max(times)}); "
+              f"{tokens / p50} tokens/s; peak allocated {peak} B "
+              f"({100 * peak / total:.1f}% of the card)", flush=True)
+        print(f"model-FLOP share: 6 N tokens = {6 * n_model * tokens:.4g} "
+              f"flop (N = {n_model}) a step, "
+              f"{100 * 6 * n_model * tokens / p50 / BF16_FLOPS_PER_S:.2f}% "
+              f"of {BF16_FLOPS_PER_S:.4g} flop/s", flush=True)
+        if peak > 0.9 * total:
+            raise AssertionError(f"peak {peak} B over 90% of the card")
+        launches = {k: v for k, v in counts.items() if v}
+        print(f"launches over the timed steps: {launches}", flush=True)
+        if profile:
+            profile_run(torch, "qwen3-1.7b train step",
+                        lambda: step(model, state, batch))
+            grads = model.grad_tree()
+            adamw = cuda_ms(torch, lambda: adamw_update(state, grads,
+                                                        arch.opt),
+                            reps=3, warmup=1)
+        labels = batch["labels"]
+        del model, state, batches, batch
+        torch.cuda.empty_cache()
+        if profile:     # the step's cross-entropy alone, its model freed
+            logits = torch.randn((B, seq, cfg.vocab_padded), generator=gen,
+                                 device=dev).bfloat16().requires_grad_()
+
+            def ce():
+                cross_entropy_loss(logits, labels).backward()
+
+            print(f"  by CUDA events: cross-entropy forward and backward "
+                  f"{cuda_ms(torch, ce, reps=3, warmup=1):.3f} ms, AdamW "
+                  f"update {adamw:.3f} ms", flush=True)
+            del logits
+            torch.cuda.empty_cache()
+    for layer in sorted(captured):
+        q, k, v, o, do, lse = captured[layer]
+        r = check_attention_bwd(
+            torch, f"attention backward, layer {layer} of a train step "
+            f"{list(q.shape)} over {list(k.shape)}", q, k, v, do, True,
+            o=o, lse=lse, timed=layer == 0)
+        if "flash_attention_bwd" not in measured:
+            measured["flash_attention_bwd"] = r
+        else:
+            measured["flash_attention_bwd"]["max_abs_err"] = max(
+                measured["flash_attention_bwd"]["max_abs_err"],
+                r["max_abs_err"])
+    del captured
+    torch.cuda.empty_cache()
+    check_train_step_plain(torch, seed, device)
+    torch.cuda.empty_cache()
+    on = ["--device", device]
+    check_resume(torch, "qwen3-1.7b", ["--layers", "2", "--batch", "1"] + on,
+                 "qwen3-1.7b resume (2 layers, 1 x 4096)")
+    torch.cuda.empty_cache()
+    fm_counts, measured["fm_interaction_bwd"] = run_fm_train(torch, seed,
+                                                             device)
+    add_counts(counts, fm_counts)
+    check_resume(torch, "fm", on, "fm resume (train_batch)")
+    return counts, measured
+
+
+def run_fm_train(torch, seed, device="cuda"):
+    """The fm config at train_batch (65,536 x 39 ids from recsys_stream):
+    the backward kernel against fm_interaction_bwd_ref on a step's
+    gathered rows (the forward's tolerance, ``ref.fm_allowed_error``,
+    scaled by |g|, per value) and twice for the same bits, timed; then a
+    warm-up step and FM_TIMED_STEPS counted, timed steps."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import fm_interaction as FI
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.recsys import fm as TFM
+    from repro_torch.training.optim import train_state_init
+    arch = get_arch("fm")
+    dev = torch.device(device)
+    B = arch.input_sizes("train_batch")["ids"][0]
+    with train.deterministic(dev):
+        model = train.build_model(arch, False, dev, seed)
+        state = train_state_init(model.param_tree())
+        step = arch.step_fn("train_batch")
+        batches = train.make_batches(arch, "train_batch", False, dev)
+        batch = next(batches)
+        rows = TFM.take_clip(model.v.detach(), batch["ids"])
+        x = torch.ones((1, 1), device=dev).expand(*rows.shape[:2])
+        g = torch.randn((B,), generator=torch.Generator(dev).manual_seed(
+            seed), device=dev) / B
+        _, dv = FI.fm_interaction_bwd(x, rows, g, need_dx=False)
+        _, again = FI.fm_interaction_bwd(x, rows, g, need_dx=False)
+        _, want = ref.fm_interaction_bwd_ref(x, rows, g)
+        torch.cuda.synchronize()
+        s = rows.sum(1, keepdim=True)
+        allowed = (1e-5 * (s.abs() + rows.abs()).sum(1, keepdim=True)
+                   * g.abs()[:, None, None] + 1e-12)
+        err = (dv - want).abs()
+        label = f"fm_interaction backward per-row v {list(rows.shape)}"
+        if not (bool((err <= allowed).all()) and torch.equal(dv, again)):
+            raise AssertionError(f"{label}: max abs err {float(err.max())}")
+        ms = cuda_ms(torch, lambda: FI.fm_interaction_bwd(
+            x, rows, g, need_dx=False), reps=20, warmup=3)
+        plain_ms = cuda_ms(torch, lambda: ref.fm_interaction_bwd_ref(
+            x, rows, g), reps=5, warmup=1)
+        b_ms = bound_ms(2 * rows.numel() * 4 + g.numel() * 4)
+        print(f"{label}: max abs err {float(err.max())} (limit 1e-5 of the "
+              f"row's |S| + |v| sums times |g|), a repeat the same bits; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms by bytes ({100 * b_ms / ms:.1f}% of it)", flush=True)
+        measured = dict(max_abs_err=float(err.max()), ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                        library_ms=None)
+        del rows, dv, again, want
+        state, m = step(model, state, batch)
+        print(f"fm train_batch warm-up step: loss {float(m['loss'])}",
+              flush=True)
+        reset_launch_counts()
+        times = []
+        for i in range(FM_TIMED_STEPS):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(model, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            loss, gnorm = float(m["loss"]), float(m["gnorm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"fm step {i + 1}: loss {loss}")
+        counts = launch_counts()
+        p50 = float(np.median(times))
+        print(f"fm train_batch ({B} examples): step p50 {p50 * 1e3:.4f} ms "
+              f"over {FM_TIMED_STEPS} steps (max {max(times) * 1e3:.4f}); "
+              f"{B / p50} examples/s; last loss {loss}, gnorm {gnorm}",
+              flush=True)
+        del model, state, batches
+        torch.cuda.empty_cache()
+    return counts, measured
+
+
 # the MoE phase's models and greedy tokens; 8 requests of 2048 tokens
 MOE_SERVES = (("granite-moe-3b-a800m", 64), ("granite-moe-1b-a400m", 16))
 
@@ -2651,6 +3183,14 @@ KERNELS = [
     ("fm_interaction", "fm_interaction",
      "src/repro_torch/csrc/fm_interaction.cu",
      "src/repro/kernels/fm_interaction.py:20", None),
+    # the training path's backwards: no Pallas backward exists; each
+    # replaces JAX's autograd of the reference's XLA forward
+    ("flash_attention_bwd", "flash_attention_bwd_dkdv",
+     "src/repro_torch/csrc/flash_attention_bwd.cu",
+     "src/repro/kernels/ref.py:124", None),
+    ("fm_interaction_bwd", "fm_interaction_bwd",
+     "src/repro_torch/csrc/fm_interaction.cu",
+     "src/repro/models/recsys/fm.py:69", None),
 ]
 
 
@@ -2737,6 +3277,11 @@ def main(argv=None) -> int:
             torch, args.seed, profile=args.profile)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
+    with phase("train"):
+        counts, train_measured = run_train_phase(torch, args.seed,
+                                                 args.profile)
+        measured.update(train_measured)
+        add_counts(totals, counts)
     with phase("launches"):
         print("kernels " + json.dumps(totals), flush=True)
         print("kernels captured in device mode " + json.dumps(captured),
@@ -2768,6 +3313,12 @@ def main(argv=None) -> int:
             e["also_replaces"] = also
         if name == "flash_decode":
             e["combine_launches"] = totals["flash_decode_combine"]
+        if name == "flash_attention_bwd":
+            e["pre_launches"] = totals["flash_attention_bwd_pre"]
+            e["dq_launches"] = totals["flash_attention_bwd_dq"]
+        if name.endswith("_bwd"):
+            e["note"] = ("no TPU kernel: replaces JAX's autograd of the "
+                         "reference's XLA forward at 'replaces'")
         if name == "segment_reduce":    # the embedding_bag shape, timed
             e["embedding_bag_shape"] = measured["segment_reduce_bag"]
         entries.append(e)

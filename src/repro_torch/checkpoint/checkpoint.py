@@ -13,8 +13,9 @@ Layout: ``<dir>/step_XXXXXXXX/`` holds ``arrays.npz`` (leaves named
 * **Leaf keys** — a state is a tree of dicts, lists and tuples whose
   leaves are numpy arrays, tensors or scalars. It is flattened as
   ``jax.tree_util.tree_flatten_with_path`` flattens it: dict keys
-  sorted, a dict key rendered ``['k']``, a list index ``[i]``, path parts
-  joined by ``/``, ``None`` an empty subtree. Tensors are copied to the
+  sorted, a dict key rendered ``['k']``, a list index ``[i]``, a
+  NamedTuple field ``.name`` (a ``TrainState``'s ``.params``, ``.step``),
+  path parts joined by ``/``, ``None`` an empty subtree. Tensors are copied to the
   host before the write; bfloat16 is stored as float32 (npz has no
   bfloat16) under its own dtype name.
 * **Fault sites** ``checkpoint.write`` / ``.commit`` / ``.retention``
@@ -41,6 +42,8 @@ def _flatten_with_paths(tree, prefix: str = "") -> list:
         return []
     if isinstance(tree, dict):
         parts = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        parts = [(f".{name}", v) for name, v in zip(tree._fields, tree)]
     elif isinstance(tree, (list, tuple)):
         parts = [(f"[{i}]", v) for i, v in enumerate(tree)]
     else:
@@ -58,6 +61,8 @@ def _unflatten(like, leaves):
         return None
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(v, leaves) for v in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_unflatten(v, leaves) for v in like)
     return next(leaves)
@@ -191,13 +196,16 @@ def restore_checkpoint(directory: str | Path, like: Any,
             raise KeyError(f"checkpoint missing leaf {key}")
         arr = arrays[key]
         if isinstance(leaf, torch.Tensor):
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            t = torch.from_numpy(np.array(arr))   # keeps a 0-d leaf 0-d
             leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
             continue
         want = np.dtype(leaf.dtype if hasattr(leaf, "dtype")
                         else arr.dtype)
         leaves.append(arr.astype(want) if arr.dtype != want else arr)
     return _unflatten(like, iter(leaves)), int(manifest["step"])
+
+
+WRITER_THREAD = "checkpoint-writer"
 
 
 class CheckpointManager:
@@ -224,7 +232,8 @@ class CheckpointManager:
             except BaseException as e:  # noqa: BLE001 - re-raised by wait()
                 self._error = e
 
-        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name=WRITER_THREAD)
         self._thread.start()
 
     def wait(self):

@@ -13,7 +13,7 @@ _FULL = TransformerConfig(
 _SMOKE = TransformerConfig(
     name="chatglm3-6b-smoke", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=2, d_ff=128, vocab=256, act="silu", glu=True,
-    rope_fraction=0.5, tie_embeddings=False, dtype="float32",
+    rope_fraction=0.5, tie_embeddings=False, dtype="float32", remat=False,
 )
 
 ARCH = LMArch("chatglm3-6b", _FULL, _SMOKE)

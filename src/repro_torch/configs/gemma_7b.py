@@ -13,7 +13,7 @@ _FULL = TransformerConfig(
 _SMOKE = TransformerConfig(
     name="gemma-7b-smoke", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=4, head_dim=32, d_ff=128, vocab=256, act="gelu",
-    glu=True, dtype="float32",
+    glu=True, dtype="float32", remat=False,
 )
 
 ARCH = LMArch("gemma-7b", _FULL, _SMOKE)

@@ -14,7 +14,7 @@ _FULL = TransformerConfig(
 _SMOKE = TransformerConfig(
     name="granite-moe-1b-a400m-smoke", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=2, d_ff=0, vocab=256, act="silu", glu=True, dtype="float32",
-    moe=MoEConfig(n_experts=4, top_k=2, d_ff=32, glu=True),
+    remat=False, moe=MoEConfig(n_experts=4, top_k=2, d_ff=32, glu=True),
 )
 
 ARCH = LMArch("granite-moe-1b-a400m", _FULL, _SMOKE)

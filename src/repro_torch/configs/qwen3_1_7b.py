@@ -12,7 +12,7 @@ _FULL = TransformerConfig(
 _SMOKE = TransformerConfig(
     name="qwen3-1.7b-smoke", n_layers=2, d_model=64, n_heads=4,
     n_kv_heads=2, head_dim=16, d_ff=128, vocab=256, act="silu",
-    glu=True, qk_norm=True, dtype="float32",
+    glu=True, qk_norm=True, dtype="float32", remat=False,
 )
 
 ARCH = LMArch("qwen3-1.7b", _FULL, _SMOKE)

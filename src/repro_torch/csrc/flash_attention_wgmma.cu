@@ -39,7 +39,10 @@
 //   of the keys, and the grid runs the longest q tiles first (the q-tile
 //   index is the grid's slowest dimension, reversed).
 // - Epilogue: O / l (0 where l = 0) in bf16 straight from registers; rows
-//   past sq are not written.
+//   past sq are not written. With an lse pointer (the training forward),
+//   each row's natural log-sum-exp of its visible scaled scores,
+//   (m * scale_log2 + log2 l) * ln 2, goes to lse[b, h, row] in f32, -inf
+//   where l = 0; with a null pointer (serving) nothing more is written.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -305,8 +308,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
-                  __nv_bfloat16* __restrict__ out, int hq, int hkv, int sq,
-                  int skv, int causal, float scale_log2) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int hq, int hkv, int sq, int skv, int causal,
+                  float scale_log2) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, NSUB = C::NSUB;
   extern __shared__ uint8_t smem_raw[];
@@ -507,6 +511,16 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
     const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+    if (lse != nullptr && (lane & 3) == 0) {
+      constexpr float LN2 = 0.69314718055994531f;
+      float* lp = lse + (int64_t)bh_q * sq;
+      if (ra < sq)
+        lp[ra] = l_a == 0.f ? -CUDART_INF_F
+                            : fmaf(m_a, scale_log2, log2f(l_a)) * LN2;
+      if (rb < sq)
+        lp[rb] = l_b == 0.f ? -CUDART_INF_F
+                            : fmaf(m_b, scale_log2, log2f(l_b)) * LN2;
+    }
     __nv_bfloat16* op = out + (int64_t)bh_q * sq * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -566,8 +580,8 @@ bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int hq, int hkv, int sq, int skv, int causal,
-                   float scale_log2, cudaStream_t stream) {
+                   float* lse, int b, int hq, int hkv, int sq, int skv,
+                   int causal, float scale_log2, cudaStream_t stream) {
   using C = Cfg<D>;
   EncodeTiled fn = encode_fn();
   if (!fn) return cudaErrorNotSupported;
@@ -582,8 +596,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return e;
   const dim3 grid(hq, b, (sq + BQ - 1) / BQ);
   attn_wgmma_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv, causal,
-      scale_log2);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, hq, hkv, sq, skv,
+      causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -591,30 +605,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // q [b, hq, sq, d], k and v [b, hkv, skv, d], out [b, hq, sq, d], all
 // contiguous bfloat16, 16-byte aligned; d in {64, 128, 256}; hq % hkv ==
-// 0. scale_log2 = softmax scale * log2(e). Returns cudaGetLastError()
-// after the launch (cudaErrorNotSupported if the driver has no tensor
-// maps).
+// 0. scale_log2 = softmax scale * log2(e). lse: null, or [b, hq, sq]
+// float32 contiguous for each row's log-sum-exp. Returns
+// cudaGetLastError() after the launch (cudaErrorNotSupported if the
+// driver has no tensor maps).
+extern "C" int flash_attention_wgmma_lse(const void* q, const void* k,
+                                         const void* v, void* out,
+                                         float* lse, int b, int hq, int hkv,
+                                         int sq, int skv, int d, int causal,
+                                         float scale_log2, void* stream) {
+  if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
+  if (b <= 0 || sq <= 0 || hq <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (skv <= 0) {  // no key: every row gives 0 (no lse to give)
+    if (lse != nullptr) return (int)cudaErrorInvalidValue;
+    return (int)cudaMemsetAsync(out, 0, (size_t)b * hq * sq * d * 2, s);
+  }
+  switch (d) {
+    case 64:
+      return (int)launch<64>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal,
+                             scale_log2, s);
+    case 128:
+      return (int)launch<128>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal,
+                              scale_log2, s);
+    case 256:
+      return (int)launch<256>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal,
+                              scale_log2, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The serving entry: flash_attention_wgmma_lse without the lse output.
 extern "C" int flash_attention_wgmma(const void* q, const void* k,
                                      const void* v, void* out, int b, int hq,
                                      int hkv, int sq, int skv, int d,
                                      int causal, float scale_log2,
                                      void* stream) {
-  if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
-  if (b <= 0 || sq <= 0 || hq <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (skv <= 0)  // no key: every row gives 0
-    return (int)cudaMemsetAsync(out, 0, (size_t)b * hq * sq * d * 2, s);
-  switch (d) {
-    case 64:
-      return (int)launch<64>(q, k, v, out, b, hq, hkv, sq, skv, causal,
-                             scale_log2, s);
-    case 128:
-      return (int)launch<128>(q, k, v, out, b, hq, hkv, sq, skv, causal,
-                              scale_log2, s);
-    case 256:
-      return (int)launch<256>(q, k, v, out, b, hq, hkv, sq, skv, causal,
-                              scale_log2, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return flash_attention_wgmma_lse(q, k, v, out, nullptr, b, hq, hkv, sq, skv,
+                                   d, causal, scale_log2, stream);
 }

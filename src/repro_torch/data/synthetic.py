@@ -1,5 +1,6 @@
-"""Synthetic data, after ``repro.data.synthetic`` (``recsys_stream``
-only, copied: the reference's module cannot be imported without JAX).
+"""Synthetic data, after ``repro.data.synthetic`` (``lm_batch_stream``
+and ``recsys_stream``, copied: the reference's module cannot be imported
+without JAX).
 
 Deterministic, step-seeded generators: a restarted job regenerates the
 exact batch for any step index.
@@ -9,6 +10,22 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+
+
+def lm_batch_stream(batch: int, seq_len: int, vocab: int,
+                    start_step: int = 0, seed: int = 17
+                    ) -> Iterator[dict]:
+    """Zipf-ish token stream with next-token labels: tokens and labels
+    [batch, seq_len] int32, one batch per step."""
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        logits = rng.zipf(1.3, size=(batch, seq_len + 1))
+        tokens = np.minimum(logits, vocab - 1).astype(np.int32)
+        yield {"tokens": tokens[:, :-1],
+               "labels": tokens[:, 1:].copy(),
+               "step": step}
+        step += 1
 
 
 def recsys_stream(batch: int, n_fields: int, vocab: int,

@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels of the engine, of the LM serving path and of
-the FM recsys path, and their plain versions.
+"""Hand-written CUDA kernels of the engine, of the LM serving path, of
+the FM recsys path and of training (the attention and FM backwards), and
+their plain versions.
 
 Each wrapper runs its plain torch version on CPU tensors and launches
 its CUDA kernel on CUDA tensors, counting launches in its module's

@@ -1,11 +1,26 @@
-"""Attention kernels of the LM serving path.
+"""Attention kernels of the LM serving and training paths.
 
 The wrappers of ``csrc/flash_attention_wgmma.cu``,
-``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu``:
-``flash_attention`` replaces ``_attn_kernel`` and ``flash_decode``
-replaces ``_decode_kernel`` of ``repro.kernels.flash_attention``. On CPU
-tensors they run the plain torch versions (``kernels/ref.py``); on CUDA
-tensors they launch a kernel or raise.
+``csrc/flash_attention_tf32.cu``, ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``: ``flash_attention`` replaces
+``_attn_kernel`` and ``flash_decode`` replaces ``_decode_kernel`` of
+``repro.kernels.flash_attention``. On CPU tensors they run the plain
+torch versions (``kernels/ref.py``); on CUDA tensors they launch a
+kernel or raise.
+
+Training: when an input requires grad (and grad mode is on),
+``flash_attention`` runs through a ``torch.autograd.Function`` whose
+forward is the wgmma kernel with its log-sum-exp output (launch key
+``flash_attention_wgmma``) and whose backward is ``flash_attention_bwd``,
+three hand-written kernels (keys ``flash_attention_bwd_pre``: D =
+rowsum(dO * O); ``flash_attention_bwd_dkdv``; ``flash_attention_bwd_dq``)
+that recompute P from the saved log-sum-exp, without atomics, so a
+backward gives the same bits every time. On the CPU the same Function
+runs ``attention_lse_ref`` and ``attention_bwd_ref``. The reference has
+no Pallas backward (it trains through its XLA attention); the kernels
+replace that route on the card. On the card the backward takes bfloat16
+only, d in {64, 128} and sq == skv; float32 with grad (its backward is
+in ROADMAP.md), d = 256 and sq != skv are refused.
 
 ``flash_attention`` picks its kernel by type (``prefill_kernel``); both
 run on the tensor cores. bfloat16 goes to wgmma fed by TMA (launch key
@@ -36,8 +51,11 @@ import torch
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = {"flash_attention_tf32": 0, "flash_attention_wgmma": 0,
-            "flash_decode": 0, "flash_decode_combine": 0}
+            "flash_decode": 0, "flash_decode_combine": 0,
+            "flash_attention_bwd_pre": 0, "flash_attention_bwd_dkdv": 0,
+            "flash_attention_bwd_dq": 0}
 HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
 SM_COUNT = 132             # the H100's streaming multiprocessors
 DECODE_CTAS_PER_SM = 2     # split CTAs resident per SM (96 KB rings)
 
@@ -78,10 +96,71 @@ def _scale_log2(d: int) -> float:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """[b, hq, sq, d] attention of q over k, v (GQA by head index)."""
+    """[b, hq, sq, d] attention of q over k, v (GQA by head index);
+    differentiable (``_Attention``) when an input requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, False)
     if q.device.type == "cpu" and k.device.type == "cpu" and (
             v.device.type == "cpu"):
         return flash_attention_plain(q, k, v, causal=causal)
+    return _prefill(q, k, v, causal, None)
+
+
+def attention_plain_autograd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor,
+                             causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` through the plain versions on any device
+    (``attention_lse_ref`` forward, ``attention_bwd_ref`` backward): the
+    yardstick the checks hold the kernels' training path to; no path of
+    the port calls it."""
+    return _Attention.apply(q, k, v, causal, True)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention whose forward saves q, k, v, the output and the
+    log-sum-exp, and whose backward is ``flash_attention_bwd`` on the
+    card (``attention_bwd_ref`` on the CPU or when ``plain``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, plain):
+        if plain or q.device.type == "cpu":
+            out, lse = ref.attention_lse_ref(q, k, v, causal=causal)
+        else:
+            _check_bwd("flash_attention", q, k, v)
+            lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device)
+            out = _prefill(q, k, v, causal, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.plain = causal, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        bwd = ref.attention_bwd_ref if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, dout, lse, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _check_bwd(name: str, q, k, v) -> None:
+    """What the backward kernels take, checked before the forward runs."""
+    if q.dtype == torch.float32:
+        raise NotImplementedError(
+            f"{name}: float32 attention with grad on the card; its "
+            f"backward kernel is not written yet (ROADMAP.md)")
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} with grad; the "
+                         f"backward kernels take {BWD_HEAD_DIMS}")
+    if q.shape[2] != k.shape[2]:
+        raise ValueError(f"{name}: sq {q.shape[2]} != skv {k.shape[2]} "
+                         f"with grad; the backward kernels take sq == skv")
+
+
+def _prefill(q, k, v, causal, lse):
+    """The tensor-core prefill kernel for q's dtype; ``lse`` (bf16 only)
+    also receives each row's log-sum-exp."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check("flash_attention", (q, k, v), d, hq, hkv)
@@ -98,12 +177,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             else "flash_attention_tf32")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _prefill_fn(name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        tail = (b, hq, hkv, sq, skv, d, int(causal), _scale_log2(d), stream)
+        if lse is None:
+            rc = _prefill_fn(name)(*args, *tail)
+        else:
+            rc = _wgmma_lse_fn()(*args, lse.data_ptr(), *tail)
         _build.check(rc, name)
         _build.count_launch(LAUNCHES, name)
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` at output ``o`` (as the
+    forward gave it) with output gradient ``do`` and the forward's
+    log-sum-exp ``lse`` [b, hq, s] float32: three launches of
+    ``csrc/flash_attention_bwd.cu``. bfloat16 q, k, v, o, do; d in
+    {64, 128}; sq == skv; dk and dv summed over each KV head's group. On
+    CPU tensors, ``attention_bwd_ref``."""
+    if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
+        return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    _check("flash_attention_bwd", (q, k, v, o, do), d, hq, hkv)
+    _check_bwd("flash_attention_bwd", q, k, v)
+    if (k.shape != (b, hkv, s, d) or v.shape != k.shape
+            or o.shape != q.shape or do.shape != q.shape):
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}")
+    if (lse.dtype != torch.float32 or lse.shape != (b, hq, s)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be [b, hq, s] "
+                         f"float32 on {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd: the kernels' 16-byte "
+                         "copies need 16-byte aligned inputs")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not q.numel():
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    scale = 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_pre(o.data_ptr(), do.data_ptr(),
+                                         delta.data_ptr(), b * hq * s, d,
+                                         stream)
+        _build.check(rc, "flash_attention_bwd_pre")
+        _build.count_launch(LAUNCHES, "flash_attention_bwd_pre")
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr())
+        shape = (b, hq, hkv, s, d, int(causal), _scale_log2(d), scale,
+                 stream)
+        rc = lib.flash_attention_bwd_dkdv(*common, dk.data_ptr(),
+                                          dv.data_ptr(), *shape)
+        _build.check(rc, "flash_attention_bwd_dkdv")
+        _build.count_launch(LAUNCHES, "flash_attention_bwd_dkdv")
+        rc = lib.flash_attention_bwd_dq(*common, dq.data_ptr(), *shape)
+        _build.check(rc, "flash_attention_bwd_dq")
+        _build.count_launch(LAUNCHES, "flash_attention_bwd_dq")
+    return dq, dk, dv
 
 
 def decode_splits(batch: int, hkv: int, S: int) -> tuple[int, int]:
@@ -179,6 +315,31 @@ def _prefill_fn(name: str):
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, P]
         fn.restype = I
     return fn
+
+
+def _wgmma_lse_fn():
+    """``flash_attention_wgmma_lse`` of ``csrc/flash_attention_wgmma.cu``:
+    the prefill entry with an lse pointer after ``out``."""
+    fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_lse
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+        fn.restype = I
+    return fn
+
+
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    if lib.flash_attention_bwd_pre.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        I64 = ctypes.c_int64
+        lib.flash_attention_bwd_pre.argtypes = [P, P, P, I64, I, P]
+        lib.flash_attention_bwd_pre.restype = I
+        for fn, outs in ((lib.flash_attention_bwd_dkdv, 2),
+                         (lib.flash_attention_bwd_dq, 1)):
+            fn.argtypes = [P] * (6 + outs) + [I] * 6 + [F, F, P]
+            fn.restype = I
+    return lib
 
 
 def _lib():

@@ -138,25 +138,98 @@ def _softmax_or_zero(logits: torch.Tensor, visible: torch.Tensor):
                        torch.zeros((), dtype=w.dtype, device=w.device))
 
 
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32, or float64 for float64 inputs (the gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _attn_logits(q, k, causal, scale):
+    """(scaled logits [b, hq, sq, skv] in the compute dtype, visible
+    [sq, skv]) of GQA attention: KV heads repeated over their group; the
+    causal mask aligned to the end (query row i sees keys j <= i + skv -
+    sq)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    ct = _compute_dtype(q)
+    kk = k.repeat_interleave(hq // hkv, dim=1).to(ct)
+    if scale is None:
+        scale = (_attn_scale(d) if ct == torch.float32
+                 else 1.0 / torch.sqrt(torch.tensor(float(d), dtype=ct)))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kk) * scale
+    visible = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        visible = visible.tril(skv - sq)
+    return logits, visible
+
+
+def _attn_out(w, v, hq, dtype):
+    vv = v.repeat_interleave(hq // v.shape[1], dim=1).to(w.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(dtype)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, scale=None) -> torch.Tensor:
     """q [b, hq, sq, d]; k, v [b, hkv, skv, d]; GQA: hq % hkv == 0, by
-    repeating KV heads. f32 softmax; the causal mask is aligned to the
-    end (query row i sees keys j <= i + skv - sq). Output in q's dtype."""
+    repeating KV heads. f32 softmax (f64 for f64 inputs); the causal mask
+    is aligned to the end (query row i sees keys j <= i + skv - sq).
+    Output in q's dtype."""
+    logits, visible = _attn_logits(q, k, causal, scale)
+    return _attn_out(_softmax_or_zero(logits, visible), v, q.shape[1],
+                     q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, scale=None):
+    """``attention_ref``'s output and, per query row, the natural
+    log-sum-exp of its visible scaled logits: lse [b, hq, sq] float32
+    (float64 for float64 inputs), -inf for a row that sees no key (its
+    output is 0)."""
+    logits, visible = _attn_logits(q, k, causal, scale)
+    lse = torch.logsumexp(logits.masked_fill(~visible, float("-inf")), -1)
+    out = _attn_out(_softmax_or_zero(logits, visible), v, q.shape[1],
+                    q.dtype)
+    return out, lse
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                      causal: bool = True, scale=None):
+    """Gradients (dq, dk, dv) of ``attention_ref`` at output ``o`` with
+    output gradient ``do``, step by step as the backward kernels take
+    them, in float32 (float64 for float64 inputs): P = exp(S - lse)
+    recomputed from the saved log-sum-exp (0 where masked and in a row
+    with lse = -inf), D = rowsum(dO * O), dV = P^T dO, dP = dO V^T,
+    dS = P * (dP - D), dQ = scale dS K, dK = scale dS^T Q; GQA's dK and
+    dV summed over each KV head's group. Returned in the inputs'
+    dtypes."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
-    kk = k.repeat_interleave(group, dim=1).float()
-    vv = v.repeat_interleave(group, dim=1).float()
-    scale = _attn_scale(d) if scale is None else scale
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
-    if causal:
-        visible = torch.ones((sq, skv), dtype=torch.bool,
-                             device=q.device).tril(skv - sq)
-    else:
-        visible = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    w = _softmax_or_zero(logits, visible)
-    return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)
+    logits, visible = _attn_logits(q, k, causal, scale)
+    ct = logits.dtype
+    if scale is None:
+        scale = (_attn_scale(d) if ct == torch.float32
+                 else 1.0 / torch.sqrt(torch.tensor(float(d), dtype=ct)))
+    lse = lse.to(ct)[..., None]
+    live = visible & torch.isfinite(lse)
+    p = torch.where(live, torch.exp(logits - torch.where(
+        torch.isfinite(lse), lse, torch.zeros((), dtype=ct,
+                                              device=q.device))),
+        torch.zeros((), dtype=ct, device=q.device))
+    do_, o_ = do.to(ct), o.to(ct)
+    kk = k.repeat_interleave(group, dim=1).to(ct)
+    vv = v.repeat_interleave(group, dim=1).to(ct)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do_)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do_, vv)
+    delta = (do_ * o_).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(ct)) * scale
+
+    def group_sum(x):
+        return x.reshape(b, hkv, group, skv, d).sum(2)
+    return (dq.to(q.dtype), group_sum(dk).to(k.dtype),
+            group_sum(dv).to(v.dtype))
 
 
 def attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,9 +273,11 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # -- FM interaction (the recsys serve path) -----------------------------------
 
 def _fm_sums(x: torch.Tensor, v: torch.Tensor):
-    """Per row and factor column, in float32: (sum_f p, sum_f p^2) with
-    p = x_f v_fk; v [f, k] or [b, f, k]."""
-    p = x.float()[:, :, None] * v.float()
+    """Per row and factor column, in float32 (float64 for float64
+    inputs): (sum_f p, sum_f p^2) with p = x_f v_fk; v [f, k] or
+    [b, f, k]."""
+    ct = _compute_dtype(x)
+    p = x.to(ct)[:, :, None] * v.to(ct)
     return p.sum(dim=1), (p * p).sum(dim=1)
 
 
@@ -215,6 +290,26 @@ def fm_interaction_ref(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     and returns [b] in x's dtype."""
     s, q = _fm_sums(x, v)
     return (0.5 * (s * s - q).sum(dim=-1)).to(x.dtype)
+
+
+def fm_interaction_bwd_ref(x: torch.Tensor, v: torch.Tensor,
+                           g: torch.Tensor):
+    """Gradients (dx [b, f], dv) of ``fm_interaction_ref`` under output
+    gradient g [b], in float32 (float64 for float64 inputs), with
+    S_k = sum_f x_f v_fk:
+        dv_fk = g x_f (S_k - x_f v_fk),  dx_f = g sum_k v_fk (S_k - x_f v_fk);
+    dv is [b, f, k] for a per-row v and summed over rows for a shared
+    [f, k]. Returned in the inputs' dtypes."""
+    ct = _compute_dtype(x)
+    x_, v_, g_ = x.to(ct), v.to(ct), g.to(ct)
+    vb = v_ if v.dim() == 3 else v_[None]
+    s = (x_[:, :, None] * vb).sum(dim=1, keepdim=True)          # [b, 1, k]
+    r = s - x_[:, :, None] * vb                                 # [b, f, k]
+    dv = g_[:, None, None] * x_[:, :, None] * r
+    dx = g_[:, None] * (vb * r).sum(dim=-1)
+    if v.dim() == 2:
+        dv = dv.sum(dim=0)
+    return dx.to(x.dtype), dv.to(v.dtype)
 
 
 def fm_allowed_error(x: torch.Tensor, v: torch.Tensor,

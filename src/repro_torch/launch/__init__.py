@@ -1,1 +1,4 @@
-"""Entry points of the port: ``serve`` (batched LM prefill + decode)."""
+"""Entry points of the port: ``serve`` (batched LM prefill + decode),
+``train`` (the training loop), ``fixpoint`` and ``incremental_serving``
+(the engine), ``prefill_attention`` (an A/B timing of the f32 prefill).
+"""

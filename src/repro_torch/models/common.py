@@ -24,9 +24,26 @@ def resolve_device(spec, owner: str) -> torch.device:
 
 
 def frozen(t: torch.Tensor) -> torch.nn.Parameter:
-    """``t`` as a parameter that takes no gradient (the port serves
-    only; training is not ported yet)."""
+    """``t`` as a parameter that takes no gradient (serving)."""
     return torch.nn.Parameter(t, requires_grad=False)
+
+
+def parameter(t: torch.Tensor, train: bool) -> torch.nn.Parameter:
+    """``t`` as a parameter sharing its storage: trainable when ``train``
+    (training), else ``frozen``."""
+    return torch.nn.Parameter(t, requires_grad=True) if train else frozen(t)
+
+
+def wire_grads(pairs) -> None:
+    """For each (parameter, buffer) pair: zero the buffer and make it the
+    parameter's ``.grad``, so that backward accumulates into it in place
+    (autograd adds into a defined ``.grad``). A model whose per-layer
+    parameters are views of stacked tensors gets its gradients in the
+    stacked layout this way, without a copy."""
+    for p, buf in pairs:
+        buf.zero_()
+        if p.grad is not buf:
+            p.grad = buf
 
 
 def normal_init(shape, stddev: float, dtype: torch.dtype,
@@ -87,3 +104,17 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     o2 = x2 * c + x1 * s
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape)
     return torch.cat([out, xp], dim=-1) if xp.shape[-1] else out
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy: logits [*, V] of any float dtype, taken
+    in float32 (float32 logsumexp); labels int, clipped into [0, V - 1]
+    for the gather; positions labelled ``ignore_id`` are left out of the
+    mean (0 when every position is)."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    idx = labels.long().clamp(0, lg.shape[-1] - 1)
+    ll = torch.gather(lg, -1, idx[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return torch.sum((lse - ll) * mask) / torch.clamp_min(mask.sum(), 1.0)

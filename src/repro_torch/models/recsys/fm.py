@@ -19,8 +19,15 @@ Ids are gathered as ``jnp.take(..., mode="clip")`` does: cast to int32,
 then clamped to [0, vocab - 1] (a negative id reads row 0, not a row
 from the end).
 
-There is no backward yet (training is not ported; ROADMAP.md), so the
-parameters of an ``FM`` are frozen.
+Training (``FM(..., train=True)``, ``loss_fn`` with gradients): the
+interaction's gradient is the kernel's backward entry
+(``kernels.fm_interaction``); the scatter of the gathered rows'
+gradients into the tables is autograd's ``index_select`` backward, which
+is deterministic on the card under
+``torch.use_deterministic_algorithms(True)`` (the training launcher sets
+it). ``param_tree()`` is the reference's {"v", "w", "b"} sharing storage
+with the parameters; ``grad_tree()`` zeroed gradient buffers wired as
+their ``.grad``. A serving ``FM`` (the default) is frozen.
 """
 from __future__ import annotations
 
@@ -33,7 +40,9 @@ from torch import nn
 
 from repro_torch.kernels import fm_interaction as FI
 from repro_torch.kernels import segment_reduce as SR
-from repro_torch.models.common import frozen, normal_init, resolve_device
+from repro_torch.models.common import (
+    normal_init, parameter, resolve_device, wire_grads,
+)
 
 
 class FMConfig(NamedTuple):
@@ -100,7 +109,8 @@ class FM(nn.Module):
     default; the model does not change it)."""
 
     def __init__(self, cfg: FMConfig, params: Optional[dict] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device, "FM")
@@ -108,9 +118,31 @@ class FM(nn.Module):
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
             params = init_params(cfg, generator, self.device)
-        self.v = frozen(params["v"].to(self.device))
-        self.w = frozen(params["w"].to(self.device))
-        self.b = frozen(params["b"].to(self.device))
+        self._tree = {k: params[k].to(self.device) for k in ("v", "w", "b")}
+        self._grads: Optional[dict] = None
+        self.v = parameter(self._tree["v"], train)
+        self.w = parameter(self._tree["w"], train)
+        self.b = parameter(self._tree["b"], train)
+
+    def param_tree(self) -> dict:
+        """{"v", "w", "b"}, sharing storage with the parameters."""
+        return self._tree
+
+    @property
+    def grads(self) -> Optional[dict]:
+        """The gradient buffers of ``grad_tree`` as the last backward left
+        them (None before the first ``grad_tree``)."""
+        return self._grads
+
+    def grad_tree(self) -> dict:
+        """Zeroed gradient buffers {"v", "w", "b"} wired as the
+        parameters' ``.grad``, which the next backward accumulates
+        into."""
+        if self._grads is None:
+            self._grads = {k: torch.zeros_like(t)
+                           for k, t in self._tree.items()}
+        wire_grads((getattr(self, k), self._grads[k]) for k in self._tree)
+        return self._grads
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(ids, device=self.device)
@@ -125,7 +157,8 @@ class FM(nn.Module):
         return self.b + w.sum(-1) + FI.fm_interaction(x, v)
 
     def loss_fn(self, ids, labels) -> torch.Tensor:
-        """Mean binary cross-entropy of the logits against 0/1 labels."""
+        """Mean binary cross-entropy of the logits against 0/1 labels
+        (with gradients when the model was built with ``train``)."""
         logits = self(ids)
         y = self._ids(labels).float()
         return -(y * F.logsigmoid(logits)

@@ -4,24 +4,38 @@ Covers every LM config of the reference: GQA KV-head count, head_dim
 override (gemma's 256), GeGLU/SwiGLU, qk-norm (qwen3), partial rotary
 (chatglm3's 2d RoPE), tied or untied embeddings, and a dense or MoE FFN
 (granite; ``models/moe.py``). A ``Transformer`` is an
-``nn.Module`` of per-layer ``Block``s with three entry points,
+``nn.Module`` of per-layer ``Block``s with four entry points,
 ``forward`` (logits for every position), ``prefill`` (last-position
-logits and the KV cache) and ``decode_step`` (one token against the
-cache).
+logits and the KV cache), ``decode_step`` (one token against the cache)
+and ``loss_fn`` (the training loss, with gradients).
 
-Attention runs through ``kernels.flash_attention`` (prefill) and
-``kernels.flash_decode`` (decode): the hand-written CUDA kernels on a
-CUDA device, their plain torch versions on the CPU. The projections, the
-FFN and the unembedding are plain matmuls (``x @ w`` on ``[in, out]``
-weights, the reference's layout); the MoE FFN is ``moe.moe_ffn``, called
-through its module so that a caller may wrap it.
+Attention runs through ``kernels.flash_attention`` (prefill and
+training) and ``kernels.flash_decode`` (decode): the hand-written CUDA
+kernels on a CUDA device, their plain torch versions on the CPU. The
+projections, the FFN and the unembedding are plain matmuls (``x @ w`` on
+``[in, out]`` weights, the reference's layout); the MoE FFN is
+``moe.moe_ffn``, called through its module so that a caller may wrap it.
 
-``TransformerConfig`` keeps the fields that define the model. The
-reference's ``attn_backend`` is gone (the device picks the kernel), and
-so are ``scan_layers``, ``remat``, ``seq_parallel`` and
-``batch_shard_all`` (TPU compile and mesh plumbing). ``moe_groups``
-stays: the MoE routes each of its token groups on its own, so the group
-count decides which tokens exceed an expert's capacity and drop.
+Parameters and the reference's layout: the model is built from the
+reference's tree (every per-layer leaf stacked [L, ...], the MoE's under
+``layers["moe"]``), and each ``Block``'s parameters are views of layer i
+of those stacked tensors, so ``param_tree()`` is that tree, sharing
+storage with the module, and an optimizer that updates it in place
+updates the model. ``grad_tree()`` gives the gradients in the same
+layout: zeroed stacked buffers whose layer views are the parameters'
+``.grad``, into which backward accumulates. Training state, checkpoints
+and the CPU comparison with the reference all use that layout and its
+leaf order.
+
+``TransformerConfig`` keeps the fields that define the model, and
+``remat``: under ``loss_fn`` each ``Block`` then runs under
+``torch.utils.checkpoint`` (its activations recomputed in the backward),
+as the reference's ``jax.checkpoint`` of its layer body. The reference's
+``attn_backend`` is gone (the device picks the kernel), and so are
+``scan_layers``, ``seq_parallel`` and ``batch_shard_all`` (TPU compile
+and mesh plumbing). ``moe_groups`` stays: the MoE routes each of its
+token groups on its own, so the group count decides which tokens exceed
+an expert's capacity and drop.
 
 Unlike the reference, whose functions return new arrays, ``decode_step``
 writes the new token's K and V into the cache in place.
@@ -33,13 +47,14 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import moe
 from repro_torch.models.common import (
-    act_fn, apply_rope, frozen, normal_init, resolve_device, rms_norm,
-    rope_angles,
+    act_fn, apply_rope, cross_entropy_loss, normal_init, parameter,
+    resolve_device, rms_norm, rope_angles, wire_grads,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -64,6 +79,7 @@ class TransformerConfig:
     moe_groups: int = 32                     # GShard group axis
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
+    remat: bool = True                       # recompute layers in backward
     logit_softcap: float = 0.0               # gemma-style soft capping
 
     @property
@@ -198,17 +214,19 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
 
 class Block(nn.Module):
     """One pre-norm decoder layer: attention, then the (gated) FFN, dense
-    or MoE (its weights in ``moe_weights``)."""
+    or MoE (its weights in ``moe_weights``); trainable when ``train``."""
 
-    def __init__(self, cfg: TransformerConfig, weights: dict):
+    def __init__(self, cfg: TransformerConfig, weights: dict,
+                 train: bool = False):
         super().__init__()
         self.cfg = cfg
         for name in _layer_shapes(cfg):
             if name == "moe":
                 self.moe_weights = nn.ParameterDict(
-                    {k: frozen(w) for k, w in weights["moe"].items()})
+                    {k: parameter(w, train)
+                     for k, w in weights["moe"].items()})
             else:
-                setattr(self, name, frozen(weights[name]))
+                setattr(self, name, parameter(weights[name], train))
 
     def forward(self, x, sin, cos, cache_kv=None, pos=None):
         """x [B, S, d]. Prefill (no cache): returns (y, (k, v)) with k, v
@@ -253,6 +271,10 @@ class Block(nn.Module):
         return x + up @ self.w_out, new_kv
 
 
+def _block_out(block: Block, x, sin, cos) -> torch.Tensor:
+    return block(x, sin, cos)[0]
+
+
 def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
                 pos: torch.Tensor) -> None:
     """cache [B, h, S, hd] += new [B, h, hd] at position pos[b] of each
@@ -267,12 +289,14 @@ def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
 
 class Transformer(nn.Module):
     """The LM. ``params`` is a tree from ``init_params`` or
-    ``params_from_numpy``; without one, weights are drawn by
-    ``init_params`` from ``generator`` (seed 0 when None). Runs on
-    ``device`` (default the card; raises when there is none)."""
+    ``params_from_numpy`` (kept, not copied, when it is on ``device``);
+    without one, weights are drawn by ``init_params`` from ``generator``
+    (seed 0 when None). Runs on ``device`` (default the card; raises
+    when there is none). ``train`` makes the parameters trainable."""
 
     def __init__(self, cfg: TransformerConfig, params: Optional[dict] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device, "Transformer")
@@ -280,14 +304,52 @@ class Transformer(nn.Module):
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
             params = init_params(cfg, generator, self.device)
-        params = tree_map(lambda t: t.to(self.device), params)
-        self.embed = frozen(params["embed"])
-        self.ln_f = frozen(params["ln_f"])
+        self._tree = tree_map(lambda t: t.to(self.device), params)
+        self._grads: Optional[dict] = None
+        params = self._tree
+        self.embed = parameter(params["embed"], train)
+        self.ln_f = parameter(params["ln_f"], train)
         self.unembed = (None if cfg.tie_embeddings
-                        else frozen(params["unembed"]))
+                        else parameter(params["unembed"], train))
         self.layers = nn.ModuleList(
-            Block(cfg, tree_map(lambda t: t[i], params["layers"]))
+            Block(cfg, tree_map(lambda t: t[i], params["layers"]), train)
             for i in range(cfg.n_layers))
+
+    # -- the reference's layout ---------------------------------------------
+    def param_tree(self) -> dict:
+        """The reference's parameter tree (stacked [L, ...] layer leaves),
+        sharing storage with this module's parameters."""
+        return self._tree
+
+    def _pairs(self, tree: dict):
+        """(parameter, the tensor at its place in ``tree``) for every
+        parameter; a block's are layer i of the stacked leaves."""
+        yield self.embed, tree["embed"]
+        yield self.ln_f, tree["ln_f"]
+        if self.unembed is not None:
+            yield self.unembed, tree["unembed"]
+        for i, block in enumerate(self.layers):
+            for name, leaf in tree["layers"].items():
+                if name == "moe":
+                    for k, w in leaf.items():
+                        yield block.moe_weights[k], w[i]
+                else:
+                    yield getattr(block, name), leaf[i]
+
+    @property
+    def grads(self) -> Optional[dict]:
+        """The gradient buffers of ``grad_tree`` as the last backward left
+        them (None before the first ``grad_tree``)."""
+        return self._grads
+
+    def grad_tree(self) -> dict:
+        """Zeroed gradient buffers in the reference's layout, wired as the
+        parameters' ``.grad`` (layer i of a stacked buffer is block i's),
+        so that the next backward accumulates into them."""
+        if self._grads is None:
+            self._grads = tree_map(torch.zeros_like, self._tree)
+        wire_grads(self._pairs(self._grads))
+        return self._grads
 
     # -- pieces shared by the entry points ----------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -313,22 +375,49 @@ class Transformer(nn.Module):
                              device=logits.device))
         return logits
 
-    # -- entry points ---------------------------------------------------------
-    @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> logits [B, S, V] (soft-capped when the config
-        says so)."""
+    def _all_logits(self, tokens: torch.Tensor,
+                    remat: bool = False) -> torch.Tensor:
+        """tokens [B, S] -> logits [B, S, V], soft-capped when the config
+        says so; with ``remat`` each block runs under checkpoint."""
         S = tokens.shape[1]
         x = self._embed(tokens)
         sin, cos = self._angles(
             torch.arange(S, dtype=torch.int32, device=self.device)[None, :])
         for block in self.layers:
-            x, _ = block(x, sin, cos)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _block_out, block, x, sin, cos, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x = _block_out(block, x, sin, cos)
         logits = self._logits(rms_norm(x, self.ln_f))
         if self.cfg.logit_softcap > 0:
             c = self.cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
         return logits
+
+    # -- entry points ---------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> logits [B, S, V] (soft-capped when the config
+        says so)."""
+        return self._all_logits(tokens)
+
+    def loss_fn(self, tokens: torch.Tensor, labels: torch.Tensor):
+        """The training loss with gradients: (ce + 0.01 * aux, ce), ce the
+        mean token cross-entropy of the logits against ``labels``
+        (``cross_entropy_loss``); aux is 0 for a dense FFN. Layers run
+        under checkpoint when ``cfg.remat``. MoE training is not ported
+        (its load-balancing loss needs a gradient through ``moe.py``)."""
+        if self.cfg.moe:
+            raise NotImplementedError(
+                f"{self.cfg.name}: MoE training is not ported yet "
+                f"(ROADMAP.md); the port trains dense configs")
+        logits = self._all_logits(tokens, remat=self.cfg.remat)
+        ce = cross_entropy_loss(
+            logits, labels.to(self.device, dtype=torch.int32))
+        return ce + 0.01 * torch.zeros((), dtype=torch.float32,
+                                       device=ce.device), ce
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, capacity: Optional[int] = None):

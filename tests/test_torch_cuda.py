@@ -766,8 +766,8 @@ def test_fm_interaction_refuses_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels import fm_interaction as FI
     x = torch.ones((4, 6), device=cuda)
     v = torch.ones((6, 3), device=cuda)
-    with pytest.raises(RuntimeError, match="grad"):
-        FI.fm_interaction(x, v.clone().requires_grad_())
+    # with grad the call goes through the backward's autograd Function
+    assert FI.fm_interaction(x, v.clone().requires_grad_()).grad_fn
     with pytest.raises(TypeError):
         FI.fm_interaction(x.half(), v.half())
     with pytest.raises(TypeError):
@@ -882,3 +882,170 @@ def test_device_mode_after_a_failed_capture(cuda):
     want, wst = cpu_engine.run(edbs)
     np.testing.assert_array_equal(out["tc"], want["tc"])
     assert stats.iterations == wst.iterations
+
+
+# -- training: the backward kernels and the train step -----------------------
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (16, 1)])
+@pytest.mark.parametrize("s", [77, 128, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_matches_plain(cuda, d, hq, hkv, s, causal):
+    """The attention backward (three launches) against attention_bwd_ref
+    in float32 on the same bf16 inputs, o and lse from the forward kernel
+    (lse against attention_lse_ref): chip_smoke's tolerance, BWD_RTOL of a
+    value plus BWD_ATOL_SHARE of the output's largest; a repeat gives the
+    same bits."""
+    from repro_torch.kernels import flash_attention as FA, ref
+    cs = _chip_smoke()
+    gen = torch.Generator(device=cuda).manual_seed(d + hq + s)
+    q = torch.randn((2, hq, s, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((2, hkv, s, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((2, hkv, s, d), generator=gen, device=cuda).bfloat16()
+    do = torch.randn((2, hq, s, d), generator=gen, device=cuda).bfloat16()
+    lse = torch.empty((2, hq, s), dtype=torch.float32, device=cuda)
+    o = FA._prefill(q, k, v, causal, lse)
+    _, want_lse = ref.attention_lse_ref(q, k, v, causal)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=cs.LSE_ATOL)
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    for key in ("flash_attention_bwd_pre", "flash_attention_bwd_dkdv",
+                "flash_attention_bwd_dq"):
+        assert FA.LAUNCHES[key] == before[key] + 1
+    want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal)
+    cs.hold_bwd(torch, "backward", got, want)
+    again = FA.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_attention_autograd_on_card_matches_plain(cuda):
+    """flash_attention with grad on the card (the wgmma forward with lse,
+    the backward kernels) against the same autograd Function through the
+    plain versions."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 8, 200, 128), generator=gen,
+                           device=cuda).bfloat16() for _ in range(3))
+    k, v = k[:, :4].contiguous(), v[:, :4].contiguous()
+    do = torch.randn((1, 8, 200, 128), generator=gen, device=cuda).bfloat16()
+    grads = []
+    for fn in (FA.flash_attention, FA.attention_plain_autograd):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        grads.append((out, *torch.autograd.grad(out, leaves, do)))
+    _chip_smoke().hold_bwd(torch, "autograd", grads[0][1:], grads[1][1:])
+    torch.testing.assert_close(grads[0][0].float(), grads[1][0].float(),
+                               rtol=1e-2, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,f,k,form", [
+    (65536, 39, 10, "ones"), (1000, 39, 10, "strided_x"),
+    (333, 100, 16, "ones"), (77, 13, 4, "shared"), (4096, 400, 32, "ones")])
+def test_fm_interaction_bwd_matches_plain(cuda, dtype, b, f, k, form):
+    """The FM backward kernel against fm_interaction_bwd_ref: dv (and dx
+    when x is not the broadcast ones) within 1e-5 of the row's
+    |S| + |v| sums times |g| (float32; bfloat16 also one unit of the
+    value), the same bits on a repeat; 400 fields take several chunks."""
+    from repro_torch.kernels import fm_interaction as FI, ref
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    x = (torch.ones((1, 1), device=cuda).expand(b, f) if form == "ones"
+         else torch.randn((f, b), generator=gen, device=cuda).t()
+         if form == "strided_x"
+         else torch.randn((b, f), generator=gen, device=cuda))
+    v = torch.randn((f, k) if form == "shared" else (b, f, k),
+                    generator=gen, device=cuda) * 0.1
+    g = torch.randn((b,), generator=gen, device=cuda)
+    x, v, g = x.to(dtype), v.to(dtype), g.to(dtype)
+    need_dx = form != "ones"
+    dx, dv = FI.fm_interaction_bwd(x, v, g, need_dx=need_dx)
+    rdx, rdv = ref.fm_interaction_bwd_ref(x, v, g)
+    assert dv.shape == v.shape and dv.dtype == dtype
+    vb = v.float() if v.dim() == 3 else v.float().expand(b, f, k)
+    xs = x.float()[:, :, None] * vb
+    allowed = 1e-5 * (xs.sum(1, keepdim=True).abs() + xs.abs()).sum(
+        1, keepdim=True) * (g.float().abs() * x.float().abs().amax(1))[
+            :, None, None] + 1e-12
+    if form == "shared":
+        allowed = allowed.sum(0)
+    if dtype == torch.bfloat16:
+        allowed = allowed + rdv.float().abs() * 2 ** -8
+    assert bool(((dv.float() - rdv.float()).abs() <= allowed).all())
+    if need_dx:
+        torch.testing.assert_close(dx.float(), rdx.float(), rtol=2e-2 if
+                                   dtype == torch.bfloat16 else 1e-4,
+                                   atol=1e-3 * float(rdx.float().abs().max()))
+    assert torch.equal(FI.fm_interaction_bwd(x, v, g, need_dx=need_dx)[1], dv)
+
+
+def test_training_refusals_on_card(cuda):
+    """What the card's training path does not take raises: float32
+    attention with grad (its backward kernel is in ROADMAP), d = 256 with
+    grad, sq != skv with grad, and an MoE model's loss_fn."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    q = torch.zeros((1, 4, 64, 128), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FA.flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 64, 256), device=cuda,
+                    dtype=torch.bfloat16).requires_grad_()
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 64, 128), device=cuda,
+                    dtype=torch.bfloat16).requires_grad_()
+    kv = torch.zeros((1, 4, 96, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="skv"):
+        FA.flash_attention(q, kv, kv)
+    with torch.no_grad():       # serving the same shapes still works
+        assert FA.flash_attention(q, kv, kv).shape == q.shape
+    cfg = get_arch("granite-moe-1b-a400m").smoke_cfg
+    model = T.Transformer(cfg, device=cuda, train=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.loss_fn(torch.zeros((1, 4), dtype=torch.int32),
+                      torch.zeros((1, 4), dtype=torch.int32))
+
+
+def test_qwen3_train_step_on_card_matches_cpu(cuda):
+    """One train_4k step of qwen3-1.7b at full width and 2 layers, B = 1
+    over 256 tokens, on the card (the attention kernels, forward with lse
+    and backward) against the same weights and batch on the CPU (the
+    plain versions), both in bf16: loss and ce within 2e-3, gnorm 1e-2,
+    every gradient leaf and mu within 2e-2 of its scale, nu 4e-2 (cuBLAS
+    and the CPU round bf16 products at other places, and the differences
+    add up through two layers)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optim import train_state_init, tree_map
+    cs = _chip_smoke()
+    arch = train.cut_layers(get_arch("qwen3-1.7b"), 2)
+    params = T.init_params(arch.cfg, torch.Generator().manual_seed(0))
+    tokens = np.random.default_rng(0).integers(
+        0, arch.cfg.vocab, size=(1, 257)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens[:, :-1]),
+             "labels": torch.from_numpy(tokens[:, 1:].copy())}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = T.Transformer(arch.cfg, cs.snapshot(params), device=dev,
+                              train=True)
+        state = train_state_init(model.param_tree())
+        reset_launch_counts()
+        with train.deterministic(torch.device(dev)):
+            state, m = arch.step_fn("train_4k")(
+                model, state, {k: t.to(dev) for k, t in batch.items()})
+        out[dev] = (
+            {k: float(v) for k, v in m.items()},
+            tree_map(lambda t: t.detach().cpu(), model.grads),
+            tree_map(lambda t: t.cpu(), state.mu),
+            tree_map(lambda t: t.cpu(), state.nu))
+    counts = launch_counts()
+    assert counts["flash_attention_wgmma"] == 4        # forward + remat
+    assert counts["flash_attention_bwd_dkdv"] == 2
+    (mg, gg, mug, nug), (mc, gc, muc, nuc) = out["cuda"], out["cpu"]
+    for key, rel in (("loss", 2e-3), ("ce", 2e-3), ("gnorm", 1e-2)):
+        assert abs(mg[key] - mc[key]) <= rel * abs(mc[key]), key
+    cs.hold_close(torch, "card vs cpu", gg, gc, 2e-2, "gradient")
+    cs.hold_close(torch, "card vs cpu", mug, muc, 2e-2, "mu")
+    cs.hold_close(torch, "card vs cpu", nug, nuc, 4e-2, "nu")

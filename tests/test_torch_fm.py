@@ -27,6 +27,7 @@ from repro.data.synthetic import recsys_stream as jax_recsys_stream
 from repro.kernels import ops, ref as jref
 from repro.models.recsys import fm as JFM
 from repro_torch.configs import get_arch
+from repro_torch.training.optim import train_state_init
 from repro_torch.data import recsys_stream
 from repro_torch.kernels import fm_interaction as FI
 from repro_torch.kernels import ref as tref
@@ -248,8 +249,17 @@ def test_step_fns_match_reference(shape):
 
 
 def test_train_step_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("fm").step_fn("train_batch", smoke=True)
+    """FM training is ported (tests/test_torch_train.py holds it to the
+    reference); what its train step refuses is a serving model, whose
+    parameters are frozen."""
+    arch = get_arch("fm")
+    step = arch.step_fn("train_batch", smoke=True)
+    model = TFM.FM(arch.smoke_cfg, device="cpu")
+    batch = {"ids": torch.zeros((4, arch.smoke_cfg.n_fields),
+                                dtype=torch.int32),
+             "labels": torch.zeros((4,), dtype=torch.int32)}
+    with pytest.raises(ValueError, match="train=True"):
+        step(model, train_state_init(model.param_tree()), batch)
 
 
 def test_fm_refuses_cpu_fallback(monkeypatch):

@@ -34,7 +34,9 @@ def test_every_module_imports_without_jax():
         "print(len(names), bad)\n"
         "assert len(names) >= 25 and not bad, bad\n"
         "assert {'repro_torch.engine.shard', 'repro_torch.launch.mesh',"
-        " 'repro_torch.models.moe'} <= set(names)\n")
+        " 'repro_torch.models.moe', 'repro_torch.training.optim',"
+        " 'repro_torch.training.compress', 'repro_torch.training.watchdog',"
+        " 'repro_torch.launch.train'} <= set(names)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
