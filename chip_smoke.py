@@ -2726,8 +2726,9 @@ def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
     the backward kernels against attention_bwd_ref in float32 on the same
     bf16 inputs (``hold_bwd``), the plain version taken a batch element at
     a time; a second launch must give the same bits. With ``timed``, CUDA
-    event times of the three launches, the plain version and SDPA's
-    backward beside the bound."""
+    event times of the three launches, of the dK/dV and dQ launches
+    apart, of the plain version and of SDPA's backward beside the
+    bound."""
     from repro_torch.kernels import flash_attention as FA, ref
     if lse is None:     # else the captured forward's output and lse
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -2771,12 +2772,26 @@ def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
           f"SDPA backward {library_ms:.4f} ms, bound {b_ms:.4f} ms by "
           f"{bound_by} ({flops:.4g} flop; {100 * b_ms / ms:.1f}% of it)",
           flush=True)
+    # the two main launches apart, each beside the bound of the products
+    # it issues (the bound counts five; dK/dV issues six, dQ four)
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    launches = FA.bwd_launches(q, k, v, o, do, lse, causal, *outs)
+    launches["flash_attention_bwd_pre"]()
+    apart = {}
+    for part, name, products in (("dkdv", "dK/dV", 6), ("dq", "dQ", 4)):
+        t = cuda_ms(torch, launches[f"flash_attention_bwd_{part}"])
+        own = products * t_ops / 5
+        apart[f"{part}_ms"] = t
+        print(f"{label}: {name} kernel {t:.4f} ms against its {products} "
+              f"products' {own:.4f} ms ({100 * own / t:.1f}% of it)",
+              flush=True)
+    del outs, launches
     fwd = cuda_ms(torch, lambda: FA._prefill(q, k, v, causal, None))
     fwd_lse = cuda_ms(torch, lambda: FA._prefill(q, k, v, causal, lse))
     print(f"{label}: wgmma forward {fwd:.4f} ms without lse, {fwd_lse:.4f} "
           f"ms with it", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, **apart)
 
 
 @contextlib.contextmanager

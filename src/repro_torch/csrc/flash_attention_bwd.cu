@@ -13,161 +13,182 @@
 // Bound on the H100: operations. The essential work is five products of
 // 2 s^2 d flops a head (Q K^T, dO V^T, P^T dO, dS^T Q, dS K), halved when
 // causal, at 989 TFLOP/s dense bf16; q, k, v, o, dO, lse in and dq, dk, dv
-// out cross HBM once.
+// out cross HBM once. The kernels issue ten: the dK/dV kernel six (S^T,
+// dP^T, and dV and dK as hi + lo parts), the dQ kernel four (S and dP
+// again, dQ as hi + lo).
 //
-// Design (simple, right and deterministic; wgmma and TMA are later work):
+// Design (warp-specialised, TMA-fed, wgmma for every product, as the
+// forward; the PTX wrappers and tensor maps are in wgmma.cuh):
 // - bwd_pre_kernel: D[row] = sum_d dO * O in f32, one warp a row.
-// - bwd_dkdv_kernel: a CTA of 4 warps owns 64 keys of one (b, kv head),
-//   16 keys a warp, and walks the group's query heads and their query
-//   tiles of 32 rows (under causal from the tile of its first key), the
-//   tiles streamed by cp.async into two stages. Per tile each warp forms
-//   S^T = K Q^T and dP^T = V dO^T (keys as rows), P^T =
-//   exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T - D), then
-//   dV += P^T dO and dK += dS^T Q in f32 registers, written once at the
-//   end (dK times the softmax scale).
-// - bwd_dq_kernel: a CTA of 4 warps owns 64 query rows of one (b, q head)
-//   and walks the key tiles of 32 (under causal up to its last row),
-//   recomputing S, dP, P and dS the same way and accumulating dQ += dS K.
-//   The longest tiles run first (the tile index reversed).
-// - Products: mma.sync.m16n8k16 bf16 with f32 accumulators. Fragments of
-//   row-major tiles (K, V, Q, dO as the operand whose reduction runs over
-//   d) are 4-byte shared-memory loads; the operand whose reduction runs
-//   over rows (dO and Q for dV and dK, K for dQ) is read transposed by
-//   ldmatrix.trans. Rows are D + 8 elements apart: both are free of bank
-//   conflicts.
-// - Precision: P and dS enter their second product as A fragments built
-//   from the f32 accumulators, split into bf16 hi + lo parts (two mmas
-//   each), as the forward splits P: products exact to about 2^-16 of each
-//   term, so the result is the f32 plain version's up to its final bf16
-//   rounding.
+// - bwd_dkdv_kernel: a CTA of 3 warpgroups owns 128 keys of one (b, kv
+//   head); the key tiles are the grid's slowest dimension, so under causal
+//   the longest run first. Warpgroup 0 is the producer (setmaxnreg 24):
+//   one thread loads the K and V tiles once by TMA, then Q and dO tiles of
+//   BN = 64 query rows into a ring of STAGES stages, for each query head
+//   of the GQA group and each query tile (under causal from the tile of
+//   the CTA's first key); warp 1 writes each stage's lse (times log2 e,
+//   +inf for rows past s or with lse = -inf, so their P is 0) and D into
+//   shared memory. Each stage completes on its `full` mbarrier (the TMA
+//   bytes and warp 1's 32 arrivals) and is released on `empty` by the
+//   consumers. Warpgroups 1 and 2 (setmaxnreg 240) own 64 keys each: per
+//   stage S^T = K Q^T and dP^T = V dO^T by wgmma with both operands in
+//   shared memory, K-major as stored (N = 64 queries); P^T = exp2(S^T
+//   scale log2 e - lse log2 e) and dS^T = P^T (dP^T - D) in registers (the
+//   S^T accumulator's layout is the A operand's); then dV += P^T dO and
+//   dK += dS^T Q by wgmma with A from registers and B, dO or Q, read
+//   MN-major from the same swizzled tiles. dV and dK are 64 x d f32
+//   accumulators a warpgroup (128 registers a thread at d = 128, plus 64
+//   for S^T and dP^T), written once at the end, dK times the scale.
+// - bwd_dq_kernel: a CTA owns 128 query rows of one (b, q head), the
+//   tiles reversed so the longest run first; the producer loads Q and dO
+//   once and streams K and V tiles of BKQ = 128 keys through the ring
+//   (under causal up to the CTA's last row); each consumer
+//   recomputes S = Q K^T and dP = dO V^T (SS wgmma, N = 128), dS in
+//   registers, and dQ += dS K (RS wgmma, K MN-major).
+// - P^T, dS^T (and dS) go from the f32 accumulators to hi + lo A
+//   fragments one k-step of 16 at a time, so the f32 tiles die as the
+//   fragments fill.
+// - Registers: the dK/dV producer steps its ring and its (head, tile) walk
+//   by counters (`Ring`); the divisions of an iteration index spilled its
+//   24 registers at d = 128. The dQ loops take stage and parity from the
+//   index (a mask and a shift). Timed by launch/attention_bwd.py on the
+//   H100 at qwen3's training shape, each against this source in the same
+//   call: dQ 4% slower with 64-key tiles and 5 to 10% slower with the
+//   counters; dK/dV 1% slower with three stages.
+// - Masks only on the tiles that cross the diagonal or the end of s; a
+//   consumer skips a stage none of whose pairs is visible. Rows past s are
+//   zero-filled by TMA and take lse = +inf, so their P and gradients are 0;
+//   keys past s give dK/dV rows that are never written, and are masked in
+//   the dQ kernel.
+// - Precision: P and dS enter their second products as A fragments split
+//   into bf16 hi + lo parts (two wgmmas each), as the forward splits P:
+//   products exact to about 2^-16 of each term, so the result is the f32
+//   plain version's up to its final bf16 rounding. Rounding P and dS once
+//   to bf16 puts dq, dk and dv outside the tolerance the plain version is
+//   held to (tests/test_torch_bwd_split.py emulates both).
 // - No atomics, no split reductions: each output element is summed by one
 //   thread in a fixed order, so every launch gives the same bits (a resumed
-//   training run must reproduce its state byte for byte).
-// - Masks: keys past s and, under causal, keys past the query row give
-//   P = 0; query rows past s and rows whose lse is -inf (no visible key)
-//   take lse = +inf, so their P, and their gradient, is 0.
+//   training run must reproduce its state byte for byte). dQ therefore has
+//   its own kernel rather than an ordered reduction across dK/dV CTAs.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int THREADS = 128;   // 4 warps of 16 rows
-constexpr int BKV = 64;        // keys a dk/dv CTA
-constexpr int BQ_KV = 32;      // query rows a dk/dv step
-constexpr int BQ = 64;         // query rows a dq CTA
-constexpr int BK_Q = 32;       // keys a dq step
+constexpr int THREADS = 384;   // producer + 2 consumer warpgroups
+constexpr int BM = 128;        // keys (dK/dV) or query rows (dQ) a CTA
+constexpr int BN = 64;         // query rows a dK/dV stage
+constexpr int BKQ = 128;       // keys a dQ stage
+constexpr int STAGES = 2;      // the ring of streamed tiles
 
 typedef __nv_bfloat16 bf16;
 
 template <int D>
 struct Geo {
-  static constexpr int S = D + 8;  // smem row stride (elements)
+  static constexpr int NSUB = D / SUB;            // sub-tiles per row
+  static constexpr int BIG = BM * D * 2;          // a 128-row tile
+  static constexpr int ROWS = BN * D * 2;         // a dK/dV stage's Q or dO
+  static constexpr int KEYS = BKQ * D * 2;        // a dQ stage's K or V
+  // K, V, the Q and dO stages, lse and D of each stage, the mbarriers;
+  // +1024 to align to the swizzle's period
   static constexpr int KV_SMEM =
-      (2 * BKV * S + 2 * 2 * BQ_KV * S) * 2 + 2 * 2 * BQ_KV * 4;
-  static constexpr int Q_SMEM = (2 * BQ * S + 2 * 2 * BK_Q * S) * 2;
+      2 * BIG + STAGES * 2 * (ROWS + BN * 4) + 64 + 1024;
+  // Q, dO, the K and V stages, the mbarriers
+  static constexpr int Q_SMEM = 2 * BIG + STAGES * 2 * KEYS + 64 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// D[16 x 8] += A[16 x 16] . B[16 x 8], bf16 in, f32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the B fragments of two n-tiles of 8 columns from a row-major [k][n]
-// tile: lane gives the address of row (lane & 15), column block lane >> 4
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// (x0, x1) = hi + lo, each a bf16 pair
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-
-// A fragments (hi, lo) of k-step kk of a [16 x 8 n] accumulator row:
-// tiles 2 kk and 2 kk + 1 hold its 16 columns
-__device__ __forceinline__ void a_frags(const float (&c)[4][4], int kk,
-                                        uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  split(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
-  split(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
-  split(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
-  split(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
-}
-
-// A fragment of rows r0 .. r0 + 15, d columns 16 kk .. 16 kk + 15 of a
-// row-major tile
-template <int S>
-__device__ __forceinline__ void a_rows(uint32_t (&a)[4], const bf16* tile,
-                                       int r0, int kk, int g, int t) {
-  const bf16* p = tile + (r0 + g) * S + kk * 16 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * S);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * S + 8);
-}
-
-// rows row0 .. row0 + rows - 1 of a [s][D] head into a tile of stride S;
-// rows past s zero-filled
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* head,
-                                          int row0, int s, int rows,
-                                          int tid) {
-  constexpr int CPR = D / 8, S = Geo<D>::S;
-  for (int c = tid; c < rows * CPR; c += THREADS) {
-    const int r = c / CPR, col = (c - r * CPR) * 8;
-    const bool in = row0 + r < s;
-    const bf16* src = in ? head + (int64_t)(row0 + r) * D + col : head;
-    cp_async16(smem_u32(dst + r * S + col), src, in ? 16 : 0);
-  }
-}
 
 __device__ __forceinline__ float lse2_of(float l) {
   return l == -CUDART_INF_F ? CUDART_INF_F : l * LOG2E;
+}
+
+// a position in a ring of N stages: the stage, and the parity of the
+// phase its mbarriers are in (counters, not divisions: the producer has
+// 24 registers)
+template <int N>
+struct Ring {
+  int st = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++st == N) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// (x0, x1) as bf16 pairs hi and lo = (x - hi): the A operand's register
+// for a pair of an accumulator's entries, in two parts
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = pack_bf16(x0 - __low2float(h2), x1 - __high2float(h2));
+}
+
+// acc = A B^T over d: A rows a_addr (a tile of a_rows rows), B rows b_addr
+// (b_rows rows, N of them used), both K-major [NSUB][rows][64]
+template <int D, int N>
+__device__ __forceinline__ void ss_over_d(float (&acc)[N / 2],
+                                          uint32_t a_addr, int a_rows,
+                                          uint32_t b_addr, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t sub = kk / 4, within = (kk % 4) * 32;
+    MMA<N>::ss(acc,
+               desc(a_addr + sub * a_rows * SUB_BYTES_PER_ROW + within, 16,
+                    1024),
+               desc(b_addr + sub * b_rows * SUB_BYTES_PER_ROW + within, 16,
+                    1024),
+               kk > 0);
+  }
+}
+
+// acc += (hi + lo) B over K: B a [K rows][D] tile read MN-major
+template <int D, int K>
+__device__ __forceinline__ void rs_split(float (&acc)[D / 2],
+                                         const uint32_t (&hi)[K / 16][4],
+                                         const uint32_t (&lo)[K / 16][4],
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t db = desc(b_addr + kk * 16 * SUB_BYTES_PER_ROW,
+                             K * SUB_BYTES_PER_ROW, 1024);
+    MMA<D>::rs(acc, hi[kk], db);
+    MMA<D>::rs(acc, lo[kk], db);
+  }
+}
+
+// rows ra and rb = ra + 8 of a [64 x D] accumulator (entry 4 j + e: row
+// ra, column 8 j + 2 (lane % 4) + e; 4 j + 2 + e: row rb) times `mul` in
+// bf16 to a [s][D] head; rows past s not written
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* head, const float (&acc)[D / 2],
+                                           int ra, int s, int lane,
+                                           float mul) {
+  const int rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    if (ra < s)
+      *reinterpret_cast<uint32_t*>(head + (int64_t)ra * D + col) =
+          pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (rb < s)
+      *reinterpret_cast<uint32_t*>(head + (int64_t)rb * D + col) =
+          pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
 }
 
 // ---- D = rowsum(dO * O) ----------------------------------------------------
@@ -202,280 +223,354 @@ bwd_pre_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 // ---- dK, dV --------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dk,
                 bf16* __restrict__ dv, int hq, int hkv, int s, int causal,
                 float scale_log2, float scale) {
-  constexpr int S = Geo<D>::S, NKD = D / 16, NND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][S]
-  bf16* Vs = Ks + BKV * S;                        // [BKV][S]
-  bf16* Qs = Vs + BKV * S;                        // [2][BQ_KV][S]
-  bf16* dOs = Qs + 2 * BQ_KV * S;                 // [2][BQ_KV][S]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ_KV * S);  // [2][BQ_KV]
-  float* Ds = Ls + 2 * BQ_KV;                                  // [2][BQ_KV]
+  using G = Geo<D>;
+  constexpr int NSUB = G::NSUB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);           // [NSUB][BM][64]
+  uint8_t* sV = sK + G::BIG;                   // [NSUB][BM][64]
+  uint8_t* sQ = sV + G::BIG;                   // [STAGES][NSUB][BN][64]
+  uint8_t* sdO = sQ + STAGES * G::ROWS;        // [STAGES][NSUB][BN][64]
+  float* sL = reinterpret_cast<float*>(sdO + STAGES * G::ROWS);  // [STAGES][BN]
+  float* sD = sL + STAGES * BN;                                   // [STAGES][BN]
+  // mbarriers: kv_full, full[STAGES], empty[STAGES]
+  const uint32_t bars = smem_u32(sD + STAGES * BN);
+  const uint32_t kv_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + STAGES + st); };
 
-  const int k0 = blockIdx.x * BKV;  // under causal the first tiles are the
-  const int hk = blockIdx.y, bi = blockIdx.z;  // longest: they start first
-  const int group = hq / hkv;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t kv_head = ((int64_t)bi * hkv + hk) * s * D;
+  const int hk = blockIdx.x, bi = blockIdx.y;
+  const int k0 = blockIdx.z * BM;  // under causal the first tiles are the
+  const int group = hq / hkv;      // longest: they start first
+  const int bh_kv = bi * hkv + hk;
+  // the walk: each query head of the group, over query tiles qt_begin
+  // .. qt_end - 1 (under causal from the tile of the CTA's first key)
+  const int qt_begin = causal ? k0 / BN : 0, qt_end = (s + BN - 1) / BN;
+  const int n_iter = group * (qt_end - qt_begin);
 
-  load_rows<D>(Ks, k + kv_head, k0, s, BKV, tid);
-  load_rows<D>(Vs, v + kv_head, k0, s, BKV, tid);
-  cp_async_commit();
-
-  const int qt_begin = causal ? k0 / BQ_KV : 0;
-  const int n_q = (s + BQ_KV - 1) / BQ_KV - qt_begin;
-  const int n_iter = group * n_q;
-  auto issue = [&](int it) {
-    const int64_t bh = (int64_t)bi * hq + hk * group + it / n_q;
-    const int q0 = (qt_begin + it % n_q) * BQ_KV;
-    const int st = it & 1;
-    load_rows<D>(Qs + st * BQ_KV * S, q + bh * s * D, q0, s, BQ_KV, tid);
-    load_rows<D>(dOs + st * BQ_KV * S, dout + bh * s * D, q0, s, BQ_KV,
-                 tid);
-    if (tid < BQ_KV) {
-      const int r = q0 + tid;
-      Ls[st * BQ_KV + tid] = r < s ? lse2_of(lse[bh * s + r]) : CUDART_INF_F;
-      Ds[st * BQ_KV + tid] = r < s ? delta[bh * s + r] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1 + 32);  // the TMA thread and warp 1's lanes
+      mbar_init(empty(st), 8);      // lane 0 of each consumer warp
     }
-  };
-
-  float dv_acc[NND][4], dk_acc[NND][4];
-#pragma unroll
-  for (int n = 0; n < NND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv_acc[n][e] = dk_acc[n][e] = 0.f;
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
-
-  issue(0);
-  cp_async_commit();
-  for (int it = 0; it < n_iter; ++it) {
-    if (it + 1 < n_iter) {
-      issue(it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = it & 1;
-    const int q0 = (qt_begin + it % n_q) * BQ_KV;
-    const bf16* Qt = Qs + st * BQ_KV * S;
-    const bf16* dOt = dOs + st * BQ_KV * S;
-    const float* Lt = Ls + st * BQ_KV;
-    const float* Dt = Ds + st * BQ_KV;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries a warp
-    float sT[4][4], dpT[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NKD; ++kk) {
-      uint32_t ak[4], av[4];
-      a_rows<S>(ak, Ks, warp * 16, kk, g, t);
-      a_rows<S>(av, Vs, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* qr = Qt + (j * 8 + g) * S + kk * 16 + 2 * t;
-        const bf16* dr = dOt + (j * 8 + g) * S + kk * 16 + 2 * t;
-        mma(sT[j], ak, ld32(qr), ld32(qr + 8));
-        mma(dpT[j], av, ld32(dr), ld32(dr + 8));
-      }
-    }
-    // P^T and dS^T; entry e of tile j: key (e < 2 ? key_a : key_b), query
-    // q0 + 8 j + 2 t + (e & 1)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1);
-        const int key = e < 2 ? key_a : key_b;
-        const bool vis = !causal || key <= q0 + col;
-        const float p =
-            vis ? exp2f(fmaf(sT[j][e], scale_log2, -Lt[col])) : 0.f;
-        sT[j][e] = p;
-        dpT[j][e] = p * (dpT[j][e] - Dt[col]);
-      }
-    }
-    // dV += P^T dO, dK += dS^T Q: the reduction runs over the 32 queries
-#pragma unroll
-    for (int kq = 0; kq < BQ_KV / 16; ++kq) {
-      uint32_t ph[4], pl[4], sh[4], sl[4];
-      a_frags(sT, kq, ph, pl);
-      a_frags(dpT, kq, sh, sl);
-      const int row = kq * 16 + (lane & 15), cb = (lane >> 4) * 8;
-#pragma unroll
-      for (int nd = 0; nd < NND / 2; ++nd) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, smem_u32(dOt + row * S + nd * 16 + cb));
-        mma(dv_acc[2 * nd], pl, b[0], b[1]);
-        mma(dv_acc[2 * nd], ph, b[0], b[1]);
-        mma(dv_acc[2 * nd + 1], pl, b[2], b[3]);
-        mma(dv_acc[2 * nd + 1], ph, b[2], b[3]);
-        ldsm_x4_trans(b, smem_u32(Qt + row * S + nd * 16 + cb));
-        mma(dk_acc[2 * nd], sl, b[0], b[1]);
-        mma(dk_acc[2 * nd], sh, b[0], b[1]);
-        mma(dk_acc[2 * nd + 1], sl, b[2], b[3]);
-        mma(dk_acc[2 * nd + 1], sh, b[2], b[3]);
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  bf16* dkp = dk + kv_head;
-  bf16* dvp = dv + kv_head;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: thread 0 issues the TMA loads, warp 1 lse and D ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * G::BIG);
+      for (int c = 0; c < NSUB; ++c)
+        tma_load(smem_u32(sK + c * BM * SUB_BYTES_PER_ROW), &tm_k, kv_full,
+                 c * SUB, k0, bh_kv);
+      for (int c = 0; c < NSUB; ++c)
+        tma_load(smem_u32(sV + c * BM * SUB_BYTES_PER_ROW), &tm_v, kv_full,
+                 c * SUB, k0, bh_kv);
+      Ring<STAGES> ring;
+      int bh = bi * hq + hk * group, qt = qt_begin;
+      for (int it = 0; it < n_iter; ++it, ring.next()) {
+        const int st = ring.st;
+        mbar_wait(empty(st), ring.ph ^ 1);
+        uint8_t* q = sQ + st * G::ROWS;
+        uint8_t* d = sdO + st * G::ROWS;
+        mbar_expect_tx(full(st), 2 * G::ROWS);
+        for (int c = 0; c < NSUB; ++c)
+          tma_load(smem_u32(q + c * BN * SUB_BYTES_PER_ROW), &tm_q, full(st),
+                   c * SUB, qt * BN, bh);
+        for (int c = 0; c < NSUB; ++c)
+          tma_load(smem_u32(d + c * BN * SUB_BYTES_PER_ROW), &tm_do,
+                   full(st), c * SUB, qt * BN, bh);
+        if (++qt == qt_end) {
+          qt = qt_begin;
+          ++bh;
+        }
+      }
+    } else if (warp == 1) {
+      Ring<STAGES> ring;
+      const int64_t bh0 = (int64_t)bi * hq + hk * group;
+      const float* lp = lse + bh0 * s;
+      const float* dp = delta + bh0 * s;
+      int qt = qt_begin;
+      for (int it = 0; it < n_iter; ++it, ring.next()) {
+        const int st = ring.st;
+        mbar_wait(empty(st), ring.ph ^ 1);
+        for (int r = lane; r < BN; r += 32) {
+          const int row = qt * BN + r;
+          sL[st * BN + r] = row < s ? lse2_of(lp[row]) : CUDART_INF_F;
+          sD[st * BN + r] = row < s ? dp[row] : 0.f;
+        }
+        mbar_arrive(full(st));
+        if (++qt == qt_end) {
+          qt = qt_begin;
+          lp += s;
+          dp += s;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cons = wg - 1;
+    const int t = threadIdx.x - wg * 128;
+    const int warp = t / 32, lane = t % 32;
+    const int kw = k0 + cons * 64;  // this warpgroup's first key
+    // this thread's keys (rows of S^T, dK, dV): ka and kb = ka + 8
+    const int ka = kw + warp * 16 + lane / 4, kb = ka + 8;
+    const uint32_t k_addr = smem_u32(sK) + cons * 64 * SUB_BYTES_PER_ROW;
+    const uint32_t v_addr = k_addr + G::BIG;
+    float dv_acc[D / 2], dk_acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (key_a < s) {
-      *reinterpret_cast<uint32_t*>(dvp + (int64_t)key_a * D + col) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
-      *reinterpret_cast<uint32_t*>(dkp + (int64_t)key_a * D + col) =
-          pack_bf16(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
+    for (int j = 0; j < D / 2; ++j) dv_acc[j] = dk_acc[j] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    Ring<STAGES> ring;
+    int qt = qt_begin;
+    for (int it = 0; it < n_iter; ++it, ring.next()) {
+      const int st = ring.st;
+      const int q0 = qt * BN;
+      if (++qt == qt_end) qt = qt_begin;
+      mbar_wait(full(st), ring.ph);
+      if (causal && kw > q0 + BN - 1) {  // every key after every query
+        if (lane == 0) mbar_arrive(empty(st));
+        continue;
+      }
+      const uint32_t q_addr = smem_u32(sQ + st * G::ROWS);
+      const uint32_t do_addr = smem_u32(sdO + st * G::ROWS);
+
+      // S^T = K Q^T, dP^T = V dO^T: 64 keys x 64 queries
+      float sT[BN / 2], dpT[BN / 2];
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) sT[j] = dpT[j] = 0.f;
+      wgmma_fence();
+      ss_over_d<D, BN>(sT, k_addr, BM, q_addr, BN);
+      ss_over_d<D, BN>(dpT, v_addr, BM, do_addr, BN);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sT);
+      fence_regs(dpT);
+
+      // P^T and dS^T as A fragments, hi and lo, one k-step of 16 queries
+      // at a time: register r of k-step kk holds entries 8 kk + 2 r, + 1,
+      // of key ka (r even) or kb (r odd) and queries q0 + col, + 1
+      const bool mask = causal && kw + 63 > q0;
+      const float* Lt = sL + st * BN;
+      const float* Dt = sD + st * BN;
+      uint32_t ph[BN / 16][4], pl[BN / 16][4], sh[BN / 16][4], sl[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const int col = 16 * kk + 8 * (r >> 1) + 2 * (lane & 3);
+          const float2 l2 = *reinterpret_cast<const float2*>(Lt + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(Dt + col);
+          float p0 = exp2f(fmaf(sT[i], scale_log2, -l2.x));
+          float p1 = exp2f(fmaf(sT[i + 1], scale_log2, -l2.y));
+          if (mask) {
+            const int key = r & 1 ? kb : ka;
+            if (key > q0 + col) p0 = 0.f;
+            if (key > q0 + col + 1) p1 = 0.f;
+          }
+          split(p0, p1, ph[kk][r], pl[kk][r]);
+          split(p0 * (dpT[i] - d2.x), p1 * (dpT[i + 1] - d2.y), sh[kk][r],
+                sl[kk][r]);
+        }
+      }
+
+      // dV += P^T dO, dK += dS^T Q: the reduction runs over the 64 queries
+      wgmma_fence();
+      rs_split<D, BN>(dv_acc, ph, pl, do_addr);
+      rs_split<D, BN>(dk_acc, sh, sl, q_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      if (lane == 0) mbar_arrive(empty(st));
     }
-    if (key_b < s) {
-      *reinterpret_cast<uint32_t*>(dvp + (int64_t)key_b * D + col) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
-      *reinterpret_cast<uint32_t*>(dkp + (int64_t)key_b * D + col) =
-          pack_bf16(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
-    }
+
+    const int64_t head = (int64_t)bh_kv * s * D;
+    store_rows<D>(dv + head, dv_acc, ka, s, lane, 1.f);
+    store_rows<D>(dk + head, dk_acc, ka, s, lane, scale);
   }
 }
 
 // ---- dQ --------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int hq, int hkv, int s, int causal,
               float scale_log2, float scale) {
-  constexpr int S = Geo<D>::S, NKD = D / 16, NND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][S]
-  bf16* dOs = Qs + BQ * S;                        // [BQ][S]
-  bf16* Ks = dOs + BQ * S;                        // [2][BK_Q][S]
-  bf16* Vs = Ks + 2 * BK_Q * S;                   // [2][BK_Q][S]
+  using G = Geo<D>;
+  constexpr int NSUB = G::NSUB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);           // [NSUB][BM][64]
+  uint8_t* sdO = sQ + G::BIG;                  // [NSUB][BM][64]
+  uint8_t* sK = sdO + G::BIG;                  // [STAGES][NSUB][BKQ][64]
+  uint8_t* sV = sK + STAGES * G::KEYS;         // [STAGES][NSUB][BKQ][64]
+  // mbarriers: q_full, full[STAGES], empty[STAGES]
+  const uint32_t bars = smem_u32(sV + STAGES * G::KEYS);
+  const uint32_t q_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + STAGES + st); };
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t bh = (int64_t)bi * hq + h;
-  const int64_t kv_head = ((int64_t)bi * hkv + hk) * s * D;
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;  // longest tiles first
+  const int bh = bi * hq + h, bh_kv = bi * hkv + h / (hq / hkv);
+  const int kv_end = causal ? min(s, q0 + BM) : s;
+  const int n_iter = (kv_end + BKQ - 1) / BKQ;
 
-  load_rows<D>(Qs, q + bh * s * D, q0, s, BQ, tid);
-  load_rows<D>(dOs, dout + bh * s * D, q0, s, BQ, tid);
-  cp_async_commit();
-
-  const int kv_end = causal ? min(s, q0 + BQ) : s;
-  const int n_iter = (kv_end + BK_Q - 1) / BK_Q;
-  auto issue = [&](int it) {
-    const int st = it & 1;
-    load_rows<D>(Ks + st * BK_Q * S, k + kv_head, it * BK_Q, s, BK_Q, tid);
-    load_rows<D>(Vs + st * BK_Q * S, v + kv_head, it * BK_Q, s, BK_Q, tid);
-  };
-
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const float la = ra < s ? lse2_of(lse[bh * s + ra]) : CUDART_INF_F;
-  const float lb = rb < s ? lse2_of(lse[bh * s + rb]) : CUDART_INF_F;
-  const float da = ra < s ? delta[bh * s + ra] : 0.f;
-  const float db = rb < s ? delta[bh * s + rb] : 0.f;
-  float dq_acc[NND][4];
-#pragma unroll
-  for (int n = 0; n < NND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  issue(0);
-  cp_async_commit();
-  for (int it = 0; it < n_iter; ++it) {
-    if (it + 1 < n_iter) {
-      issue(it + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 8);
     }
-    __syncthreads();
-    const int st = it & 1, kb0 = it * BK_Q;
-    const bf16* Kt = Ks + st * BK_Q * S;
-    const bf16* Vt = Vs + st * BK_Q * S;
-
-    // S = Q K^T and dP = dO V^T: 16 queries x 32 keys a warp
-    float sc[4][4], dp[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NKD; ++kk) {
-      uint32_t aq[4], ad[4];
-      a_rows<S>(aq, Qs, warp * 16, kk, g, t);
-      a_rows<S>(ad, dOs, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bf16* kr = Kt + (j * 8 + g) * S + kk * 16 + 2 * t;
-        const bf16* vr = Vt + (j * 8 + g) * S + kk * 16 + 2 * t;
-        mma(sc[j], aq, ld32(kr), ld32(kr + 8));
-        mma(dp[j], ad, ld32(vr), ld32(vr + 8));
-      }
-    }
-    // dS; entry e of tile j: row (e < 2 ? ra : rb), key kb0 + 8 j + 2 t +
-    // (e & 1)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kb0 + 8 * j + 2 * t + (e & 1);
-        const int row = e < 2 ? ra : rb;
-        const bool vis = key < s && (!causal || key <= row);
-        const float p = vis ? exp2f(fmaf(sc[j][e], scale_log2,
-                                         -(e < 2 ? la : lb)))
-                            : 0.f;
-        dp[j][e] = p * (dp[j][e] - (e < 2 ? da : db));
-      }
-    }
-    // dQ += dS K: the reduction runs over the 32 keys
-#pragma unroll
-    for (int kk = 0; kk < BK_Q / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      a_frags(dp, kk, hi, lo);
-      const int row = kk * 16 + (lane & 15), cb = (lane >> 4) * 8;
-#pragma unroll
-      for (int nd = 0; nd < NND / 2; ++nd) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, smem_u32(Kt + row * S + nd * 16 + cb));
-        mma(dq_acc[2 * nd], lo, b[0], b[1]);
-        mma(dq_acc[2 * nd], hi, b[0], b[1]);
-        mma(dq_acc[2 * nd + 1], lo, b[2], b[3]);
-        mma(dq_acc[2 * nd + 1], hi, b[2], b[3]);
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  bf16* dqp = dq + bh * s * D;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * G::BIG);
+      for (int c = 0; c < NSUB; ++c)
+        tma_load(smem_u32(sQ + c * BM * SUB_BYTES_PER_ROW), &tm_q, q_full,
+                 c * SUB, q0, bh);
+      for (int c = 0; c < NSUB; ++c)
+        tma_load(smem_u32(sdO + c * BM * SUB_BYTES_PER_ROW), &tm_do, q_full,
+                 c * SUB, q0, bh);
+      for (int it = 0; it < n_iter; ++it) {
+        const int st = it % STAGES;
+        mbar_wait(empty(st), ((it / STAGES) & 1) ^ 1);
+        uint8_t* k = sK + st * G::KEYS;
+        uint8_t* v = sV + st * G::KEYS;
+        mbar_expect_tx(full(st), 2 * G::KEYS);
+        for (int c = 0; c < NSUB; ++c)
+          tma_load(smem_u32(k + c * BKQ * SUB_BYTES_PER_ROW), &tm_k, full(st),
+                   c * SUB, it * BKQ, bh_kv);
+        for (int c = 0; c < NSUB; ++c)
+          tma_load(smem_u32(v + c * BKQ * SUB_BYTES_PER_ROW), &tm_v, full(st),
+                   c * SUB, it * BKQ, bh_kv);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cons = wg - 1;
+    const int t = threadIdx.x - wg * 128;
+    const int warp = t / 32, lane = t % 32;
+    const int r0 = q0 + cons * 64;
+    // this thread's rows of S, dP and dQ: ra and rb = ra + 8
+    const int ra = r0 + warp * 16 + lane / 4, rb = ra + 8;
+    const float* lp = lse + (int64_t)bh * s;
+    const float* dp_ = delta + (int64_t)bh * s;
+    const float la = ra < s ? lse2_of(lp[ra]) : CUDART_INF_F;
+    const float lb = rb < s ? lse2_of(lp[rb]) : CUDART_INF_F;
+    const float da = ra < s ? dp_[ra] : 0.f;
+    const float db = rb < s ? dp_[rb] : 0.f;
+    const uint32_t q_addr = smem_u32(sQ) + cons * 64 * SUB_BYTES_PER_ROW;
+    const uint32_t do_addr = q_addr + G::BIG;
+    float dq_acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (ra < s)
-      *reinterpret_cast<uint32_t*>(dqp + (int64_t)ra * D + col) =
-          pack_bf16(dq_acc[n][0] * scale, dq_acc[n][1] * scale);
-    if (rb < s)
-      *reinterpret_cast<uint32_t*>(dqp + (int64_t)rb * D + col) =
-          pack_bf16(dq_acc[n][2] * scale, dq_acc[n][3] * scale);
+    for (int j = 0; j < D / 2; ++j) dq_acc[j] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int st = it % STAGES;
+      const int kb0 = it * BKQ;
+      mbar_wait(full(st), (it / STAGES) & 1);
+      if (causal && kb0 > r0 + 63) {  // every key after every row
+        if (lane == 0) mbar_arrive(empty(st));
+        continue;
+      }
+      const uint32_t k_addr = smem_u32(sK + st * G::KEYS);
+      const uint32_t v_addr = smem_u32(sV + st * G::KEYS);
+
+      // S = Q K^T, dP = dO V^T: 64 rows x BKQ keys
+      float sc[BKQ / 2], dp[BKQ / 2];
+#pragma unroll
+      for (int j = 0; j < BKQ / 2; ++j) sc[j] = dp[j] = 0.f;
+      wgmma_fence();
+      ss_over_d<D, BKQ>(sc, q_addr, BM, k_addr, BKQ);
+      ss_over_d<D, BKQ>(dp, do_addr, BM, v_addr, BKQ);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS as A fragments, hi and lo, one k-step of 16 keys at a time:
+      // register r of k-step kk holds entries 8 kk + 2 r, + 1, of row ra
+      // (r even) or rb (r odd) and keys kb0 + col, + 1
+      const bool mask = kb0 + BKQ > s || (causal && kb0 + BKQ - 1 > r0);
+      uint32_t hi[BKQ / 16][4], lo[BKQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKQ / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float l = r & 1 ? lb : la, dd = r & 1 ? db : da;
+          float p0 = exp2f(fmaf(sc[i], scale_log2, -l));
+          float p1 = exp2f(fmaf(sc[i + 1], scale_log2, -l));
+          if (mask) {
+            const int row = r & 1 ? rb : ra;
+            const int key = kb0 + 16 * kk + 8 * (r >> 1) + 2 * (lane & 3);
+            if (key >= s || (causal && key > row)) p0 = 0.f;
+            if (key + 1 >= s || (causal && key + 1 > row)) p1 = 0.f;
+          }
+          split(p0 * (dp[i] - dd), p1 * (dp[i + 1] - dd), hi[kk][r],
+                lo[kk][r]);
+        }
+      }
+
+      // dQ += dS K: the reduction runs over the BKQ keys
+      wgmma_fence();
+      rs_split<D, BKQ>(dq_acc, hi, lo, k_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dq_acc);
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+
+    store_rows<D>(dq + (int64_t)bh * s * D, dq_acc, ra, s, lane, scale);
   }
+}
+
+// ---- host side ------------------------------------------------------------
+
+// the four tensor maps of a launch: q and dO over [b * hq, s, d] with boxes
+// of q_rows rows, k and v over [b * hkv, s, d] with boxes of kv_rows
+template <int D>
+cudaError_t make_maps(CUtensorMap (&m)[4], const void* q, const void* k,
+                      const void* v, const void* dout, int b, int hq,
+                      int hkv, int s, int q_rows, int kv_rows) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return cudaErrorNotSupported;
+  if (!make_map(fn, &m[0], q, (int64_t)b * hq, s, D, q_rows) ||
+      !make_map(fn, &m[1], k, (int64_t)b * hkv, s, D, kv_rows) ||
+      !make_map(fn, &m[2], v, (int64_t)b * hkv, s, D, kv_rows) ||
+      !make_map(fn, &m[3], dout, (int64_t)b * hq, s, D, q_rows))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 template <int D>
@@ -484,16 +579,17 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const float* delta, void* dk, void* dv, int b,
                         int hq, int hkv, int s, int causal, float scale_log2,
                         float scale, cudaStream_t stream) {
-  constexpr int smem = Geo<D>::KV_SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  CUtensorMap m[4];
+  cudaError_t e = make_maps<D>(m, q, k, v, dout, b, hq, hkv, s, BN, BM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s + BKV - 1) / BKV, hkv, b);
+  constexpr int smem = Geo<D>::KV_SMEM;
+  e = cudaFuncSetAttribute(bwd_dkdv_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(hkv, b, (s + BM - 1) / BM);
   bwd_dkdv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv, s,
-      causal, scale_log2, scale);
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), hq, hkv, s, causal, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -502,15 +598,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int b, int hq, int hkv, int s, int causal,
                       float scale_log2, float scale, cudaStream_t stream) {
-  constexpr int smem = Geo<D>::Q_SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  CUtensorMap m[4];
+  cudaError_t e = make_maps<D>(m, q, k, v, dout, b, hq, hkv, s, BM, BKQ);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s + BQ - 1) / BQ, hq, b);
+  constexpr int smem = Geo<D>::Q_SMEM;
+  e = cudaFuncSetAttribute(bwd_dq_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(hq, b, (s + BM - 1) / BM);
   bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dq), hq, hkv, s, causal, scale_log2, scale);
+      m[0], m[1], m[2], m[3], lse, delta, static_cast<bf16*>(dq), hq, hkv,
+      s, causal, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -539,7 +637,8 @@ extern "C" int flash_attention_bwd_pre(const void* o, const void* dout,
 // q, dout [b, hq, s, d], k, v, dk, dv [b, hkv, s, d], all contiguous
 // bfloat16, 16-byte aligned; lse, delta [b, hq, s] float32; d in {64, 128};
 // hq % hkv == 0. dk and dv are summed over each KV head's group of query
-// heads. scale_log2 = softmax scale * log2(e). Returns cudaGetLastError().
+// heads. scale_log2 = softmax scale * log2(e). Returns cudaGetLastError()
+// after the launch (cudaErrorNotSupported if the driver has no tensor maps).
 extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const float* lse, const float* delta,

@@ -218,28 +218,42 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not q.numel():
         return dq, dk.zero_(), dv.zero_()
+    for launch in bwd_launches(q, k, v, o, do, lse, causal, dq, dk,
+                               dv).values():
+        launch()
+    return dq, dk, dv
+
+
+def bwd_launches(q, k, v, o, do, lse, causal, dq, dk, dv) -> dict:
+    """The backward's three launches on checked CUDA inputs, in order,
+    as {name: function that launches it}: the pre pass (D = rowsum(dO
+    O) into a scratch buffer), then dK/dV and dQ into the given outputs.
+    ``flash_attention_bwd`` runs them; ``chip_smoke.py`` also times the
+    last two apart."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
-    scale = 1.0 / math.sqrt(d)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_bwd_pre(o.data_ptr(), do.data_ptr(),
-                                         delta.data_ptr(), b * hq * s, d,
-                                         stream)
-        _build.check(rc, "flash_attention_bwd_pre")
-        _build.count_launch(LAUNCHES, "flash_attention_bwd_pre")
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr())
-        shape = (b, hq, hkv, s, d, int(causal), _scale_log2(d), scale,
-                 stream)
-        rc = lib.flash_attention_bwd_dkdv(*common, dk.data_ptr(),
-                                          dv.data_ptr(), *shape)
-        _build.check(rc, "flash_attention_bwd_dkdv")
-        _build.count_launch(LAUNCHES, "flash_attention_bwd_dkdv")
-        rc = lib.flash_attention_bwd_dq(*common, dq.data_ptr(), *shape)
-        _build.check(rc, "flash_attention_bwd_dq")
-        _build.count_launch(LAUNCHES, "flash_attention_bwd_dq")
-    return dq, dk, dv
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    tail = (b, hq, hkv, s, d, int(causal), _scale_log2(d), 1.0 / math.sqrt(d))
+
+    def launch(name, *args):
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            _build.check(getattr(lib, name)(*args, stream), name)
+            _build.count_launch(LAUNCHES, name)
+
+    return {
+        "flash_attention_bwd_pre": lambda: launch(
+            "flash_attention_bwd_pre", o.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), b * hq * s, d),
+        "flash_attention_bwd_dkdv": lambda: launch(
+            "flash_attention_bwd_dkdv", *common, dk.data_ptr(),
+            dv.data_ptr(), *tail),
+        "flash_attention_bwd_dq": lambda: launch(
+            "flash_attention_bwd_dq", *common, dq.data_ptr(), *tail),
+    }
 
 
 def decode_splits(batch: int, hkv: int, S: int) -> tuple[int, int]:
