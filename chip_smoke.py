@@ -148,7 +148,8 @@ Phases, each printing its wall time:
              step through the plain versions; crash after step 4 and
              --resume at 2 layers, the final state byte-equal to an
              uninterrupted run's; the fm config at train_batch (65,536 x
-             39 ids): its backward kernel on a step's rows, 20 counted,
+             39 ids): its backward kernel on a step's rows (the route its
+             plan takes printed; it must be the bulk stream), 20 counted,
              timed steps, crash and resume the same way;
 11. launches each kernel's launch count over the host-mode runs of
              phases 5, 6, 9, 9b, 10 and 10b (each counted from 0 just
@@ -161,9 +162,12 @@ Phases, each printing its wall time:
 With ``--profile``, each of Reach, CC and SSSP in host and in device
 mode, the serve prefill, four decode steps, the float32 prefill,
 granite-moe-3b-a800m's prefill, four decode steps and one MoE layer at
-decode (with a "moe dispatch" family), one serve_bulk batch and one
+decode (with a "moe dispatch" family), one serve_bulk batch, one
 qwen3-1.7b train step (with the cross-entropy and the AdamW update also
-timed alone by CUDA events) then run once more under
+timed alone by CUDA events) and one fm train_batch step (its families
+from the ops around each launch: gathers, the two FM kernels, the
+scatter into the table, accumulation into .grad, zeroing, global norm,
+AdamW, BCE; each beside its byte bound) then run once more under
 torch.profiler, which prints device time by kernel family, the device's
 busy share of the run's wall time and the busiest host ops (not part of
 the checks).
@@ -651,7 +655,22 @@ FAMILIES = (("fm_interaction (ours)", ("fm_kernel",)),
             ("memcpy/memset", ("memcpy", "memset")),
             ("index/scatter/gather", ("index", "scatter", "gather")),
             ("attention backward (ours)", ("bwd_dkdv", "bwd_dq", "bwd_pre")),
-            ("fm_interaction backward (ours)", ("fm_bwd_kernel",)))
+            ("fm_interaction backward (ours)", ("fm_bwd_kernel",
+                                                "fm_bwd_stream_kernel")))
+# the FM train step's families (``scoped_family``, in this order): the
+# kernels by name, then autograd's nodes and the step's record_function
+# scopes (``run_fm_train``) around the ops that launched the rest
+FM_STEP_FAMILIES = (
+    ("fm_interaction (ours)", ("fm_kernel",)),
+    ("fm_interaction backward (ours)", ("fm_bwd_",)),
+    ("scatter into the table (IndexSelectBackward)", ("indexselectbackward",)),
+    ("gathers (index_select)", ("indexselect", "aten::index_select")),
+    ("accumulate into .grad (AccumulateGrad)", ("accumulategrad",)),
+    ("zero the gradients", ("fm.zero_grads",)),
+    ("global norm", ("fm.global_norm",)),
+    ("AdamW", ("fm.adamw",)),
+    ("BCE, linear term and bias", ("fm.loss", "fm.backward",
+                                   "evaluate_function")))
 # in a MoE model's profile, after gemm: the router's softmax and top-k,
 # the dispatch's sort, searchsorted and scatter, the buffer's index copy
 # and gather (with them the embedding gather and the KV cache's index
@@ -671,13 +690,27 @@ def kernel_family(name: str, moe: bool = False) -> str:
     return "other elementwise/reduce"
 
 
-def profile_run(torch, name, fn, moe=False):
+def scoped_family(kernel: str, ops: list, families) -> str:
+    """The first of ``families`` ((family, marks), ...) with a mark in the
+    kernel's name or in the name of an op around its launch (``ops``, the
+    launching op and its parents, lower case)."""
+    names = [kernel.lower()] + ops
+    for family, marks in families:
+        if any(m in n for m in marks for n in names):
+            return family
+    return "other"
+
+
+def profile_run(torch, name, fn, moe=False, families=None):
     """``fn()`` under torch.profiler, once as a warm-up step and once
     recorded (a profile that is not the process's first drops the first
     kernels it sees): device time per kernel family (``moe``: with the
-    MoE dispatch's), the device's busy share (kernel time over the
+    MoE dispatch's; ``families``: by ``scoped_family``, which also reads
+    the ops around each launch, record_function scopes and autograd's
+    nodes included), the device's busy share (kernel time over the
     recorded run's wall time) and kernel count, and the host ops with
-    the most self CPU time."""
+    the most self CPU time. Returns {family: ms} (None when the profiler
+    saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -692,25 +725,52 @@ def profile_run(torch, name, fn, moe=False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
-    families: dict = {}
+    by_family: dict = {}
     top, host = [], []
-    for e in prof.key_averages():
+    device_ms = 0.0
+    averages = prof.key_averages()
+    # a record_function scope also shows on the device's timeline under
+    # its own name: not a kernel
+    cpu_names = {e.key for e in averages
+                 if getattr(e, "device_type", None) != DeviceType.CUDA}
+    for e in averages:
         if e.key.startswith("ProfilerStep"):    # the step's own range
             continue
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             host.append((e.self_cpu_time_total / 1e3, e.count, e.key[:60]))
             continue
+        if e.key in cpu_names:
+            continue
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0))
-        fam = kernel_family(e.key, moe)
-        ms, count = families.get(fam, (0.0, 0))
-        families[fam] = (ms + us / 1e3, count + e.count)
         top.append((us / 1e3, e.count, e.key[:90]))
+        device_ms += us / 1e3
+        if families is None:
+            fam = kernel_family(e.key, moe)
+            ms, count = by_family.get(fam, (0.0, 0))
+            by_family[fam] = (ms + us / 1e3, count + e.count)
+    if families is not None:
+        for e in prof.events():
+            if not getattr(e, "kernels", None):
+                continue
+            ops, op = [], e
+            while op is not None:
+                ops.append(op.name.lower())
+                op = op.cpu_parent
+            for kern in e.kernels:
+                fam = scoped_family(kern.name, ops, families)
+                ms, count = by_family.get(fam, (0.0, 0))
+                by_family[fam] = (ms + kern.duration / 1e3, count + 1)
+        # kernels whose launch no recorded op encloses
+        rest = device_ms - sum(ms for ms, _ in by_family.values())
+        if rest > 1e-3:
+            by_family["no op around the launch"] = (rest, 0)
+    families = by_family
     busy = sum(ms for ms, _ in families.values())
     if not families:
         print(f"profile {name}: the profiler saw no device time "
               f"(not measured)", flush=True)
-        return
+        return None
     kernels = sum(count for _, count in families.values())
     print(f"profile {name}: wall {wall_ms:.3f} ms under the profiler, "
           f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%) in "
@@ -724,6 +784,7 @@ def profile_run(torch, name, fn, moe=False):
     for ms, count, key in sorted(host, reverse=True)[:6]:
         print(f"    {ms:9.3f} ms  x{count:<5d} {key}")
     sys.stdout.flush()
+    return {fam: ms for fam, (ms, _) in families.items()}
 
 
 def profile_engine(torch, name, text, edbs, n, edge_cap, mode):
@@ -3090,19 +3151,91 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
     check_resume(torch, "qwen3-1.7b", ["--layers", "2", "--batch", "1"] + on,
                  "qwen3-1.7b resume (2 layers, 1 x 4096)")
     torch.cuda.empty_cache()
-    fm_counts, measured["fm_interaction_bwd"] = run_fm_train(torch, seed,
-                                                             device)
+    fm_counts, measured["fm_interaction_bwd"] = run_fm_train(
+        torch, seed, device, profile)
     add_counts(counts, fm_counts)
     check_resume(torch, "fm", on, "fm resume (train_batch)")
     return counts, measured
 
 
-def run_fm_train(torch, seed, device="cuda"):
+def fm_step_bounds(torch, model, ids) -> dict:
+    """Byte bounds (ms at HBM_BYTES_PER_S) of the FM train step's
+    families, each input read once and each output written once: the
+    gathers read the ids and the gathered rows of v and w and write them;
+    the two kernels as their kernel lines count them; the scatter reads
+    the rows' gradients and the ids and adds into the table's distinct
+    rows that the ids touch (read and write); zeroing writes the
+    gradients, the norm reads them; AdamW reads parameters, gradients
+    and both moments and writes parameters and moments; the BCE reads
+    the gathered w rows for the linear term and writes the logits and
+    their gradient."""
+    B, F = ids.shape
+    k = model.v.shape[1]
+    params = sum(p.numel() for p in model.param_tree().values())
+    touched = int(torch.unique(ids.clamp(0, model.v.shape[0] - 1)).numel())
+    rows = B * F * (k + 1) * 4
+    return {"gathers (index_select)": bound_ms(ids.numel() * 4 + 2 * rows),
+            "fm_interaction (ours)": bound_ms(B * F * k * 4 + B * 4),
+            "fm_interaction backward (ours)": bound_ms(2 * B * F * k * 4
+                                                       + B * 4),
+            "scatter into the table (IndexSelectBackward)": bound_ms(
+                rows + ids.numel() * 4 + 2 * touched * (k + 1) * 4),
+            "zero the gradients": bound_ms(params * 4),
+            "global norm": bound_ms(params * 4),
+            "AdamW": bound_ms(7 * params * 4),
+            "BCE, linear term and bias": bound_ms(B * F * 4 + 3 * B * 4)}
+
+
+def profile_fm_step(torch, model, state, batch, opt):
+    """One FM train step (``RecsysArch.step_fn``'s train_step: grad_tree,
+    loss_fn, backward, adamw_update) under the profiler, each call in a
+    record_function scope and the global norm inside AdamW in its own,
+    by FM_STEP_FAMILIES, each family beside its byte bound."""
+    from torch.profiler import record_function
+    from repro_torch.training import optim
+
+    norm = optim.global_norm
+
+    def scoped_norm(grads):
+        with record_function("fm.global_norm"):
+            return norm(grads)
+
+    def step():
+        with record_function("fm.zero_grads"):
+            grads = model.grad_tree()
+        with record_function("fm.loss"):
+            loss = model.loss_fn(batch["ids"], batch["labels"])
+        with record_function("fm.backward"):
+            loss.backward()
+        with record_function("fm.adamw"):
+            optim.adamw_update(state, grads, opt)
+
+    optim.global_norm = scoped_norm
+    try:
+        got = profile_run(torch, "fm train_batch step", step,
+                          families=FM_STEP_FAMILIES)
+    finally:
+        optim.global_norm = norm
+    if got:
+        bounds = fm_step_bounds(torch, model, batch["ids"])
+        print("  family: device ms against its byte bound (ms):")
+        for fam, ms in sorted(got.items(), key=lambda x: -x[1]):
+            b_ms = bounds.get(fam)
+            print(f"    {fam}: {ms:.4f} ms, bound "
+                  + (f"{b_ms:.4f} ms ({100 * b_ms / ms:.1f}%)" if b_ms
+                     else "none of its own"), flush=True)
+        print(f"    sum of the bounds {sum(bounds.values()):.4f} ms",
+              flush=True)
+
+
+def run_fm_train(torch, seed, device="cuda", profile=False):
     """The fm config at train_batch (65,536 x 39 ids from recsys_stream):
     the backward kernel against fm_interaction_bwd_ref on a step's
     gathered rows (the forward's tolerance, ``ref.fm_allowed_error``,
-    scaled by |g|, per value) and twice for the same bits, timed; then a
-    warm-up step and FM_TIMED_STEPS counted, timed steps."""
+    scaled by |g|, per value) and twice for the same bits, timed, with
+    the route its plan took (the bulk stream); then a warm-up step and
+    FM_TIMED_STEPS counted, timed steps; with ``profile`` one more step
+    under the profiler (``profile_fm_step``)."""
     import numpy as np
     from repro_torch.configs import get_arch
     from repro_torch.kernels import fm_interaction as FI
@@ -3123,6 +3256,11 @@ def run_fm_train(torch, seed, device="cuda"):
         x = torch.ones((1, 1), device=dev).expand(*rows.shape[:2])
         g = torch.randn((B,), generator=torch.Generator(dev).manual_seed(
             seed), device=dev) / B
+        plan = FI.backward_plan(x, rows)
+        print(f"fm_interaction backward at the train shape: route "
+              f"{plan.route} ({plan._asdict()})", flush=True)
+        if plan.route != "bulk":
+            raise AssertionError(f"the train shape took route {plan.route}")
         _, dv = FI.fm_interaction_bwd(x, rows, g, need_dx=False)
         _, again = FI.fm_interaction_bwd(x, rows, g, need_dx=False)
         _, want = ref.fm_interaction_bwd_ref(x, rows, g)
@@ -3168,6 +3306,8 @@ def run_fm_train(torch, seed, device="cuda"):
               f"over {FM_TIMED_STEPS} steps (max {max(times) * 1e3:.4f}); "
               f"{B / p50} examples/s; last loss {loss}, gnorm {gnorm}",
               flush=True)
+        if profile:
+            profile_fm_step(torch, model, state, next(batches), arch.opt)
         del model, state, batches
         torch.cuda.empty_cache()
     return counts, measured
@@ -3225,7 +3365,8 @@ def main(argv=None) -> int:
                     help="also profile Reach, CC, SSSP (host and device "
                          "mode), the serve path (bf16 prefill and decode, "
                          "f32 prefill, the granite-3b MoE prefill and "
-                         "decode) and a serve_bulk batch on the card")
+                         "decode), a serve_bulk batch and the qwen3 and fm "
+                         "train steps on the card")
     args = ap.parse_args(argv)
 
     import torch

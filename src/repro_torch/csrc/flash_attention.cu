@@ -60,17 +60,6 @@ constexpr int STAGE_BYTES = 16384;            // of K, and as much of V
 constexpr int UK = 4;                         // row steps per max update
 constexpr int DECODE_SMEM = 2 * STAGES * STAGE_BYTES + 2 * STAGES * 8;
 
-// a 1-D bulk copy (TMA without a tensor map) of `bytes` (a multiple of
-// 16) from global to shared memory, completion counted on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // 16 bytes at p (shared or global memory) as floats
 __device__ __forceinline__ void load16(const float* p, float (&out)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);

@@ -1,7 +1,9 @@
 // mbarrier helpers (sm_90 PTX) for the kernels that stream tiles into
 // shared memory with the Tensor Memory Accelerator: a producer thread
 // arms a barrier with the bytes it expects, the copies count them off,
-// and the consumers wait on the phase's parity.
+// and the consumers wait on the phase's parity. Beside them the 1-D bulk
+// copies (TMA without a tensor map): a load that completes on such a
+// barrier, and a store that completes in the issuing thread's bulk groups.
 #pragma once
 #include <stdint.h>
 
@@ -41,6 +43,53 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// a 1-D bulk copy (TMA without a tensor map) of `bytes` (a multiple of
+// 16) from global to shared memory, completion counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared to global memory, in the issuing thread's open bulk
+// group. The threads that wrote the source issue fence_proxy_async() before
+// the barrier that lets this thread issue it.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+// closes the issuing thread's open bulk group
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of the issuing thread's bulk groups still read
+// their shared-memory source (the source may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until at most N of the issuing thread's bulk groups are pending
+// (their writes done)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic writes to shared memory before later reads
+// of them by the async proxy (a bulk store)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace

@@ -11,7 +11,12 @@ backward the kernel's backward entry (launch key ``fm_interaction_bwd``;
 ``fm_interaction_bwd_ref`` on the CPU), which gives
 dv_fk = g x_f (S_k - x_f v_fk) with S_k = sum_f x_f v_fk, and dx only when
 x requires grad. A shared v [f, k] gets its per-row terms summed over
-rows by the wrapper (in float32, rounded once to v's dtype).
+rows by the wrapper (in float32, rounded once to v's dtype). The backward
+takes one of two routes, which ``bwd_plan`` picks before the launch from
+shapes, strides and alignment: "bulk", a stream of tiles of whole rows
+through a ring of shared-memory stages by 1-D bulk copies (per-row v
+contiguous across rows), or "staged", the forward's blocks and staging
+(every other form).
 
 Contract (``repro.kernels.ops.fm_interaction``, with its ``jax.vmap``
 over rows written out as a batch dimension of ``v``):
@@ -26,6 +31,8 @@ over rows written out as a batch dimension of ``v``):
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +42,123 @@ LAUNCHES = {"fm_interaction": 0, "fm_interaction_bwd": 0}
 MAX_K = 32      # the lanes of one row's factor columns lie in one warp
 
 fm_interaction_plain = ref.fm_interaction_ref
+
+# the backward's bulk route (csrc/fm_interaction.cu, fm_bwd_stream_kernel)
+TILE_BYTES = 19_200       # a tile's target bytes of v: 12 rows of 39 x 10
+MAX_STAGES = 4            # the plan's deepest ring (the kernel takes 8)
+CTAS_PER_SM = (2, 1)      # resident CTAs a multiprocessor, tried in order
+SMEM_PER_SM = 233_472     # 228 KB a streaming multiprocessor, of which
+SMEM_RESERVED = 1024      # 1 KB is reserved for each resident block
+SMEM_PER_BLOCK = 232_448  # 227 KB of dynamic shared memory a block
+ROUTES = {"staged": 0, "bulk": 1}
+STAGED_THREADS = 256      # the staged kernel's block
+STAGED_FLOATS = 8192      # and its shared memory (32 KB)
+
+
+class BwdPlan(NamedTuple):
+    """How ``fm_interaction_bwd`` runs: ``route`` "bulk" or "staged";
+    ``rows`` a tile (bulk) or a block (staged); ``stages`` of the bulk
+    ring (1 for staged); ``ctas`` launched; ``tiles`` of ``rows`` rows;
+    ``smem`` bytes of shared memory a CTA; ``span`` bytes of v a full
+    tile (bulk; 0 for staged); ``ctas_per_sm`` the plan counts on."""
+    route: str
+    rows: int
+    stages: int
+    ctas: int
+    tiles: int
+    smem: int
+    span: int
+    ctas_per_sm: int
+
+
+def _round_up(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+def stream_smem(rows: int, f: int, k: int, itemsize: int,
+                stages: int) -> int:
+    """Bytes of shared memory of a bulk-route CTA (``stream_layout`` in
+    the kernel): the ring's 128-byte aligned stages of ``rows`` rows, S
+    [rows, k], g [rows] and x [rows, f] in float32, two mbarriers a
+    stage."""
+    stage = _round_up(rows * f * k * itemsize, 128)
+    return (stages * stage + _round_up(rows * k * 4, 16)
+            + _round_up(rows * 4, 16) + _round_up(rows * f * 4, 16)
+            + 2 * stages * 8)
+
+
+def bwd_plan(b: int, f: int, k: int, itemsize: int, per_row: bool,
+             sv_b: int, v_ptr: int, dv_ptr: int, sms: int) -> BwdPlan:
+    """The backward's route for b rows of v [f, k] (``per_row``: one
+    matrix a row, ``sv_b`` elements apart; else one shared matrix) at
+    addresses ``v_ptr`` and ``dv_ptr`` on a card of ``sms``
+    multiprocessors.
+
+    Bulk when v is per row and contiguous across rows (``sv_b == f * k``,
+    or b = 1), v and dv are 16-byte aligned, and a ring of at least two
+    stages fits: R is the largest multiple of 16 / gcd(row bytes, 16)
+    (so that every tile's span is whole 16-byte units, and starts
+    16-byte aligned) whose tile holds at most ``TILE_BYTES``, at least
+    that multiple; as many stages as fit up to ``MAX_STAGES`` with
+    ``CTAS_PER_SM`` CTAs on a multiprocessor (two, else one); the CTAs
+    take equal shares of the tiles (ceil(tiles / rounds) CTAs for the
+    fewest rounds the resident CTAs allow). Staged otherwise: the
+    forward's blocks of 256 / KP rows, the fields in chunks of 32 KB."""
+    row_bytes = f * k * itemsize
+    L = f * k
+    if (per_row and (b == 1 or sv_b == L) and v_ptr % 16 == 0
+            and dv_ptr % 16 == 0):
+        step = 16 // math.gcd(row_bytes, 16)
+        rows = max(step, TILE_BYTES // row_bytes // step * step)
+        tiles = -(-b // rows)
+        for per_sm in CTAS_PER_SM:
+            budget = min(SMEM_PER_SM // per_sm - SMEM_RESERVED,
+                         SMEM_PER_BLOCK)
+            stages = max((s for s in range(1, MAX_STAGES + 1)
+                          if stream_smem(rows, f, k, itemsize, s)
+                          <= budget), default=0)
+            # the kernel's quotients by one multiply are exact while
+            # R * (f k)**2 <= 2**32
+            if stages >= 2 and rows * L * L <= 1 << 32:
+                rounds = -(-tiles // (per_sm * sms))
+                return BwdPlan("bulk", rows, stages, -(-tiles // rounds),
+                               tiles, stream_smem(rows, f, k, itemsize,
+                                                  stages),
+                               rows * row_bytes, per_sm)
+    kp = 1 << (k - 1).bit_length()
+    rows = STAGED_THREADS // kp
+    shared = not per_row or b == 1 or sv_b == 0    # the kernel's sv_b == 0
+    per_field = rows + (k if shared else rows * k)
+    fc = max(1, min(f, STAGED_FLOATS // per_field))
+    blocks = -(-b // rows)
+    smem = 4 * (rows * fc + (1 if shared else rows) * fc * k)
+    return BwdPlan("staged", rows, 1, blocks, blocks, smem, 0, 0)
+
+
+_SMS: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+    """Multiprocessors of a CUDA device (cached)."""
+    idx = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS[idx]
+
+
+def backward_plan(x: torch.Tensor, v: torch.Tensor,
+                  dv: torch.Tensor | None = None) -> BwdPlan:
+    """The plan ``fm_interaction_bwd`` takes for these CUDA inputs (with
+    ``dv`` None: for a new dv from ``torch.empty``, 16-byte aligned)."""
+    sv_b = _check(x, v)
+    b, f = x.shape
+    k = v.shape[-1]
+    per_row = v.dim() == 3
+    return bwd_plan(b, f, k, v.element_size(), per_row,
+                    v.stride(0) if per_row else 0, v.data_ptr(),
+                    0 if dv is None else dv.data_ptr(), _sms(v.device))
 
 
 def _check(x: torch.Tensor, v: torch.Tensor) -> int:
@@ -130,13 +254,15 @@ def fm_interaction_bwd(x: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     dx = torch.empty((b, f), dtype=x.dtype, device=x.device) if (
         need_dx) else None
     if b:
+        plan = backward_plan(x, v, dv)
         lib = _fn()
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = lib.fm_interaction_bwd(
                 x.data_ptr(), x.stride(0), x.stride(1), v.data_ptr(), sv_b,
                 g.data_ptr(), int(x.dtype == torch.bfloat16), b, f, k,
-                dv.data_ptr(), dx.data_ptr() if need_dx else None, stream)
+                dv.data_ptr(), dx.data_ptr() if need_dx else None,
+                ROUTES[plan.route], plan.rows, plan.stages, plan.ctas, stream)
         _build.check(rc, "fm_interaction_bwd")
         _build.count_launch(LAUNCHES, "fm_interaction_bwd")
     if v.dim() == 2:        # one matrix for every row: sum the rows' terms
@@ -152,6 +278,6 @@ def _fn():
         f.argtypes = [P, I64, I64, P, I64, I, I64, I64, I, P, P]
         f.restype = I
         lib.fm_interaction_bwd.argtypes = [P, I64, I64, P, I64, P, I, I64,
-                                           I64, I, P, P, P]
+                                           I64, I, P, P, I, I, I, I, P]
         lib.fm_interaction_bwd.restype = I
     return lib

@@ -980,12 +980,26 @@ def test_attention_autograd_on_card_matches_plain(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,f,k,form", [
     (65536, 39, 10, "ones"), (1000, 39, 10, "strided_x"),
-    (333, 100, 16, "ones"), (77, 13, 4, "shared"), (4096, 400, 32, "ones")])
+    (333, 100, 16, "ones"), (77, 13, 4, "shared"), (4096, 400, 32, "ones"),
+    (65537, 39, 10, "ones"), (4096, 39, 10, "offset"),
+    (500, 39, 10, "strided_v"), (64, 2000, 32, "ones"),
+    (1001, 13, 3, "strided_x")])
 def test_fm_interaction_bwd_matches_plain(cuda, dtype, b, f, k, form):
     """The FM backward kernel against fm_interaction_bwd_ref: dv (and dx
     when x is not the broadcast ones) within 1e-5 of the row's
     |S| + |v| sums times |g| (float32; bfloat16 also one unit of the
-    value), the same bits on a repeat; 400 fields take several chunks."""
+    value), the same bits on a repeat. The plan's route: bulk for per-row
+    v contiguous across rows (65,537 rows: a tail tile of one row; 13 x 3
+    values a row: tails that end inside a 16-byte unit; 400 x 32: a row a
+    tile), staged for a shared v, a v one element past an aligned base
+    ("offset"), a batch stride of f k + 8 ("strided_v") and 2000 x 32
+    (a row too large for two stages, the fields in several chunks).
+    bfloat16 dv is held against the plain version in float64 on the same
+    inputs, with the tolerance unchanged: the kernel and the float32 plain
+    version each round a float32 value to bfloat16, and where the exact
+    value lies on a rounding midpoint they may round to neighbouring
+    values, a full unit apart, while 2**-8 of a value just above a power
+    of two is half a unit (the strided_v case meets one such value)."""
     from repro_torch.kernels import fm_interaction as FI, ref
     gen = torch.Generator(device=cuda).manual_seed(b)
     x = (torch.ones((1, 1), device=cuda).expand(b, f) if form == "ones"
@@ -996,6 +1010,15 @@ def test_fm_interaction_bwd_matches_plain(cuda, dtype, b, f, k, form):
                     generator=gen, device=cuda) * 0.1
     g = torch.randn((b,), generator=gen, device=cuda)
     x, v, g = x.to(dtype), v.to(dtype), g.to(dtype)
+    if form == "offset":
+        v = torch.cat([v.new_zeros(1), v.reshape(-1)])[1:].view(b, f, k)
+    if form == "strided_v":
+        wide = v.new_zeros((b, f * k + 8))
+        wide[:, :f * k] = v.reshape(b, f * k)
+        v = wide[:, :f * k].view(b, f, k)
+    route = ("staged" if form in ("shared", "offset", "strided_v")
+             or f == 2000 else "bulk")
+    assert FI.backward_plan(x, v).route == route
     need_dx = form != "ones"
     dx, dv = FI.fm_interaction_bwd(x, v, g, need_dx=need_dx)
     rdx, rdv = ref.fm_interaction_bwd_ref(x, v, g)
@@ -1008,6 +1031,8 @@ def test_fm_interaction_bwd_matches_plain(cuda, dtype, b, f, k, form):
     if form == "shared":
         allowed = allowed.sum(0)
     if dtype == torch.bfloat16:
+        rdv = ref.fm_interaction_bwd_ref(x.double(), v.double(),
+                                         g.double())[1]
         allowed = allowed + rdv.float().abs() * 2 ** -8
     assert bool(((dv.float() - rdv.float()).abs() <= allowed).all())
     if need_dx:
