@@ -151,8 +151,28 @@ Phases, each printing its wall time:
              39 ids): its backward kernel on a step's rows (the route its
              plan takes printed; it must be the bulk stream), 20 counted,
              timed steps, crash and resume the same way;
+10c. gnn    the four GNNs trained at full width and depth through
+             launch/train.py's pieces (float32, TF32 off, deterministic
+             algorithms on), each on the largest shape one card holds,
+             with the reference launcher's graph: gatedgcn (16 layers, d
+             70) on minibatch_lg (169,984 nodes, 168,960 edges, 602
+             features), gat-cora on full_graph_sm (2,720 nodes, 10,560
+             edges), dimenet (6 blocks, 128) and nequip (5 layers, 32
+             channels, l_max 2) on molecule (3,840 atoms, 8,192 edges,
+             dimenet's 131,072 triplets); 3 warm-up steps (the first
+             capturing the segment reduce's first calls), then 10 counted,
+             timed steps (p50 and p99, edges/s, peak memory, finite
+             losses, the kernel's launches a step and in one forward and
+             one backward apart, the model-FLOP share at 67 TFLOP/s); the
+             kernel against its plain version on the captured inputs
+             (gatedgcn's and dimenet's layer 0, GAT's scores and weights,
+             nequip's three widths: max and min bit-equal with equal tie
+             counts, sums within 1e-5 of scale), timed at gatedgcn's shape
+             beside scatter_reduce; a 2-layer gatedgcn step through the
+             kernel against the plain one (loss 1e-6 relative, gradients
+             1e-4 of scale); crash and resume of gatedgcn at 2 layers;
 11. launches each kernel's launch count over the host-mode runs of
-             phases 5, 6, 9, 9b, 10 and 10b (each counted from 0 just
+             phases 5, 6, 9, 9b, 10, 10b and 10c (each counted from 0 just
              before it), and apart the engine kernels' calls in phases 7 and 8,
              in phase durable (a kernel inside a captured graph once
              per capture, so a memo hit adds nothing) and in the sharded
@@ -167,7 +187,10 @@ qwen3-1.7b train step (with the cross-entropy and the AdamW update also
 timed alone by CUDA events) and one fm train_batch step (its families
 from the ops around each launch: gathers, the two FM kernels, the
 scatter into the table, accumulation into .grad, zeroing, global norm,
-AdamW, BCE; each beside its byte bound) then run once more under
+AdamW, BCE; each beside its byte bound) and one gatedgcn
+minibatch_lg step (its families the same way, with the segment reduce,
+its backward's gathers and the scatter of the gathers' gradients) then
+run once more under
 torch.profiler, which prints device time by kernel family, the device's
 busy share of the run's wall time and the busiest host ops (not part of
 the checks).
@@ -3186,39 +3209,41 @@ def fm_step_bounds(torch, model, ids) -> dict:
             "BCE, linear term and bias": bound_ms(B * F * 4 + 3 * B * 4)}
 
 
-def profile_fm_step(torch, model, state, batch, opt):
-    """One FM train step (``RecsysArch.step_fn``'s train_step: grad_tree,
-    loss_fn, backward, adamw_update) under the profiler, each call in a
-    record_function scope and the global norm inside AdamW in its own,
-    by FM_STEP_FAMILIES, each family beside its byte bound."""
+def profile_step(torch, name, model, state, loss, opt, scope, families,
+                 bounds):
+    """One train step (``grad_tree``, ``loss()``, backward,
+    ``adamw_update``) under the profiler, each call in a record_function
+    scope named ``scope``.zero_grads / .loss / .backward / .adamw and the
+    global norm inside AdamW in ``scope``.global_norm, by ``families``
+    (``scoped_family``), each family beside its bound from ``bounds``
+    (family -> ms, or a callable giving that dict)."""
     from torch.profiler import record_function
     from repro_torch.training import optim
 
     norm = optim.global_norm
 
     def scoped_norm(grads):
-        with record_function("fm.global_norm"):
+        with record_function(f"{scope}.global_norm"):
             return norm(grads)
 
     def step():
-        with record_function("fm.zero_grads"):
+        with record_function(f"{scope}.zero_grads"):
             grads = model.grad_tree()
-        with record_function("fm.loss"):
-            loss = model.loss_fn(batch["ids"], batch["labels"])
-        with record_function("fm.backward"):
-            loss.backward()
-        with record_function("fm.adamw"):
+        with record_function(f"{scope}.loss"):
+            value = loss()
+        with record_function(f"{scope}.backward"):
+            value.backward()
+        with record_function(f"{scope}.adamw"):
             optim.adamw_update(state, grads, opt)
 
     optim.global_norm = scoped_norm
     try:
-        got = profile_run(torch, "fm train_batch step", step,
-                          families=FM_STEP_FAMILIES)
+        got = profile_run(torch, name, step, families=families)
     finally:
         optim.global_norm = norm
     if got:
-        bounds = fm_step_bounds(torch, model, batch["ids"])
-        print("  family: device ms against its byte bound (ms):")
+        bounds = bounds() if callable(bounds) else bounds
+        print("  family: device ms against its bound (ms):")
         for fam, ms in sorted(got.items(), key=lambda x: -x[1]):
             b_ms = bounds.get(fam)
             print(f"    {fam}: {ms:.4f} ms, bound "
@@ -3226,6 +3251,15 @@ def profile_fm_step(torch, model, state, batch, opt):
                      else "none of its own"), flush=True)
         print(f"    sum of the bounds {sum(bounds.values()):.4f} ms",
               flush=True)
+
+
+def profile_fm_step(torch, model, state, batch, opt):
+    """One FM train step (``RecsysArch.step_fn``'s train_step) under the
+    profiler by FM_STEP_FAMILIES, each family beside its byte bound."""
+    profile_step(torch, "fm train_batch step", model, state,
+                 lambda: model.loss_fn(batch["ids"], batch["labels"]), opt,
+                 "fm", FM_STEP_FAMILIES,
+                 lambda: fm_step_bounds(torch, model, batch["ids"]))
 
 
 def run_fm_train(torch, seed, device="cuda", profile=False):
@@ -3313,6 +3347,304 @@ def run_fm_train(torch, seed, device="cuda", profile=False):
     return counts, measured
 
 
+# -- phase gnn: the GNNs' training -------------------------------------------
+
+# (arch, shape): each at full width and depth on the largest shape of
+# GNN_SHAPES one card holds (PERF.md section 4)
+GNN_RUNS = (("gatedgcn", "minibatch_lg"), ("gat-cora", "full_graph_sm"),
+            ("dimenet", "molecule"), ("nequip", "molecule"))
+GNN_WARMUP_STEPS, GNN_TIMED_STEPS = 3, 10
+# the segment reduce's calls captured from a step (layer 0's first)
+GNN_CAPTURED = {"gatedgcn": 2, "gat-cora": 2, "dimenet": 1, "nequip": 3}
+SUM_SHARE = 1e-5        # kernel against plain float sums: of the output's scale
+# the gatedgcn step's families (``scoped_family``, in this order): the
+# kernels by name, then autograd's nodes and profile_step's scopes
+GNN_STEP_FAMILIES = (
+    ("segment_reduce (ours)", ("reduce_tiles", "fill_identity",
+                               "combine_crossing")),
+    ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+    ("segment_reduce backward (gather)", ("_segmentreducebackward",)),
+    ("scatter of the gathers' gradients (IndexSelectBackward)",
+     ("indexselectbackward",)),
+    ("gathers (index_select)", ("indexselect",)),
+    ("accumulate into .grad (AccumulateGrad)", ("accumulategrad",)),
+    ("zero the gradients", ("gnn.zero_grads",)),
+    ("global norm", ("gnn.global_norm",)),
+    ("AdamW", ("gnn.adamw",)),
+    ("cross-entropy", ("logsumexp", "aten::gather", "gatherbackward")))
+
+
+@contextlib.contextmanager
+def segment_captured(SR, limit):
+    """The first ``limit`` calls of ``SR.segment_reduce`` (a step's layer-0
+    aggregations) recorded as (values, ids, num_segments, op), values
+    detached and copied."""
+    calls = []
+    fn = SR.segment_reduce
+
+    def recording(values, seg_ids, num_segments, op="sum"):
+        if len(calls) < limit:
+            calls.append((values.detach().clone(), seg_ids, num_segments, op))
+        return fn(values, seg_ids, num_segments, op)
+
+    SR.segment_reduce = recording
+    try:
+        yield calls
+    finally:
+        SR.segment_reduce = fn
+
+
+@contextlib.contextmanager
+def segment_plain(SR):
+    """The segment reduce's plain version on every route: forward, and the
+    backward's tie counts (the yardstick of the kernel step)."""
+    reduce = SR._reduce
+    SR._reduce = lambda values, ids, n, op: SR.segment_reduce_plain(
+        values, ids, n, op)
+    try:
+        yield
+    finally:
+        SR._reduce = reduce
+
+
+def check_segment_gnn(torch, label, vals, ids, n, op):
+    """The kernel against its plain version on a GNN step's input: max and
+    min bit-equal, sums within SUM_SHARE of the output's scale; for max
+    and min also the backward's tie counts (a segment sum of the tie
+    mask, through the kernel) equal. Returns the max abs error."""
+    from repro_torch.kernels import segment_reduce as SR
+    out = SR.segment_reduce(vals, ids, n, op)
+    want = SR.segment_reduce_plain(vals, ids, n, op)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    err = float((out - want)[finite].abs().max()) if finite.any() else 0.0
+    scale = float(want[finite].abs().max()) if finite.any() else 0.0
+    ok = (err <= SUM_SHARE * scale if op == "sum"
+          else torch.equal(out, want))
+    ties = ""
+    if op != "sum":
+        keep = ((ids >= 0) & (ids < n))[:, None]
+        tie = ((vals == want.index_select(0, ids.clamp(0, n - 1)))
+               & keep).float()
+        got_c = SR.segment_reduce(tie, ids, n, "sum")
+        want_c = SR.segment_reduce_plain(tie, ids, n, "sum")
+        ok = ok and torch.equal(got_c, want_c)
+        ties = (f"; tie counts equal (up to {int(want_c.max())} rows tied "
+                f"in a column)")
+    print(f"{label}: {op} {list(vals.shape)} over {n} segments, max abs err "
+          f"{err} of scale {scale}"
+          + (f" (limit {SUM_SHARE} of it)" if op == "sum" else " (bit-equal)")
+          + ties, flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the kernel differs from the plain "
+                             f"version")
+    return err
+
+
+def time_segment_gnn(torch, label, vals, ids, n):
+    """The GNN shape's sum timed: the kernel, the plain version and one
+    scatter_reduce (sum) into a buffer with a spare row for dropped ids,
+    beside the byte bound."""
+    from repro_torch.kernels import segment_reduce as SR
+    ms = cuda_ms(torch, lambda: SR.segment_reduce(vals, ids, n, "sum"))
+    plain_ms = cuda_ms(torch, lambda: SR.segment_reduce_plain(
+        vals, ids, n, "sum"), reps=2, warmup=1)
+    idx = ids.long().clamp(0, n)[:, None].expand_as(vals)
+    base = torch.zeros((n + 1, vals.shape[1]), device=vals.device)
+    library_ms = cuda_ms(torch, lambda: base.scatter_reduce(
+        0, idx, vals, reduce="sum"))
+    rows, d = vals.shape
+    nbytes = rows * 4 + rows * d * 4 + n * d * 4
+    print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"scatter_reduce {library_ms:.4f} ms, byte bound "
+          f"{bound_ms(nbytes):.4f} ms ({nbytes} B, "
+          f"{100 * bound_ms(nbytes) / ms:.1f}% of it)", flush=True)
+    return dict(shape=[rows, d, n], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms(nbytes), bound_by="bytes",
+                library_ms=library_ms)
+
+
+def gnn_step_bounds(torch, model, batch) -> dict:
+    """Bounds (ms) of the gatedgcn step's families: the segment reduce
+    (two sums a layer of [E, d] into [N, d], ids read once each), the
+    gathers (two a layer, [E, d] written and the rows read, forward) by
+    bytes; the GEMMs by float32 operations (the five d x d products a
+    layer over 4 E + N rows, the input embedding and the head, forward
+    and two backward products each); zeroing, the norm and AdamW by
+    bytes of the parameters (AdamW reads parameters, gradients and two
+    moments and writes three)."""
+    cfg = model.cfg
+    E, N = batch["senders"].shape[0], batch["node_feat"].shape[0]
+    d, L, F = cfg.d_hidden, cfg.n_layers, cfg.d_in
+    params = sum(p.numel() for p in model.parameters())
+    flops = 3 * 2 * (L * d * d * (4 * E + N) + N * F * d + N * d
+                     * cfg.n_classes + E * d)
+    return {"segment_reduce (ours)": bound_ms(L * 2 * (E * 4 + E * d * 4
+                                                       + N * d * 4)),
+            "gemm": flops / F32_FLOPS_PER_S * 1e3,
+            "gathers (index_select)": bound_ms(L * 2 * (E * 4 + 2 * E * d
+                                                        * 4)),
+            "zero the gradients": bound_ms(params * 4),
+            "global norm": bound_ms(params * 4),
+            "AdamW": bound_ms(7 * params * 4)}
+
+
+def check_gnn_step_plain(torch, seed, dev, batch):
+    """One gatedgcn step at full width and 2 layers on minibatch_lg's
+    graph (``batch``) through the kernel and through the plain versions,
+    from the same weights: loss within 1e-6 relative, every gradient leaf
+    within 1e-4 of its scale."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import segment_reduce as SR
+    from repro_torch.launch import train
+    from repro_torch.training.optim import train_state_init
+    arch = train.cut_layers(get_arch("gatedgcn"), 2)
+    out = {}
+    for route in ("kernels", "plain"):
+        model = train.build_model(arch, False, dev, seed, "minibatch_lg")
+        state = train_state_init(model.param_tree())
+        swap = (segment_plain(SR) if route == "plain"
+                else contextlib.nullcontext())
+        with train.deterministic(dev), swap:
+            state, m = arch.step_fn("minibatch_lg")(model, state, batch)
+        out[route] = (float(m["loss"]), snapshot(model.grads))
+        del model, state
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    label = "gatedgcn step, 2 layers, kernel against plain"
+    print(f"{label}: loss {lk} against {lp}", flush=True)
+    if not (math.isfinite(lk) and abs(lk - lp) <= 1e-6 * abs(lp)):
+        raise AssertionError(f"{label}: loss {lk} against {lp}")
+    hold_close(torch, label, gk, gp, 1e-4, "gradient")
+
+
+def run_gnn(torch, seed, name, shape, dev, profile=False):
+    """One GNN config at full width and depth on ``shape``'s graph (the
+    reference launcher's, via launch/train.py): a warm-up of
+    GNN_WARMUP_STEPS steps (the first capturing the segment reduce's
+    first calls), GNN_TIMED_STEPS counted, timed steps, one forward and
+    one backward counted apart, then the kernel held against its plain
+    version on the captured inputs. Returns (launch counts of the timed
+    steps, the captured calls, the batch)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import segment_reduce as SR
+    from repro_torch.launch import train
+    from repro_torch.training.optim import train_state_init
+    arch = get_arch(name)
+    cfg = arch.config(shape)
+    t0 = time.perf_counter()
+    batch = next(train.make_batches(arch, shape, False, dev))
+    E = batch["senders"].shape[0]
+    N = batch["node_feat" if arch.kind == "feature" else "positions"].shape[0]
+    extra = (f", {batch['t_kj'].shape[0]} triplets "
+             f"({int((batch['t_ji'] < E).sum())} real)"
+             if "t_kj" in batch else "")
+    with train.deterministic(dev):
+        model = train.build_model(arch, False, dev, seed, shape)
+        state = train_state_init(model.param_tree())
+        step = arch.step_fn(shape)
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        print(f"{name} at {shape}: {cfg}; {N} nodes, {E} edges{extra}; "
+              f"{n_params} float32 parameters from seed {seed}; graph and "
+              f"model in {time.perf_counter() - t0:.3f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        with segment_captured(SR, GNN_CAPTURED[name]) as captured:
+            state, m = step(model, state, batch)
+        warm = [float(m["loss"])]
+        for _ in range(GNN_WARMUP_STEPS - 1):
+            state, m = step(model, state, batch)
+            warm.append(float(m["loss"]))
+        reset_launch_counts()
+        times, losses = [], []
+        for i in range(GNN_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(model, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in warm + losses):
+            raise AssertionError(f"{name}: losses not finite: {warm + losses}")
+        # one forward and one backward apart: the kernel's launches in each
+        reset_launch_counts()
+        model.grad_tree()
+        value = arch.loss_fn(shape)(model, batch)
+        fwd = launch_counts()["segment_reduce"]
+        value.backward()
+        bwd = launch_counts()["segment_reduce"] - fwd
+        p50 = float(np.median(times))
+        p99 = float(np.percentile(times, 99))
+        flops = arch.model_flops(shape)
+        per_step = counts["segment_reduce"] / GNN_TIMED_STEPS
+        print(f"{name} {shape}: step p50 {p50 * 1e3:.4f} ms, p99 "
+              f"{p99 * 1e3:.4f} ms over {GNN_TIMED_STEPS} steps (after "
+              f"{GNN_WARMUP_STEPS} warm-up); {E / p50:.6g} edges/s; peak "
+              f"allocated {peak} B; losses {warm[0]} (first warm-up) to "
+              f"{losses[-1]}, all finite; segment_reduce {per_step:g} "
+              f"launches a step ({fwd} in a forward, {bwd} in a backward)",
+              flush=True)
+        print(f"{name} {shape}: model-FLOP share {flops:.4g} flop a step "
+              f"(model_flops), {100 * flops / p50 / F32_FLOPS_PER_S:.3f}% of "
+              f"{F32_FLOPS_PER_S:.4g} flop/s (float32, TF32 off)", flush=True)
+        if profile and name == "gatedgcn":
+            profile_step(torch, "gatedgcn minibatch_lg step", model, state,
+                         lambda: arch.loss_fn(shape)(model, batch), arch.opt,
+                         "gnn", GNN_STEP_FAMILIES,
+                         lambda: gnn_step_bounds(torch, model, batch))
+        del model, state, value
+    torch.cuda.empty_cache()
+    return counts, captured, batch
+
+
+def run_gnn_phase(torch, seed, profile=False, device="cuda"):
+    """The four GNN configs trained on the card (GNN_RUNS); the segment
+    reduce held against its plain version on the captured inputs of
+    gatedgcn's and dimenet's layer 0 (sums) and GAT's scores (max) and
+    attention weights (sum), timed at gatedgcn's shape; a 2-layer
+    gatedgcn step through the kernel against the plain one; crash and
+    resume of gatedgcn at 2 layers, byte-equal. Returns (launch counts of
+    the timed steps, the measured gnn shape)."""
+    from repro_torch.kernels import segment_reduce as SR
+    dev = torch.device(device)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("gnn: TF32 matmuls are allowed; the GNN "
+                             "losses are held in float32")
+    lib = SR._fn()
+    for d in (8, 32, 56, 64, 70, 96, 128, 160):
+        if lib.segment_reduce_smem(d) > SR.SMEM_LIMIT:
+            raise AssertionError(f"segment_reduce at d = {d} needs "
+                                 f"{lib.segment_reduce_smem(d)} B")
+    counts, measured, kept = {}, None, None
+    worst = 0.0
+    for name, shape in GNN_RUNS:
+        c, captured, batch = run_gnn(torch, seed, name, shape, dev, profile)
+        add_counts(counts, c)
+        for i, (vals, ids, n, op) in enumerate(captured):
+            worst = max(worst, check_segment_gnn(
+                torch, f"{name} segment_reduce call {i} of a step", vals,
+                ids, n, op))
+        if name == "gatedgcn":
+            vals, ids, n, _ = captured[0]
+            measured = time_segment_gnn(
+                torch, "segment_reduce sum, gatedgcn layer 0's messages",
+                vals, ids, n)
+            kept = batch
+        del captured, batch
+        torch.cuda.empty_cache()
+    measured["max_abs_err"] = worst
+    check_gnn_step_plain(torch, seed, dev, kept)
+    del kept
+    torch.cuda.empty_cache()
+    check_resume(torch, "gatedgcn", ["--layers", "2", "--shape",
+                                     "minibatch_lg", "--device", device],
+                 "gatedgcn resume (2 layers, minibatch_lg)")
+    return counts, measured
+
+
 # the MoE phase's models and greedy tokens; 8 requests of 2048 tokens
 MOE_SERVES = (("granite-moe-3b-a800m", 64), ("granite-moe-1b-a400m", 16))
 
@@ -3365,8 +3697,8 @@ def main(argv=None) -> int:
                     help="also profile Reach, CC, SSSP (host and device "
                          "mode), the serve path (bf16 prefill and decode, "
                          "f32 prefill, the granite-3b MoE prefill and "
-                         "decode), a serve_bulk batch and the qwen3 and fm "
-                         "train steps on the card")
+                         "decode), a serve_bulk batch and the qwen3, fm "
+                         "and gatedgcn train steps on the card")
     args = ap.parse_args(argv)
 
     import torch
@@ -3438,6 +3770,10 @@ def main(argv=None) -> int:
                                                  args.profile)
         measured.update(train_measured)
         add_counts(totals, counts)
+    with phase("gnn"):
+        gnn_counts, measured["segment_reduce_gnn"] = run_gnn_phase(
+            torch, args.seed, args.profile)
+        add_counts(totals, gnn_counts)
     with phase("launches"):
         print("kernels " + json.dumps(totals), flush=True)
         print("kernels captured in device mode " + json.dumps(captured),
@@ -3477,6 +3813,8 @@ def main(argv=None) -> int:
                          "reference's XLA forward at 'replaces'")
         if name == "segment_reduce":    # the embedding_bag shape, timed
             e["embedding_bag_shape"] = measured["segment_reduce_bag"]
+            e["gnn_shape"] = measured["segment_reduce_gnn"]
+            e["gnn_launches"] = gnn_counts["segment_reduce"]
         entries.append(e)
     print(f"total {time.perf_counter() - t_all:.3f} s")
     print(nvidia_smi_line())

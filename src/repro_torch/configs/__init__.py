@@ -1,8 +1,8 @@
 """Architecture registry, after ``repro.configs``: ``get_arch(name)``
 -> ArchSpec.
 
-The LM configs (dense and MoE) and the FM recommender are ported; the
-GNN names of the reference's registry raise ``NotImplementedError``."""
+Every name of the reference's registry resolves: the LM configs (dense
+and MoE), the GNNs and the FM recommender."""
 from __future__ import annotations
 
 import importlib
@@ -13,17 +13,17 @@ _ARCH_MODULES = {
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "gatedgcn": "repro_torch.configs.gatedgcn",
+    "dimenet": "repro_torch.configs.dimenet",
+    "nequip": "repro_torch.configs.nequip",
+    "gat-cora": "repro_torch.configs.gat_cora",
     "fm": "repro_torch.configs.fm",
 }
-# in the reference's registry, not ported yet (ROADMAP.md Queue 1)
-NOT_PORTED = ("gatedgcn", "dimenet", "nequip", "gat-cora")
+
+ARCH_NAMES = tuple(_ARCH_MODULES)
 
 
 def get_arch(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet; see "
-            f"ROADMAP.md")
     if name not in _ARCH_MODULES:
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(_ARCH_MODULES)}")

@@ -1,11 +1,11 @@
-"""ArchSpecs for the LM and recsys families, after
-``repro.configs.base`` (its LMArch and RecsysArch parts).
+"""ArchSpecs for the LM, GNN and recsys families, after
+``repro.configs.base``.
 
 The reference's ArchSpec also serves the dry-run, the sharding specs
 and the roofline harness (abstract inputs, mesh shardings, FLOP
 counts); none of that is ported. What remains: the full and smoke
 configs, the named input shapes and their sizes, ``init_smoke``, the
-optimizer config, and the step functions: the train steps of both
+optimizer config, and the step functions: the train steps of the three
 families, and the recsys serve and retrieval steps (the LM serves
 through ``launch.serve``).
 
@@ -15,16 +15,19 @@ a ``TrainState`` whose params are the model's ``param_tree()``, and the
 step runs the loss with gradients into the model's ``grad_tree()``, then
 ``adamw_update``, which writes the parameters (so the model) and the
 moments in place. Metrics stay on the device: {"loss", "ce", "gnorm"}
-(LM), {"loss", "gnorm"} (recsys), as the reference's.
+(LM), {"loss", "gnorm"} (GNN, recsys), as the reference's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, ClassVar
+from typing import Callable, ClassVar, Optional
 
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models.common import cross_entropy_loss
+from repro_torch.models.gnn import dimenet, nequip
+from repro_torch.models.gnn.common import Graph
 from repro_torch.models.recsys import fm as FM
 from repro_torch.training.optim import AdamWConfig, TrainState, adamw_update
 
@@ -121,6 +124,166 @@ class LMArch:
             state, gnorm = adamw_update(state, grads, opt)
             return state, {"loss": loss.detach(), "ce": ce.detach(),
                            "gnorm": gnorm}
+        return train_step
+
+
+# -- GNN family ----------------------------------------------------------------
+
+def _fanout_caps(batch_nodes=1024, fanouts=(15, 10)):
+    """Fixed capacities for the fanout-sampled subgraph (minibatch_lg)."""
+    nodes, edges, frontier = batch_nodes, 0, batch_nodes
+    for f in fanouts:
+        new = frontier * f
+        edges += new
+        nodes += new
+        frontier = new
+    return nodes, edges
+
+
+GNN_SHAPES = {
+    "full_graph_sm": Shape(
+        "full_graph_sm", "graph",
+        dict(n_nodes=2708, n_edges=10556, d_feat=1433, triplet_mult=8)),
+    "minibatch_lg": Shape(
+        "minibatch_lg", "graph",
+        dict(n_nodes=_fanout_caps()[0], n_edges=_fanout_caps()[1],
+             d_feat=602, triplet_mult=4,
+             base_nodes=232965, base_edges=114615892,
+             batch_nodes=1024, fanout=(15, 10)),
+        note="fixed-capacity fanout-(15,10) sampled subgraph; sampler in "
+             "repro_torch.data.sampler"),
+    "ogb_products": Shape(
+        "ogb_products", "graph",
+        dict(n_nodes=2449029, n_edges=61859140, d_feat=100,
+             triplet_mult=2)),
+    "molecule": Shape(
+        "molecule", "graph",
+        dict(n_nodes=30 * 128, n_edges=64 * 128, d_feat=16,
+             triplet_mult=16, batch=128)),
+}
+
+
+@dataclass(frozen=True)
+class GNNArch:
+    """A GNN arch: its config depends on the shape's feature width
+    (``make_cfg(d_feat, smoke)``), unlike an LM's. ``init_fn(cfg,
+    generator)`` draws the reference's parameter tree, ``model_fn(cfg,
+    params, device, train)`` builds the model over it. ``layers``, when
+    set, cuts the depth (n_layers, or n_blocks for DimeNet) of every
+    config the arch makes (``launch.train --layers``)."""
+    name: str
+    kind: str                    # "feature" (gatedgcn, gat) | "geometric"
+    make_cfg: Callable
+    init_fn: Callable
+    model_fn: Callable
+    n_classes: int = 16
+    family: ClassVar[str] = "gnn"
+    opt: AdamWConfig = AdamWConfig(lr=1e-3)
+    layers: Optional[int] = None
+
+    @property
+    def shapes(self):
+        return GNN_SHAPES
+
+    def _dims(self, shape_name: str, smoke: bool) -> dict:
+        """The shape's sizes; smoke cuts nodes to 64, edges to 256 and
+        features to 24; node and edge capacities round up to multiples of
+        32 (padded edges target a sacrificial node slot; padded nodes are
+        isolated), as the reference's."""
+        s = dict(self.shapes[shape_name].sizes)
+        if smoke:
+            s["n_nodes"] = min(s["n_nodes"], 64)
+            s["n_edges"] = min(s["n_edges"], 256)
+            s["d_feat"] = min(s["d_feat"], 24)
+        s["n_edges"] = ((s["n_edges"] + 31) // 32) * 32
+        s["n_nodes"] = ((s["n_nodes"] + 31) // 32) * 32
+        return s
+
+    def config(self, shape_name: str, smoke: bool = False):
+        """The model config of a shape (its depth cut to ``layers``)."""
+        cfg = self.make_cfg(self._dims(shape_name, smoke)["d_feat"], smoke)
+        if self.layers is not None:
+            depth = "n_blocks" if hasattr(cfg, "n_blocks") else "n_layers"
+            cfg = cfg._replace(**{depth: self.layers})
+        return cfg
+
+    def input_sizes(self, shape_name: str, smoke: bool = False) -> dict:
+        """Input name -> shape of a step, as the reference's
+        ``input_specs``: senders, receivers [E] int32; feature archs
+        node_feat [N, d_feat], edge_feat [E, 1] float32 and labels [N]
+        int32; geometric archs positions [N, 3] float32, species [N]
+        int32, energy_labels [N] float32, and for DimeNet t_kj, t_ji [E
+        triplet_mult] int32."""
+        s = self._dims(shape_name, smoke)
+        N, E = s["n_nodes"], s["n_edges"]
+        sizes = dict(senders=(E,), receivers=(E,))
+        if self.kind == "feature":
+            sizes.update(node_feat=(N, s["d_feat"]), edge_feat=(E, 1),
+                         labels=(N,))
+        else:
+            sizes.update(positions=(N, 3), species=(N,), energy_labels=(N,))
+            if self.name == "dimenet":
+                T_ = E * s.get("triplet_mult", 4)
+                sizes.update(t_kj=(T_,), t_ji=(T_,))
+        return sizes
+
+    def init_smoke(self, generator: torch.Generator,
+                   shape_name: str = "full_graph_sm"):
+        """(parameters, config) of the smoke config at the shape, drawn
+        from ``generator`` on its device."""
+        cfg = self.config(shape_name, True)
+        return self.init_fn(cfg, generator), cfg
+
+    def model_flops(self, shape_name: str) -> float:
+        """The reference's count: about 2 (E + N) d^2 a layer, times 3
+        for the forward and backward."""
+        s = self.shapes[shape_name].sizes
+        cfg = self.config(shape_name, False)
+        d = getattr(cfg, "d_hidden", getattr(cfg, "channels", 64))
+        L = getattr(cfg, "n_layers", getattr(cfg, "n_blocks", 2))
+        return 2.0 * (s["n_edges"] + s["n_nodes"]) * d * d * L * 3
+
+    def loss_fn(self, shape_name: str, smoke: bool = False) -> Callable:
+        """``loss(model, batch)``, with gradients: cross-entropy of the
+        node logits against ``labels`` (feature archs) or the mean squared
+        error of the per-node energy against ``energy_labels`` (geometric
+        archs), as the reference's train step computes it."""
+        kind, name = self.kind, self.name
+
+        def loss(model, batch):
+            if kind == "feature":
+                g = Graph(batch["senders"], batch["receivers"],
+                          batch["node_feat"], batch.get("edge_feat"),
+                          batch["node_feat"].shape[0],
+                          batch["senders"].shape[0])
+                return cross_entropy_loss(model(g), batch["labels"])
+            if name == "dimenet":
+                g = dimenet.GeoGraph(batch["positions"], batch["species"],
+                                     batch["senders"], batch["receivers"],
+                                     batch["t_kj"], batch["t_ji"])
+            else:
+                g = nequip.GeoGraph(batch["positions"], batch["species"],
+                                    batch["senders"], batch["receivers"])
+            err = model(g) - batch["energy_labels"]
+            return torch.mean(err * err)
+        return loss
+
+    def step_fn(self, shape_name: str, smoke: bool = False) -> Callable:
+        """``train_step(model, state, batch)``: ``loss_fn``'s loss, its
+        gradients, then AdamW; the model must be of the config the shape
+        and ``smoke`` give, built with ``train=True``."""
+        cfg = self.config(shape_name, smoke)
+        opt = self.opt
+        loss = self.loss_fn(shape_name, smoke)
+
+        def train_step(model, state: TrainState, batch):
+            _check_model(model, cfg, shape_name)
+            _check_state(model, state, shape_name)
+            grads = model.grad_tree()
+            value = loss(model, batch)
+            value.backward()
+            state, gnorm = adamw_update(state, grads, opt)
+            return state, {"loss": value.detach(), "gnorm": gnorm}
         return train_step
 
 

@@ -12,6 +12,18 @@ Contract: ``values`` [n] or [n, d] int32/float32, ``seg_ids`` [n] int32
 sorted ascending; ids outside [0, num_segments) are dropped; int32 sums
 wrap; empty segments get 0, the int32 extremes or +-inf; float sums are
 deterministic (the same bits on every run).
+
+When ``values`` requires grad (and grad mode is on) the call goes
+through a ``torch.autograd.Function`` (``_SegmentReduce``): its forward
+is the same kernel (the plain version on the CPU), and one backward
+serves both routes, with the gradient JAX gives ``jax.ops.segment_sum``,
+``segment_max`` and ``segment_min`` (the scatter's rules): for sum, the
+output gradient gathered at each row's id; for max and min, that
+gradient split evenly among the rows equal to their segment's extreme,
+column by column (a segment whose extreme is its identity, every value
++-inf, counts its initial value as one more tie, as JAX's does). Rows
+with a dropped id get 0. The tie counts are a segment sum of the tie
+mask, through the kernel on the card; the gathers are ``index_select``.
 """
 from __future__ import annotations
 
@@ -51,7 +63,15 @@ def _check(values: torch.Tensor, seg_ids: torch.Tensor, op: str) -> None:
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
                    num_segments: int, op: str = "sum") -> torch.Tensor:
     """[num_segments] (or [num_segments, d]) reduction of ``values`` over
-    sorted ``seg_ids``."""
+    sorted ``seg_ids``; differentiable in ``values`` when it requires
+    grad."""
+    if torch.is_grad_enabled() and values.requires_grad:
+        return _SegmentReduce.apply(values, seg_ids, num_segments, op)
+    return _reduce(values, seg_ids, num_segments, op)
+
+
+def _reduce(values: torch.Tensor, seg_ids: torch.Tensor,
+            num_segments: int, op: str) -> torch.Tensor:
     if values.device.type == "cpu" and seg_ids.device.type == "cpu":
         return segment_reduce_plain(values, seg_ids, num_segments, op)
     _check(values, seg_ids, op)
@@ -77,6 +97,42 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
         _build.check(rc, "segment_reduce")
         _build.count_launch(LAUNCHES, "segment_reduce")
     return out
+
+
+class _SegmentReduce(torch.autograd.Function):
+    """The reduction, whose backward is JAX's gradient of the segment ops
+    (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, values, seg_ids, num_segments, op):
+        out = _reduce(values.contiguous(), seg_ids, num_segments, op)
+        ctx.num_segments, ctx.op = num_segments, op
+        if op == "sum":
+            ctx.save_for_backward(seg_ids)
+        else:
+            ctx.save_for_backward(seg_ids, values, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n, op = ctx.num_segments, ctx.op
+        seg_ids = ctx.saved_tensors[0]
+        rows = seg_ids.shape[0]
+        shape = (rows,) + tuple(g.shape[1:])
+        if n == 0:
+            return g.new_zeros(shape), None, None, None
+        keep = ((seg_ids >= 0) & (seg_ids < n)).reshape(
+            (rows,) + (1,) * (g.dim() - 1))
+        idx = seg_ids.clamp(0, n - 1)
+        g_rows = g.contiguous().index_select(0, idx)
+        if op == "sum":
+            return torch.where(keep, g_rows, 0), None, None, None
+        _, values, out = ctx.saved_tensors
+        tie = (values == out.index_select(0, idx)) & keep
+        count = _reduce(tie.to(values.dtype), seg_ids, n, "sum")
+        count = count + (out == ref._identity(op, out.dtype)).to(count.dtype)
+        share = torch.where(tie, 1.0 / count.index_select(0, idx), 0)
+        return g_rows * share, None, None, None
 
 
 def _fn():

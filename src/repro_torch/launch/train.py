@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --batch 4 --steps 6
     PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \
+        --shape minibatch_lg --steps 20
 
 The fault-tolerance loop of the reference: step-seeded data (the batch
 of step i is drawn from (seed, i), so a resumed run skips the consumed
@@ -24,8 +26,13 @@ with random weights drawn from seed 0 on the device, as the reference's
 are. Reductions for a run on one card, printed with the summary:
 ``--batch`` sets the per-step batch that one card holds (train_4k is
 256 x 4096 across a pod) and ``--layers`` keeps the first N layers of
-an LM. The GNN archs are not
-ported and raise ``NotImplementedError``.
+an LM or a GNN (DimeNet's blocks).
+
+A GNN trains full-batch on one fixed graph, re-yielded every step, as
+the reference's launcher does (default shape full_graph_sm): for the
+feature archs ``random_graph`` at the shape's capacities, for the
+geometric ones ``random_geometric_graph`` padded to the edge capacity
+(padded edges at the last node) with DimeNet's triplets.
 
 A fault site ``train.step`` is hit after every step (``engine.faults``):
 a ``FaultPlan`` crash there stands in for a killed process.
@@ -38,6 +45,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 import torch.utils.deterministic
 
@@ -45,10 +53,13 @@ from repro_torch.checkpoint.checkpoint import (
     CheckpointManager, restore_checkpoint,
 )
 from repro_torch.configs import get_arch
-from repro_torch.data.synthetic import lm_batch_stream, recsys_stream
+from repro_torch.data.synthetic import (
+    lm_batch_stream, random_geometric_graph, random_graph, recsys_stream,
+)
 from repro_torch.engine.faults import fault_point
 from repro_torch.models import transformer as T
 from repro_torch.models.common import resolve_device
+from repro_torch.models.gnn.dimenet import build_triplets
 from repro_torch.models.recsys import fm as FM
 from repro_torch.training.optim import (
     TrainState, tree_leaves, train_state_init,
@@ -56,10 +67,43 @@ from repro_torch.training.optim import (
 from repro_torch.training.watchdog import Watchdog
 
 
+def gnn_batch(arch, shape_name: str, smoke: bool) -> dict:
+    """The reference launcher's fixed graph for a GNN arch at the shape,
+    as numpy arrays."""
+    sizes = arch.input_sizes(shape_name, smoke=smoke)
+    n = sizes["node_feat" if arch.kind == "feature" else "positions"][0]
+    e = sizes["senders"][0]
+    if arch.kind == "feature":
+        return random_graph(n, e, sizes["node_feat"][1],
+                            n_classes=arch.n_classes)
+    g = random_geometric_graph(n, max_edges=e)
+    ns = np.full(e, n - 1, np.int32)
+    ns[:len(g["senders"])] = g["senders"]
+    nr = np.full(e, n - 1, np.int32)
+    nr[:len(g["receivers"])] = g["receivers"]
+    order = np.argsort(nr, kind="stable")
+    batch = {"positions": g["positions"], "species": g["species"],
+             "senders": ns[order], "receivers": nr[order],
+             "energy_labels": g["energy_labels"]}
+    if "t_kj" in sizes:
+        batch["t_kj"], batch["t_ji"] = build_triplets(
+            batch["senders"], batch["receivers"], sizes["t_kj"][0])
+    return batch
+
+
 def make_batches(arch, shape_name: str, smoke: bool, device,
                  batch: int | None = None):
     """The step-seeded batch stream of the shape (its batch cut to
-    ``batch`` rows when given), as tensors on ``device``."""
+    ``batch`` rows when given), as tensors on ``device``; for a GNN the
+    one graph of ``gnn_batch``, re-yielded."""
+    if arch.family == "gnn":
+        if batch is not None:
+            raise ValueError("--batch cuts an LM's or FM's batch; a GNN "
+                             "trains on one whole graph")
+        graph = {k: torch.from_numpy(v).to(device)
+                 for k, v in gnn_batch(arch, shape_name, smoke).items()}
+        while True:
+            yield graph
     sizes = arch.input_sizes(shape_name, smoke=smoke)
     cfg = arch.smoke_cfg if smoke else arch.cfg
     if arch.family == "lm":
@@ -74,18 +118,26 @@ def make_batches(arch, shape_name: str, smoke: bool, device,
         yield {k: torch.from_numpy(item[k]).to(device) for k in keys}
 
 
-def build_model(arch, smoke: bool, device, seed: int = 0):
+def build_model(arch, smoke: bool, device, seed: int = 0,
+                shape_name: str | None = None):
     """A trainable model of the config with weights drawn from ``seed``
-    on ``device``."""
-    cfg = arch.smoke_cfg if smoke else arch.cfg
+    on ``device`` (a GNN's config is the one of ``shape_name``)."""
     gen = torch.Generator(device).manual_seed(seed)
+    if arch.family == "gnn":
+        cfg = arch.config(shape_name, smoke)
+        return arch.model_fn(cfg, arch.init_fn(cfg, gen), device,
+                             train=True)
+    cfg = arch.smoke_cfg if smoke else arch.cfg
     if arch.family == "recsys":
         return FM.FM(cfg, FM.init_params(cfg, gen), device, train=True)
     return T.Transformer(cfg, T.init_params(cfg, gen), device, train=True)
 
 
 def cut_layers(arch, layers: int):
-    """The arch with both configs cut to their first ``layers`` layers."""
+    """The arch with both configs (a GNN: every config it makes) cut to
+    their first ``layers`` layers."""
+    if arch.family == "gnn":
+        return dataclasses.replace(arch, layers=layers)
     return dataclasses.replace(
         arch, cfg=dataclasses.replace(arch.cfg, n_layers=layers),
         smoke_cfg=dataclasses.replace(arch.smoke_cfg, n_layers=layers))
@@ -141,22 +193,24 @@ def main(argv=None) -> dict:
                     help="reduction: the per-step batch (default the "
                          "shape's)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="reduction: keep an LM's first N layers")
+                    help="reduction: keep an LM's or a GNN's first N "
+                         "layers")
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
     if args.layers is not None:
-        if arch.family != "lm":
-            raise ValueError("--layers cuts an LM's depth")
+        if arch.family == "recsys":
+            raise ValueError("--layers cuts an LM's or a GNN's depth")
         arch = cut_layers(arch, args.layers)
-    shape_name = args.shape or (
-        "train_4k" if arch.family == "lm" else "train_batch")
+    shape_name = args.shape or {"lm": "train_4k", "gnn": "full_graph_sm"
+                                }.get(arch.family, "train_batch")
     device = resolve_device(args.device, "launch.train")
     reduced = {k: v for k, v in (("batch", args.batch),
                                  ("layers", args.layers)) if v is not None}
 
     with deterministic(device):
-        model = build_model(arch, args.smoke, device)
+        model = build_model(arch, args.smoke, device,
+                            shape_name=shape_name)
         state = train_state_init(model.param_tree())
         step_fn = arch.step_fn(shape_name, smoke=args.smoke)
         ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None

@@ -66,6 +66,19 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps)).to(dt) * (1.0 + gamma.to(dt))
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with float32 statistics (mean, population variance,
+    ``rsqrt(var + eps)``), cast back to x's dtype, then times gamma plus
+    beta in that dtype (the reference's order)."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * gamma.to(dt) + beta.to(dt)
+
+
 def act_fn(name: str):
     return {
         "silu": F.silu,

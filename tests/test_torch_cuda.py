@@ -1113,3 +1113,74 @@ def test_qwen3_train_step_on_card_matches_cpu(cuda):
     cs.hold_close(torch, "card vs cpu", gg, gc, 2e-2, "gradient")
     cs.hold_close(torch, "card vs cpu", mug, muc, 2e-2, "mu")
     cs.hold_close(torch, "card vs cpu", nug, nuc, 4e-2, "nu")
+
+
+# -- the GNN path ------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("d", [1, 8, 32, 56, 64, 70, 96, 128, 160])
+def test_segment_reduce_backward_on_card_matches_cpu(cuda, op, d):
+    """The differentiable segment reduce at the GNN widths: the kernel's
+    forward bit-equal to the CPU's for max/min (sums within 1e-6 of
+    scale), the backward's gather and tie shares the same; ties, a
+    padded tail and a dropped head included. The backward of max and min
+    launches the kernel once more (the tie counts)."""
+    from repro_torch.kernels import segment_reduce as SR
+    g = torch.Generator().manual_seed(d)
+    n, segs = 5000, 700
+    vals = torch.randint(-3, 4, (n, d), generator=g).float() * 0.5
+    ids = torch.sort(torch.randint(-5, segs + 20, (n,), generator=g,
+                                   dtype=torch.int32)).values
+    cot = torch.randn((segs, d), generator=g)
+    got = []
+    for dev in ("cpu", cuda):
+        v = vals.to(dev).requires_grad_()
+        before = SR.LAUNCHES["segment_reduce"]
+        out = SR.segment_reduce(v, ids.to(dev), segs, op)
+        (gv,) = torch.autograd.grad(out, v, cot.to(dev))
+        if dev != "cpu":
+            assert SR.LAUNCHES["segment_reduce"] == before + (
+                1 if op == "sum" else 2)
+        got.append((out.detach().cpu(), gv.cpu()))
+    (oc, gc), (og, gg) = got
+    if op == "sum":
+        assert (og - oc).abs().max() <= 1e-6 * oc.abs().max()
+    else:
+        assert torch.equal(og, oc)
+    assert torch.equal(gg, gc)
+
+
+@pytest.mark.parametrize("name", ["gatedgcn", "gat-cora", "dimenet",
+                                  "nequip"])
+def test_gnn_train_step_on_card_matches_cpu(cuda, name):
+    """Two train steps of the smoke config at molecule (geometric) or
+    full_graph_sm (feature) on the card against the CPU's, from the same
+    weights: loss within 1e-5 relative, every gradient leaf within 1e-4
+    of its scale; float32 matmuls (TF32 off)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.training.optim import (
+        train_state_init, tree_leaves, tree_map)
+    arch = get_arch(name)
+    shape = "full_graph_sm" if arch.kind == "feature" else "molecule"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    for dev in ("cpu", cuda):
+        model = train.build_model(arch, True, "cpu", 0, shape)
+        if dev != "cpu":
+            model = arch.model_fn(model.cfg, tree_map(
+                lambda t: t.detach().to(dev), model.param_tree()), dev,
+                train=True)
+        state = train_state_init(model.param_tree())
+        batch = next(train.make_batches(arch, shape, True, dev))
+        losses = []
+        with train.deterministic(torch.device(dev)):
+            for _ in range(2):
+                state, m = arch.step_fn(shape, smoke=True)(model, state,
+                                                           batch)
+                losses.append(float(m["loss"]))
+        runs.append((losses, [t.cpu() for t in tree_leaves(model.grads)]))
+    (lc, gc), (lg, gg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-30

@@ -277,10 +277,10 @@ def test_moe_param_counts_match_the_reference(name):
 
 
 def test_moe_and_unported_archs_raise():
-    """What the port still lacks: the GNN archs raise, an unknown name
-    raises KeyError (both granites resolve since MoE was ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch("gatedgcn")
+    """An unknown name raises KeyError; both granites resolve since MoE
+    was ported, and the GNN names since the GNNs were."""
+    for name in ("gatedgcn", "dimenet", "nequip", "gat-cora"):
+        assert get_arch(name).family == "gnn"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     assert get_arch("granite-moe-1b-a400m").cfg.moe.n_experts == 32
