@@ -131,9 +131,10 @@ Phases, each printing its wall time:
              on the host, the bags against the plain version;
 10b. train  training through launch/train.py's pieces and the archs'
              train steps, deterministic algorithms on: the attention
-             backward (csrc/flash_attention_bwd.cu) against
-             attention_bwd_ref on adversarial shapes (d 64 and 128, GQA
-             1:1 to 16:1, causal and not, s 77 to 4096), the forward's lse
+             backward (csrc/flash_attention_bwd.cu; at d 256
+             csrc/flash_attention_bwd256.cu) against attention_bwd_ref on
+             adversarial shapes (d 64, 128 and 256, GQA 1:1 to 16:1,
+             causal and not, s 77 to 4096), the forward's lse
              against attention_lse_ref, every check run twice for the same
              bits; qwen3-1.7b at full width and depth (28 layers, bf16
              weights from --seed, float32 AdamW moments, remat) at
@@ -151,6 +152,21 @@ Phases, each printing its wall time:
              39 ids): its backward kernel on a step's rows (the route its
              plan takes printed; it must be the bulk stream), 20 counted,
              timed steps, crash and resume the same way;
+10b2. train_moe  granite-moe-1b-a400m and granite-moe-3b-a800m trained
+             the same way at full width and depth (24 and 32 layers, 32
+             and 40 experts, top-8, 32 routing groups; the loss ce + 0.01
+             times the load-balance losses), the batch reckoned with the
+             MoE layer's transients, 4 timed steps (plus the dropped share
+             of each layer at the warm-up step and the model-FLOP share
+             from the active parameters), the d = 64 backward on each
+             step's captured inputs; a 2-layer granite-1b step through the
+             kernels against the plain one, which replays the kernel
+             step's routing; crash and resume at 2 layers;
+10b3. train_gemma  gemma-7b at full width and the most layers one
+             4096-token sequence fits (train_depth), 4 timed steps, the
+             d = 256 backward held against its plain version on the
+             step's captured inputs and timed beside SDPA's backward
+             (and each SDPA backend forced, which names the one it picks);
 10c. gnn    the four GNNs trained at full width and depth through
              launch/train.py's pieces (float32, TF32 off, deterministic
              algorithms on), each on the largest shape one card holds,
@@ -172,7 +188,8 @@ Phases, each printing its wall time:
              kernel against the plain one (loss 1e-6 relative, gradients
              1e-4 of scale); crash and resume of gatedgcn at 2 layers;
 11. launches each kernel's launch count over the host-mode runs of
-             phases 5, 6, 9, 9b, 10, 10b and 10c (each counted from 0 just
+             phases 5, 6, 9, 9b, 10, 10b, 10b2, 10b3 and 10c (each counted
+             from 0 just
              before it), and apart the engine kernels' calls in phases 7 and 8,
              in phase durable (a kernel inside a captured graph once
              per capture, so a memo hit adds nothing) and in the sharded
@@ -184,7 +201,10 @@ mode, the serve prefill, four decode steps, the float32 prefill,
 granite-moe-3b-a800m's prefill, four decode steps and one MoE layer at
 decode (with a "moe dispatch" family), one serve_bulk batch, one
 qwen3-1.7b train step (with the cross-entropy and the AdamW update also
-timed alone by CUDA events) and one fm train_batch step (its families
+timed alone by CUDA events), one granite-moe-3b-a800m train step (its
+families from the ops around each launch: GEMMs, attention, the
+dispatch's and the combine's backwards, routing, gathers, AdamW), one
+gemma-7b train step at its cut, and one fm train_batch step (its families
 from the ops around each launch: gathers, the two FM kernels, the
 scatter into the table, accumulation into .grad, zeroing, global norm,
 AdamW, BCE; each beside its byte bound) and one gatedgcn
@@ -204,6 +224,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -677,7 +698,8 @@ FAMILIES = (("fm_interaction (ours)", ("fm_kernel",)),
             ("sort", ("sort", "radix")),
             ("memcpy/memset", ("memcpy", "memset")),
             ("index/scatter/gather", ("index", "scatter", "gather")),
-            ("attention backward (ours)", ("bwd_dkdv", "bwd_dq", "bwd_pre")),
+            ("attention backward (ours)", ("bwd_dkdv", "bwd_dq", "bwd_pre",
+                                           "bwd256")),
             ("fm_interaction backward (ours)", ("fm_bwd_kernel",
                                                 "fm_bwd_stream_kernel")))
 # the FM train step's families (``scoped_family``, in this order): the
@@ -1051,7 +1073,7 @@ def run_incremental(torch, seed, n, edge_cap, edges, edge_keys, source):
 DURABLE_BATCH = 1 << 16
 DURABLE_STEPS = 6
 LAUNCHER_SCALE = 20     # the launcher's card command in README.md
-LAUNCHER_UPDATES = 30   # and its default stream
+LAUNCHER_UPDATES = 12   # and a cut of its default stream of 30
 # crash sites outside any captured region
 DURABLE_SITES = ("wal.before_append", "resilience.after_log",
                  "incremental.apply", "checkpoint.commit",
@@ -2748,12 +2770,20 @@ TRAIN_TIMED_STEPS = 6
 FM_TIMED_STEPS = 20
 TRAIN_DIR = ROOT / "build" / "train"     # the resume check's checkpoints
 # the adversarial shapes of the attention backward: (b, hq, hkv, s, d,
-# causal): head dims 64 and 128, GQA 1:1, 2:1 and 16:1, causal and not,
-# s of 77 (a ragged tile), 128 and 4096
+# causal): head dims 64, 128 and 256, GQA 1:1, 2:1, 8:1 and 16:1, causal
+# and not, s of 77 (a ragged tile), 128, 129, 300 and 4096
 BWD_SHAPES = [(1, 16, 8, 4096, 128, True), (2, 16, 16, 128, 128, False),
               (1, 32, 2, 77, 128, True), (2, 8, 8, 77, 64, False),
               (1, 16, 8, 4096, 64, True), (1, 16, 1, 128, 64, True),
-              (1, 4, 2, 4096, 128, False)]
+              (1, 4, 2, 4096, 128, False), (2, 8, 4, 77, 256, False),
+              (1, 16, 2, 300, 256, True), (1, 4, 4, 129, 256, True)]
+
+
+def bwd_stem(q) -> str:
+    """The launch keys' stem of the backward's dK/dV and dQ kernels at q's
+    head dim: flash_attention_bwd256 at d = 256, else flash_attention_bwd."""
+    return ("flash_attention_bwd256" if q.shape[-1] == 256
+            else "flash_attention_bwd")
 
 
 def attention_bwd_bound(q, causal):
@@ -2782,6 +2812,32 @@ def sdpa_backward(torch, q, k, v, do, causal):
         qq, kk, vv, is_causal=causal, enable_gqa=True)
     return lambda: torch.autograd.grad(out, (qq, kk, vv), do,
                                        retain_graph=True)
+
+
+def sdpa_backward_backends(torch, q, k, v, do, causal) -> dict:
+    """CUDA-event times of SDPA's backward on these inputs as PyTorch
+    picks its backend, and with each of the flash, memory-efficient and
+    cuDNN backends forced (None where one refuses the inputs); the
+    forced time nearest the unforced one names the backend it picked.
+    Printed; measurement only, no path of the port calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {"picked": cuda_ms(torch, sdpa_backward(torch, q, k, v, do,
+                                                  causal))}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        name = backend.name.lower()
+        try:
+            with sdpa_kernel([backend]):
+                run = sdpa_backward(torch, q, k, v, do, causal)
+        except RuntimeError:        # this backend does not take them
+            out[name] = None
+            continue
+        out[name] = cuda_ms(torch, run)
+    timed = [n for n in out if n != "picked" and out[n] is not None]
+    out["backend"] = min(timed, key=lambda n: abs(out[n] - out["picked"]))
+    print(f"SDPA backward at {list(q.shape)}: {out}", flush=True)
+    return out
 
 
 def hold_bwd(torch, label, got, want):
@@ -2857,13 +2913,17 @@ def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
           f"{bound_by} ({flops:.4g} flop; {100 * b_ms / ms:.1f}% of it)",
           flush=True)
     # the two main launches apart, each beside the bound of the products
-    # it issues (the bound counts five; dK/dV issues six, dQ four)
+    # it issues (the bound counts five; at d 64 and 128 dK/dV issues six,
+    # dQ four; at d 256 eight and six)
     outs = [torch.empty_like(t) for t in (q, k, v)]
     launches = FA.bwd_launches(q, k, v, o, do, lse, causal, *outs)
     launches["flash_attention_bwd_pre"]()
     apart = {}
-    for part, name, products in (("dkdv", "dK/dV", 6), ("dq", "dQ", 4)):
-        t = cuda_ms(torch, launches[f"flash_attention_bwd_{part}"])
+    stem = bwd_stem(q)
+    issued = (8, 6) if q.shape[-1] == 256 else (6, 4)
+    for (part, name), products in zip((("dkdv", "dK/dV"), ("dq", "dQ")),
+                                      issued):
+        t = cuda_ms(torch, launches[f"{stem}_{part}"])
         own = products * t_ops / 5
         apart[f"{part}_ms"] = t
         print(f"{label}: {name} kernel {t:.4f} ms against its {products} "
@@ -2900,23 +2960,54 @@ def attention_bwd_captured(FA, layers):
         FA.flash_attention_bwd = kernel
 
 
+def train_bytes(cfg, seq, b) -> int:
+    """The reckoned peak of a train step of ``b`` sequences: the state
+    (bf16 parameters and gradients, float32 mu and nu: 12 bytes a
+    parameter) plus, a sequence, the cross-entropy's buffers (20 bytes a
+    token and vocab entry: the float32 logits and, at the backward's peak,
+    four more logits-sized float32 buffers; the first full-depth run
+    peaked at 21.1 bytes an entry at 4 x 4096) and the checkpointed layer
+    inputs (bf16, one a layer), plus one layer's transients in its
+    recompute and backward, each bf16 and counted twice (the tensor and
+    its gradient): a dense FFN's four [tokens, d_ff] hiddens; an MoE's
+    [E g cap, d] buffer and output, its four [E g cap, f] hiddens and two
+    [tokens k, d] gathered rows (granite-3b at 8 x 4096: 327,680 buffer
+    rows of 1536, 1.0 GB each)."""
+    n = cfg.param_count() + (cfg.vocab_padded - cfg.vocab) * cfg.d_model
+    t = b * seq
+    per_seq = seq * (20 * cfg.vocab_padded + 2 * cfg.d_model * cfg.n_layers)
+    if cfg.moe:
+        from repro_torch.models import moe as M
+        g, _, cap = M.group_plan(t, cfg.moe_groups, cfg.moe)
+        rows = cfg.moe.n_experts * g * cap
+        layer = 2 * 2 * (2 * rows * cfg.d_model + 4 * rows * cfg.moe.d_ff
+                         + 2 * t * cfg.moe.top_k * cfg.d_model)
+    else:
+        layer = 2 * 2 * 4 * t * cfg.d_ff
+    return 12 * n + b * per_seq + layer
+
+
 def train_batch_size(torch, cfg, seq) -> tuple:
     """The largest per-step batch of {8, 4, 2, 1} whose reckoned memory
-    fits in 90% of the card: the state (bf16 parameters and gradients,
-    float32 mu and nu: 12 bytes a parameter) plus, a sequence, the
-    cross-entropy's buffers (20 bytes a token and vocab entry: the float32
-    logits and, at the backward's peak, four more logits-sized float32
-    buffers; the first full-depth run peaked at 21.1 bytes an entry at
-    4 x 4096) and the checkpointed layer inputs (bf16, one a layer).
-    Returns (batch, reckoned bytes, card bytes)."""
+    (``train_bytes``) fits in 90% of the card. Returns (batch, reckoned
+    bytes, card bytes)."""
     total = torch.cuda.get_device_properties(0).total_memory
-    n = cfg.param_count() + (cfg.vocab_padded - cfg.vocab) * cfg.d_model
-    state = 12 * n
-    per_seq = seq * (20 * cfg.vocab_padded + 2 * cfg.d_model * cfg.n_layers)
     for b in (8, 4, 2, 1):
-        if state + b * per_seq <= 0.9 * total:
-            return b, state + b * per_seq, total
+        if train_bytes(cfg, seq, b) <= 0.9 * total:
+            return b, train_bytes(cfg, seq, b), total
     raise AssertionError(f"{cfg.name}: not even one sequence of {seq} fits")
+
+
+def train_depth(torch, cfg, seq) -> int:
+    """The most layers of ``cfg`` whose train step of one sequence fits
+    in 90% of the card by ``train_bytes`` (gemma-7b's 28 layers need
+    about 102 GB of state alone)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    for layers in range(cfg.n_layers, 0, -1):
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        if train_bytes(cut, seq, 1) <= 0.9 * total:
+            return layers
+    raise AssertionError(f"{cfg.name}: not even one layer fits")
 
 
 def snapshot(tree):
@@ -2940,34 +3031,54 @@ def hold_close(torch, label, got, want, share, what):
           f"{share})", flush=True)
 
 
-def check_train_step_plain(torch, seed, device="cuda"):
-    """One train_4k step of qwen3-1.7b at full width and 2 layers, B = 1,
-    through the kernels and through the plain versions (the same autograd
-    Function on attention_lse_ref and attention_bwd_ref), from the same
-    weights and batch: loss and ce within 2e-3 relative, gnorm 1e-2,
-    every gradient leaf and mu within 2e-2 of the leaf's scale, nu 4e-2
-    (bf16 activations differ by a unit here and there between the two
-    attention routes, and the differences add up through two layers), and
-    each parameter within 2 lr (an Adam step moves a parameter by at most
-    lr, its sign set by the gradient's, which may differ where that is
-    near 0) plus one bf16 unit."""
+def check_train_step_plain(torch, seed, device="cuda",
+                           arch_name="qwen3-1.7b", seq=None):
+    """One train_4k step of an LM at full width and 2 layers, B = 1 (of
+    ``seq`` tokens, default 4096), through the kernels and through the
+    plain versions (the same autograd Function on attention_lse_ref and
+    attention_bwd_ref), from the same weights and batch: loss and ce
+    within 2e-3 relative, gnorm 1e-2, every gradient leaf and mu within
+    2e-2 of the leaf's scale, nu 4e-2 (bf16 activations differ by a unit
+    here and there between the two attention routes, and the differences
+    add up through two layers), and each parameter within 2 lr (an Adam
+    step moves a parameter by at most lr, its sign set by the gradient's,
+    which may differ where that is near 0) plus one bf16 unit. An MoE
+    model's plain step routes as the kernel step did (``moe_routing``:
+    its forward and its recompute replay the recorded experts, the gates
+    its own probabilities at them): bf16 rounding flips choices near
+    ties, and one flip changes a token's output by a whole expert."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
+    from repro_torch.models import moe as M
     from repro_torch.training.optim import (
         schedule, train_state_init, tree_leaves)
-    arch = train.cut_layers(get_arch("qwen3-1.7b"), 2)
+    arch = train.cut_layers(get_arch(arch_name), 2)
     dev = torch.device(device)
-    out = {}
+    out, recorded = {}, None
     for route in ("kernels", "plain"):
         model = train.build_model(arch, False, dev, seed)
         state = train_state_init(model.param_tree())
         batch = next(train.make_batches(arch, "train_4k", False, dev, 1))
+        if seq is not None:
+            batch = {k: t[:, :seq].contiguous() for k, t in batch.items()}
         swap = (attention_swapped(FA, FA.attention_plain_autograd,
                                   FA.flash_decode)
                 if route == "plain" else contextlib.nullcontext())
-        with train.deterministic(dev), swap:
+        routing = (contextlib.nullcontext() if not arch.cfg.moe
+                   else moe_routing(torch, M, replay=recorded))
+        with train.deterministic(dev), swap, routing as log:
             state, m = arch.step_fn("train_4k")(model, state, batch)
+        if arch.cfg.moe and route == "kernels":
+            recorded = log
+        elif arch.cfg.moe:
+            flips = [(call, len(tok), max(marg, default=0.0))
+                     for call, tok, marg in log]
+            print(f"{arch_name} 2 layers: the plain step replays the kernel "
+                  f"step's routing in its {len(log)} MoE calls (forward "
+                  f"and recompute); tokens whose own choice differs, and "
+                  f"the largest of their margins, a call: {flips}",
+                  flush=True)
         out[route] = (m, snapshot(model.grads),
                       snapshot(state.params), snapshot(state.mu),
                       snapshot(state.nu))
@@ -2975,7 +3086,7 @@ def check_train_step_plain(torch, seed, device="cuda"):
         torch.cuda.empty_cache()
     (mk, gk, pk, muk, nuk), (mp, gp, pp, mup, nup) = (out["kernels"],
                                                       out["plain"])
-    label = "train step, 2 layers, kernels against plain"
+    label = f"{arch_name} train step, 2 layers, kernels against plain"
     for k, rel in (("loss", 2e-3), ("ce", 2e-3), ("gnorm", 1e-2)):
         a, b = float(mk[k]), float(mp[k])
         print(f"{label}: {k} {a} against {b}", flush=True)
@@ -3041,6 +3152,170 @@ def check_resume(torch, arch_name, extra, label):
     shutil.rmtree(root, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def moe_drops(M):
+    """Record, for each MoE call, the share of its assignments that
+    overflow their expert's capacity (a device scalar: no host read
+    during the step). Yields the list."""
+    routes, shares = M.routes, []
+
+    def record(*args):
+        r = routes(*args)
+        shares.append(1.0 - r.keep.float().mean())
+        return r
+
+    M.routes = record
+    try:
+        yield shares
+    finally:
+        M.routes = routes
+
+
+# a MoE train step's families (``scoped_family``, in this order): the
+# kernels by name, then autograd's nodes of the dispatch and combine
+# Functions, then the step's record_function scopes
+MOE_STEP_FAMILIES = (
+    ("attention (ours)", ("attn_wgmma",)),
+    ("attention backward (ours)", ("bwd_dkdv", "bwd_dq", "bwd_pre",
+                                   "bwd256")),
+    ("gemm", ("gemm", "cutlass", "xmma", "nvjet")),
+    ("MoE combine backward (_Combine)", ("_combinebackward",)),
+    ("MoE dispatch backward (_Dispatch)", ("_dispatchbackward",)),
+    ("MoE routing: softmax, top-k, sort, searchsorted",
+     ("topk", "sort", "radix", "searchsorted")),
+    ("gathers and scatters (index, gather, scatter)",
+     ("index", "gather", "scatter")),
+    ("zero the gradients", ("lm.zero_grads",)),
+    ("global norm", ("lm.global_norm",)),
+    ("AdamW", ("lm.adamw",)))
+
+
+def train_lm(torch, seed, arch, dev, timed_steps, profile=False):
+    """An LM trained on the card through launch/train.py's pieces and the
+    arch's train_4k step: random bf16 weights from ``seed``, float32
+    moments, 4096 tokens a sequence at the largest batch that fits
+    (``train_batch_size``), one warm-up step (capturing the attention
+    backward's inputs of the first and last layer and, for an MoE, each
+    layer's dropped share), then ``timed_steps`` counted, timed steps:
+    step p50 and p99, tokens/s, peak memory against the reckoned, the
+    model-FLOP share from ``model_flops`` (active parameters). With
+    ``profile`` one more step under torch.profiler (an MoE's by
+    ``MOE_STEP_FAMILIES``) and the AdamW update alone by CUDA events.
+    Returns {counts, captured, batch, seq, labels, p50, adamw_ms}."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models import moe as M
+    from repro_torch.training.optim import adamw_update, train_state_init
+    cfg = arch.cfg
+    seq = arch.input_sizes("train_4k")["tokens"][1]
+    B, reckoned, total = train_batch_size(torch, cfg, seq)
+    print(f"{cfg.name} training: per-step batch {B} x {seq} (train_4k is "
+          f"256 x {seq}); reckoned {reckoned} B of the card's {total}",
+          flush=True)
+    out = {"batch": B, "seq": seq, "adamw_ms": None}
+    with train.deterministic(dev):
+        t0 = time.perf_counter()
+        model = train.build_model(arch, False, dev, seed)
+        state = train_state_init(model.param_tree())
+        step = arch.step_fn("train_4k")
+        batches = train.make_batches(arch, "train_4k", False, dev, B)
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        moe = (f", {cfg.moe.n_experts} experts of {cfg.moe.d_ff} top-"
+               f"{cfg.moe.top_k} in {cfg.moe_groups} groups" if cfg.moe
+               else "")
+        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, remat "
+              f"{cfg.remat}{moe}; {n_params} bf16 parameters, float32 "
+              f"moments, from seed {seed} in {time.perf_counter() - t0:.3f}"
+              f" s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        drops = moe_drops(M) if cfg.moe else contextlib.nullcontext([])
+        with attention_bwd_captured(FA, cfg.n_layers) as captured, \
+                drops as shares:
+            state, m = step(model, state, next(batches))
+            warm = float(m["loss"])
+        print(f"warm-up step: loss {warm}", flush=True)
+        if cfg.moe:     # the forward's calls, one a layer
+            layer = [round(float(x), 4) for x in shares[:cfg.n_layers]]
+            print(f"{cfg.name}: dropped share of the assignments a layer "
+                  f"(warm-up step, capacity factor "
+                  f"{cfg.moe.capacity_factor}): {layer}", flush=True)
+        del shares
+        reset_launch_counts()
+        times, tokens = [], B * seq
+        for i in range(timed_steps):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(model, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            vals = {k: float(v) for k, v in m.items()}
+            print(f"step {i + 1}: loss {vals['loss']} ce {vals['ce']} gnorm "
+                  f"{vals['gnorm']} ({times[-1]:.4f} s)", flush=True)
+            if not all(math.isfinite(x) for x in vals.values()):
+                raise AssertionError(f"step {i + 1}: not finite: {vals}")
+        out["counts"] = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        p50 = float(np.median(times))
+        p99 = float(np.percentile(times, 99))
+        flops = arch.model_flops("train_4k", global_batch=B)
+        print(f"{cfg.name} train_4k at {B} x {seq}: step p50 {p50} s, p99 "
+              f"{p99} s over {len(times)} steps (min {min(times)}, max "
+              f"{max(times)}); {tokens / p50} tokens/s; peak allocated "
+              f"{peak} B ({100 * peak / total:.1f}% of the card; reckoned "
+              f"{reckoned})", flush=True)
+        print(f"{cfg.name} model-FLOP share: 6 N tokens = {flops:.4g} flop "
+              f"(N = {cfg.active_param_count()} active of "
+              f"{cfg.param_count()}) a step, "
+              f"{100 * flops / p50 / BF16_FLOPS_PER_S:.2f}% of "
+              f"{BF16_FLOPS_PER_S:.4g} flop/s", flush=True)
+        if peak > 0.9 * total:
+            raise AssertionError(f"peak {peak} B over 90% of the card")
+        launches = {k: v for k, v in out["counts"].items() if v}
+        print(f"launches over the timed steps: {launches}", flush=True)
+        if profile:
+            name = f"{cfg.name} train step"
+            if cfg.moe:
+                profile_step(torch, name, model, state,
+                             lambda: model.loss_fn(batch["tokens"],
+                                                   batch["labels"])[0],
+                             arch.opt, "lm", MOE_STEP_FAMILIES,
+                             {"gemm": flops / BF16_FLOPS_PER_S * 1e3})
+            else:
+                profile_run(torch, name, lambda: step(model, state, batch))
+            grads = model.grad_tree()
+            out["adamw_ms"] = cuda_ms(
+                torch, lambda: adamw_update(state, grads, arch.opt), reps=3,
+                warmup=1)
+        out.update(labels=batch["labels"], captured=captured, p50=p50)
+        del model, state, batches, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def hold_captured_bwd(torch, name, captured, causal=True):
+    """The backward kernels against their plain version on a train step's
+    captured inputs, layer 0 timed; returns its numbers, max_abs_err the
+    worst over the layers."""
+    result = None
+    for layer in sorted(captured):
+        q, k, v, o, do, lse = captured[layer]
+        r = check_attention_bwd(
+            torch, f"{name} attention backward, layer {layer} of a train "
+            f"step {list(q.shape)} over {list(k.shape)}", q, k, v, do,
+            causal, o=o, lse=lse, timed=layer == 0)
+        if result is None:
+            result = r
+        else:
+            result["max_abs_err"] = max(result["max_abs_err"],
+                                        r["max_abs_err"])
+    return result
+
+
 def run_train_phase(torch, seed, profile=False, device="cuda"):
     """Training on the card through launch/train.py's pieces and the
     arch's train_4k / train_batch step functions: the attention backward
@@ -3054,13 +3329,9 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
     (the backward kernel on a step's rows, the timed steps, crash and
     resume). Returns (launch counts of the timed runs, measured numbers
     of the backward kernels)."""
-    import numpy as np
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     from repro_torch.models.common import cross_entropy_loss
-    from repro_torch.training.optim import adamw_update, train_state_init
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for b, hq, hkv, s, d, causal in BWD_SHAPES:
@@ -3076,97 +3347,30 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
     torch.cuda.empty_cache()
 
     arch = get_arch("qwen3-1.7b")
-    cfg = arch.cfg
-    seq = arch.input_sizes("train_4k")["tokens"][1]
-    B, reckoned, total = train_batch_size(torch, cfg, seq)
-    print(f"qwen3-1.7b training: per-step batch {B} x {seq} (train_4k is "
-          f"256 x {seq}); reckoned {reckoned} B of the card's {total}",
-          flush=True)
     counts = {}
     measured = {}
-    with train.deterministic(dev):
-        t0 = time.perf_counter()
-        model = train.build_model(arch, False, dev, seed)
-        state = train_state_init(model.param_tree())
-        step = arch.step_fn("train_4k")
-        batches = train.make_batches(arch, "train_4k", False, dev, B)
-        n_params = sum(p.numel() for p in model.parameters())
-        torch.cuda.synchronize()
-        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, remat "
-              f"{cfg.remat}; {n_params} bf16 parameters, float32 moments, "
-              f"from seed {seed} in {time.perf_counter() - t0:.3f} s",
+    run = train_lm(torch, seed, arch, dev, TRAIN_TIMED_STEPS, profile)
+    add_counts(counts, run["counts"])
+    captured = run["captured"]
+    if profile:     # the step's cross-entropy alone, its model freed
+        B, seq, cfg = run["batch"], run["seq"], arch.cfg
+        labels = run["labels"]
+        logits = torch.randn((B, seq, cfg.vocab_padded), generator=gen,
+                             device=dev).bfloat16().requires_grad_()
+
+        def ce():
+            cross_entropy_loss(logits, labels).backward()
+
+        with train.deterministic(dev):
+            ce_ms = cuda_ms(torch, ce, reps=3, warmup=1)
+        print(f"  by CUDA events: cross-entropy forward and backward "
+              f"{ce_ms:.3f} ms, AdamW update {run['adamw_ms']:.3f} ms",
               flush=True)
-        torch.cuda.reset_peak_memory_stats()
-        with attention_bwd_captured(FA, cfg.n_layers) as captured:
-            state, m = step(model, state, next(batches))
-            warm = float(m["loss"])
-        print(f"warm-up step: loss {warm}", flush=True)
-        reset_launch_counts()
-        times, tokens = [], B * seq
-        for i in range(TRAIN_TIMED_STEPS):
-            batch = next(batches)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(model, state, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            vals = {k: float(v) for k, v in m.items()}
-            print(f"step {i + 1}: loss {vals['loss']} ce {vals['ce']} gnorm "
-                  f"{vals['gnorm']} ({times[-1]:.4f} s)", flush=True)
-            if not all(math.isfinite(x) for x in vals.values()):
-                raise AssertionError(f"step {i + 1}: not finite: {vals}")
-        add_counts(counts, launch_counts())
-        peak = torch.cuda.max_memory_allocated()
-        p50 = float(np.median(times))
-        n_model = cfg.param_count()
-        print(f"qwen3-1.7b train_4k at {B} x {seq}: step p50 {p50} s over "
-              f"{len(times)} steps (min {min(times)}, max {max(times)}); "
-              f"{tokens / p50} tokens/s; peak allocated {peak} B "
-              f"({100 * peak / total:.1f}% of the card)", flush=True)
-        print(f"model-FLOP share: 6 N tokens = {6 * n_model * tokens:.4g} "
-              f"flop (N = {n_model}) a step, "
-              f"{100 * 6 * n_model * tokens / p50 / BF16_FLOPS_PER_S:.2f}% "
-              f"of {BF16_FLOPS_PER_S:.4g} flop/s", flush=True)
-        if peak > 0.9 * total:
-            raise AssertionError(f"peak {peak} B over 90% of the card")
-        launches = {k: v for k, v in counts.items() if v}
-        print(f"launches over the timed steps: {launches}", flush=True)
-        if profile:
-            profile_run(torch, "qwen3-1.7b train step",
-                        lambda: step(model, state, batch))
-            grads = model.grad_tree()
-            adamw = cuda_ms(torch, lambda: adamw_update(state, grads,
-                                                        arch.opt),
-                            reps=3, warmup=1)
-        labels = batch["labels"]
-        del model, state, batches, batch
+        del logits
         torch.cuda.empty_cache()
-        if profile:     # the step's cross-entropy alone, its model freed
-            logits = torch.randn((B, seq, cfg.vocab_padded), generator=gen,
-                                 device=dev).bfloat16().requires_grad_()
-
-            def ce():
-                cross_entropy_loss(logits, labels).backward()
-
-            print(f"  by CUDA events: cross-entropy forward and backward "
-                  f"{cuda_ms(torch, ce, reps=3, warmup=1):.3f} ms, AdamW "
-                  f"update {adamw:.3f} ms", flush=True)
-            del logits
-            torch.cuda.empty_cache()
-    for layer in sorted(captured):
-        q, k, v, o, do, lse = captured[layer]
-        r = check_attention_bwd(
-            torch, f"attention backward, layer {layer} of a train step "
-            f"{list(q.shape)} over {list(k.shape)}", q, k, v, do, True,
-            o=o, lse=lse, timed=layer == 0)
-        if "flash_attention_bwd" not in measured:
-            measured["flash_attention_bwd"] = r
-        else:
-            measured["flash_attention_bwd"]["max_abs_err"] = max(
-                measured["flash_attention_bwd"]["max_abs_err"],
-                r["max_abs_err"])
-    del captured
+    measured["flash_attention_bwd"] = hold_captured_bwd(
+        torch, "qwen3-1.7b", captured)
+    del captured, run
     torch.cuda.empty_cache()
     check_train_step_plain(torch, seed, device)
     torch.cuda.empty_cache()
@@ -3178,6 +3382,71 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
         torch, seed, device, profile)
     add_counts(counts, fm_counts)
     check_resume(torch, "fm", on, "fm resume (train_batch)")
+    return counts, measured
+
+
+MOE_TRAINS = ("granite-moe-1b-a400m", "granite-moe-3b-a800m")
+MOE_TIMED_STEPS = 4
+GEMMA_TIMED_STEPS = 4
+
+
+def run_moe_train_phase(torch, seed, profile=False, device="cuda"):
+    """MoE training on the card: granite-moe-1b-a400m and
+    granite-moe-3b-a800m at full width and depth (``train_lm``: 24 and 32
+    layers, 32 and 40 experts, top-8, 32 routing groups, the load-balance
+    loss in the step's loss), their attention backward held against its
+    plain version on each step's captured inputs; one 2-layer
+    granite-moe-1b-a400m step through the kernels against the plain one
+    with the kernel step's routing replayed; crash and resume at 2
+    layers. With ``profile`` the granite-3b step by MOE_STEP_FAMILIES.
+    Returns (launch counts of the timed runs, the backward's numbers of
+    each model)."""
+    from repro_torch.configs import get_arch
+    dev = torch.device(device)
+    counts, measured = {}, {}
+    for name in MOE_TRAINS:
+        run = train_lm(torch, seed, get_arch(name), dev, MOE_TIMED_STEPS,
+                       profile and name == MOE_TRAINS[-1])
+        add_counts(counts, run["counts"])
+        measured[name] = hold_captured_bwd(torch, name, run["captured"])
+        del run
+        torch.cuda.empty_cache()
+    check_train_step_plain(torch, seed, device, MOE_TRAINS[0])
+    torch.cuda.empty_cache()
+    check_resume(torch, MOE_TRAINS[0], ["--layers", "2", "--batch", "1",
+                                        "--device", device],
+                 f"{MOE_TRAINS[0]} resume (2 layers, 1 x 4096)")
+    torch.cuda.empty_cache()
+    return counts, measured
+
+
+def run_gemma_train_phase(torch, seed, profile=False, device="cuda"):
+    """gemma-7b trained on the card at full width (d_model 3072, 16
+    heads of 256, GeGLU of 24,576, vocab 256,000) and the most layers
+    whose step of one 4096-token sequence fits (``train_depth``; its
+    state alone at 28 layers is about 102 GB), through the wgmma forward
+    and the d = 256 backward (csrc/flash_attention_bwd256.cu), held
+    against its plain version on the step's captured inputs and timed
+    beside SDPA's backward (with each backend forced, to name the one
+    PyTorch picks). Returns (launch
+    counts of the timed steps, the d = 256 backward's numbers)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    dev = torch.device(device)
+    arch = get_arch("gemma-7b")
+    seq = arch.input_sizes("train_4k")["tokens"][1]
+    layers = train_depth(torch, arch.cfg, seq)
+    print(f"gemma-7b: {layers} of its {arch.cfg.n_layers} layers fit one "
+          f"step of 1 x {seq} in 90% of the card", flush=True)
+    run = train_lm(torch, seed, train.cut_layers(arch, layers), dev,
+                   GEMMA_TIMED_STEPS, profile)
+    measured = hold_captured_bwd(torch, "gemma-7b", run["captured"])
+    q, k, v, o, do, lse = run["captured"][0]
+    measured["library_backends"] = sdpa_backward_backends(torch, q, k, v,
+                                                          do, True)
+    counts = run["counts"]
+    del run, q, k, v, o, do, lse
+    torch.cuda.empty_cache()
     return counts, measured
 
 
@@ -3675,6 +3944,9 @@ KERNELS = [
     ("flash_attention_bwd", "flash_attention_bwd_dkdv",
      "src/repro_torch/csrc/flash_attention_bwd.cu",
      "src/repro/kernels/ref.py:124", None),
+    ("flash_attention_bwd256", "flash_attention_bwd256_dkdv",
+     "src/repro_torch/csrc/flash_attention_bwd256.cu",
+     "src/repro/kernels/ref.py:124", None),
     ("fm_interaction_bwd", "fm_interaction_bwd",
      "src/repro_torch/csrc/fm_interaction.cu",
      "src/repro/models/recsys/fm.py:69", None),
@@ -3770,6 +4042,16 @@ def main(argv=None) -> int:
                                                  args.profile)
         measured.update(train_measured)
         add_counts(totals, counts)
+    with phase("train_moe"):
+        counts, moe_measured = run_moe_train_phase(torch, args.seed,
+                                                   args.profile)
+        for arch, numbers in moe_measured.items():
+            measured["flash_attention_bwd"][arch] = numbers
+        add_counts(totals, counts)
+    with phase("train_gemma"):
+        counts, measured["flash_attention_bwd256"] = run_gemma_train_phase(
+            torch, args.seed, args.profile)
+        add_counts(totals, counts)
     with phase("gnn"):
         gnn_counts, measured["segment_reduce_gnn"] = run_gnn_phase(
             torch, args.seed, args.profile)
@@ -3808,6 +4090,8 @@ def main(argv=None) -> int:
         if name == "flash_attention_bwd":
             e["pre_launches"] = totals["flash_attention_bwd_pre"]
             e["dq_launches"] = totals["flash_attention_bwd_dq"]
+        if name == "flash_attention_bwd256":   # its pre pass is counted above
+            e["dq_launches"] = totals["flash_attention_bwd256_dq"]
         if name.endswith("_bwd"):
             e["note"] = ("no TPU kernel: replaces JAX's autograd of the "
                          "reference's XLA forward at 'replaces'")

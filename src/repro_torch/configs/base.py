@@ -104,10 +104,25 @@ class LMArch:
         its device."""
         return T.init_params(self.smoke_cfg, generator)
 
+    def model_flops(self, shape_name: str,
+                    global_batch: Optional[int] = None) -> float:
+        """The reference's count from the active parameters N (an MoE's
+        top-k experts): 6 N a token to train, 2 N to prefill, 2 N a new
+        token to decode; ``global_batch`` replaces the shape's batch
+        (a run on one card takes a cut of it)."""
+        sh = self.shapes[shape_name]
+        n = self.cfg.active_param_count()
+        b = sh.sizes["global_batch"] if global_batch is None else global_batch
+        if sh.kind == "decode":
+            return 2.0 * n * b
+        return (6.0 if sh.kind == "train" else 2.0) * n * sh.sizes[
+            "seq_len"] * b
+
     def step_fn(self, shape_name: str, smoke: bool = False) -> Callable:
         """``train_step(model, state, batch)`` for a train shape; the model
         must be a ``Transformer`` of the config that ``smoke`` picks,
-        built with ``train=True``."""
+        built with ``train=True``: a dense or an MoE FFN (whose loss adds
+        0.01 times its load-balancing loss)."""
         cfg = self.smoke_cfg if smoke else self.cfg
         if self.shapes[shape_name].kind != "train":
             raise NotImplementedError(

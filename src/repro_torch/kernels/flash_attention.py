@@ -2,7 +2,8 @@
 
 The wrappers of ``csrc/flash_attention_wgmma.cu``,
 ``csrc/flash_attention_tf32.cu``, ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``: ``flash_attention`` replaces
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd256.cu``:
+``flash_attention`` replaces
 ``_attn_kernel`` and ``flash_decode`` replaces ``_decode_kernel`` of
 ``repro.kernels.flash_attention``. On CPU tensors they run the plain
 torch versions (``kernels/ref.py``); on CUDA tensors they launch a
@@ -13,14 +14,16 @@ Training: when an input requires grad (and grad mode is on),
 forward is the wgmma kernel with its log-sum-exp output (launch key
 ``flash_attention_wgmma``) and whose backward is ``flash_attention_bwd``,
 three hand-written kernels (keys ``flash_attention_bwd_pre``: D =
-rowsum(dO * O); ``flash_attention_bwd_dkdv``; ``flash_attention_bwd_dq``)
-that recompute P from the saved log-sum-exp, without atomics, so a
-backward gives the same bits every time. On the CPU the same Function
-runs ``attention_lse_ref`` and ``attention_bwd_ref``. The reference has
-no Pallas backward (it trains through its XLA attention); the kernels
-replace that route on the card. On the card the backward takes bfloat16
-only, d in {64, 128} and sq == skv; float32 with grad (its backward is
-in ROADMAP.md), d = 256 and sq != skv are refused.
+rowsum(dO * O); then ``flash_attention_bwd_dkdv`` and
+``flash_attention_bwd_dq`` at d in {64, 128}, wgmma and TMA, or
+``flash_attention_bwd256_dkdv`` and ``flash_attention_bwd256_dq`` at
+d = 256, mma.sync) that recompute P from the saved log-sum-exp, without
+atomics, so a backward gives the same bits every time. On the CPU the
+same Function runs ``attention_lse_ref`` and ``attention_bwd_ref``. The
+reference has no Pallas backward (it trains through its XLA attention);
+the kernels replace that route on the card. On the card the backward
+takes bfloat16 only, every d in ``HEAD_DIMS`` and sq == skv; float32
+with grad (its backward is in ROADMAP.md) and sq != skv are refused.
 
 ``flash_attention`` picks its kernel by type (``prefill_kernel``); both
 run on the tensor cores. bfloat16 goes to wgmma fed by TMA (launch key
@@ -53,9 +56,10 @@ from repro_torch.kernels import _build, ref
 LAUNCHES = {"flash_attention_tf32": 0, "flash_attention_wgmma": 0,
             "flash_decode": 0, "flash_decode_combine": 0,
             "flash_attention_bwd_pre": 0, "flash_attention_bwd_dkdv": 0,
-            "flash_attention_bwd_dq": 0}
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd256_dkdv": 0,
+            "flash_attention_bwd256_dq": 0}
 HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 SM_COUNT = 132             # the H100's streaming multiprocessors
 DECODE_CTAS_PER_SM = 2     # split CTAs resident per SM (96 KB rings)
 
@@ -193,10 +197,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True):
     """(dq, dk, dv) of ``flash_attention`` at output ``o`` (as the
     forward gave it) with output gradient ``do`` and the forward's
-    log-sum-exp ``lse`` [b, hq, s] float32: three launches of
-    ``csrc/flash_attention_bwd.cu``. bfloat16 q, k, v, o, do; d in
-    {64, 128}; sq == skv; dk and dv summed over each KV head's group. On
-    CPU tensors, ``attention_bwd_ref``."""
+    log-sum-exp ``lse`` [b, hq, s] float32: three launches
+    (``bwd_launches``). bfloat16 q, k, v, o, do; d in {64, 128, 256};
+    sq == skv; dk and dv summed over each KV head's group. On CPU
+    tensors, ``attention_bwd_ref``."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
         return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
     b, hq, s, d = q.shape
@@ -227,32 +231,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_launches(q, k, v, o, do, lse, causal, dq, dk, dv) -> dict:
     """The backward's three launches on checked CUDA inputs, in order,
     as {name: function that launches it}: the pre pass (D = rowsum(dO
-    O) into a scratch buffer), then dK/dV and dQ into the given outputs.
+    O) into a scratch buffer, ``csrc/flash_attention_bwd.cu``), then
+    dK/dV and dQ into the given outputs: that source's wgmma kernels at
+    d in {64, 128} (``flash_attention_bwd_dkdv``, ``_dq``), those of
+    ``csrc/flash_attention_bwd256.cu`` at d = 256
+    (``flash_attention_bwd256_dkdv``, ``_dq``).
     ``flash_attention_bwd`` runs them; ``chip_smoke.py`` also times the
     last two apart."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _bwd_lib()
+    lib = _bwd_lib("flash_attention_bwd")
+    main = _bwd_lib("flash_attention_bwd256") if d == 256 else lib
+    stem = "flash_attention_bwd256" if d == 256 else "flash_attention_bwd"
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     tail = (b, hq, hkv, s, d, int(causal), _scale_log2(d), 1.0 / math.sqrt(d))
 
-    def launch(name, *args):
+    def launch(of, name, *args):
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
-            _build.check(getattr(lib, name)(*args, stream), name)
+            _build.check(getattr(of, name)(*args, stream), name)
             _build.count_launch(LAUNCHES, name)
 
     return {
         "flash_attention_bwd_pre": lambda: launch(
-            "flash_attention_bwd_pre", o.data_ptr(), do.data_ptr(),
+            lib, "flash_attention_bwd_pre", o.data_ptr(), do.data_ptr(),
             delta.data_ptr(), b * hq * s, d),
-        "flash_attention_bwd_dkdv": lambda: launch(
-            "flash_attention_bwd_dkdv", *common, dk.data_ptr(),
-            dv.data_ptr(), *tail),
-        "flash_attention_bwd_dq": lambda: launch(
-            "flash_attention_bwd_dq", *common, dq.data_ptr(), *tail),
+        f"{stem}_dkdv": lambda: launch(
+            main, f"{stem}_dkdv", *common, dk.data_ptr(), dv.data_ptr(),
+            *tail),
+        f"{stem}_dq": lambda: launch(
+            main, f"{stem}_dq", *common, dq.data_ptr(), *tail),
     }
 
 
@@ -342,15 +352,20 @@ def _wgmma_lse_fn():
     return fn
 
 
-def _bwd_lib():
-    lib = _build.load("flash_attention_bwd")
-    if lib.flash_attention_bwd_pre.argtypes is None:
+def _bwd_lib(name: str):
+    """``csrc/<name>.cu`` (flash_attention_bwd or flash_attention_bwd256)
+    with its entries typed: ``<name>_dkdv`` and ``<name>_dq`` (q, k, v,
+    dout, lse, delta, the outputs, b, hq, hkv, s, d, causal, scale_log2,
+    scale, stream), and the pre pass of flash_attention_bwd."""
+    lib = _build.load(name)
+    dkdv = getattr(lib, f"{name}_dkdv")
+    if dkdv.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        I64 = ctypes.c_int64
-        lib.flash_attention_bwd_pre.argtypes = [P, P, P, I64, I, P]
-        lib.flash_attention_bwd_pre.restype = I
-        for fn, outs in ((lib.flash_attention_bwd_dkdv, 2),
-                         (lib.flash_attention_bwd_dq, 1)):
+        if name == "flash_attention_bwd":
+            lib.flash_attention_bwd_pre.argtypes = [P, P, P, ctypes.c_int64,
+                                                    I, P]
+            lib.flash_attention_bwd_pre.restype = I
+        for fn, outs in ((dkdv, 2), (getattr(lib, f"{name}_dq"), 1)):
             fn.argtypes = [P] * (6 + outs) + [I] * 6 + [F, F, P]
             fn.restype = I
     return lib

@@ -1,6 +1,8 @@
-"""Prints a hash of the outputs of the decode attention kernel and the FM
-forward kernel on seeded inputs, on the card: a check that an edit to
-code they share (``csrc/mbarrier.cuh``) left their bits unchanged.
+"""Prints a hash of the outputs of the decode attention kernel, the FM
+forward kernel, the attention backward at d 64 and 128 and the MoE layer
+on seeded inputs, on the card: a check that an edit to code they share
+(``csrc/mbarrier.cuh``, the backward's wrapper, ``models/moe.py``) left
+their bits unchanged.
 
     PYTHONPATH=src python src/repro_torch/launch/kernel_bits.py
     python src/repro_torch/launch/kernel_bits.py --trees build/parent/src src
@@ -15,8 +17,12 @@ whether every hash agrees. Inputs, from seed 0 on the card: decode over
 128) (qwen3-1.7b), (24, 8, 64) (granite-moe-3b-a800m) and (32, 2, 128)
 (chatglm3-6b), in bfloat16 and float32; the FM forward at the
 serve_bulk shape (per-row v [262144, 39, 10], x the stride-0 ones) and
-with one shared v [26, 16] under strided x [4096, 26]. Prints one JSON
-object.
+with one shared v [26, 16] under strided x [4096, 26]; the attention
+backward (``flash_attention_bwd``: dq, dk, dv) at [1, 16, 4096, d] over
+8 KV heads, causal, d 64 and 128 (granite's and qwen3's training
+shapes); ``moe_ffn``'s output and aux loss for granite-moe-3b-a800m's
+layer (d 1536, 40 experts of 512, top-8) on 8 x 2048 bf16 tokens in 32
+groups. Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ DECODE = ((16, 8, 128), (24, 8, 64), (32, 2, 128))
 
 
 def digest(t: torch.Tensor) -> str:
-    raw = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    raw = t.reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes()
     return hashlib.sha256(raw).hexdigest()[:16]
 
 
@@ -61,6 +67,22 @@ def hashes() -> dict:
         x = torch.randn((26, 4096), generator=gen, device="cuda").to(dt).t()
         v = torch.randn((26, 16), generator=gen, device="cuda").to(dt)
         out[f"fm forward {name} shared"] = digest(FI.fm_interaction(x, v))
+    for d in (64, 128):
+        q, do = (torch.randn((1, 16, 4096, d), generator=gen,
+                             device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn((1, 8, 4096, d), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        lse = torch.empty((1, 16, 4096), dtype=torch.float32, device="cuda")
+        o = FA._prefill(q, k, v, True, lse)
+        grads = FA.flash_attention_bwd(q, k, v, o, do, lse, True)
+        out[f"attention backward d{d}"] = "".join(digest(g) for g in grads)
+    from repro_torch.models import moe as M
+    cfg = M.MoEConfig(40, 8, 512)
+    params = M.init_moe(cfg, 1536, torch.bfloat16, gen)
+    x = torch.randn((8 * 2048, 1536), generator=gen,
+                    device="cuda").bfloat16()
+    y, aux = M.moe_ffn(params, x, cfg, groups=32)
+    out["moe_ffn granite-3b layer"] = digest(y) + digest(aux)
     return {"tree": FI.__file__, "hashes": out}
 
 
@@ -77,7 +99,7 @@ def main(argv=None) -> dict:
         for src in args.trees:
             env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
             run = subprocess.run([sys.executable, os.path.abspath(__file__)],
-                                 env=env, capture_output=True, text=True,
+                                 env=env, stdout=subprocess.PIPE, text=True,
                                  check=True)
             runs.append(json.loads(run.stdout.strip().splitlines()[-1]))
         out = {"trees": runs, "identical": {

@@ -7,6 +7,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \
         --shape minibatch_lg --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-1b-a400m --batch 8 --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b \
+        --layers 12 --batch 1 --steps 6
 
 The fault-tolerance loop of the reference: step-seeded data (the batch
 of step i is drawn from (seed, i), so a resumed run skips the consumed

@@ -17,13 +17,23 @@ as the reference does:
   5. *scatter* the tokens into the expert buffer, run the experts, then
      *gather* back and sum the k outputs weighted by the gates.
 
-The port lays the expert buffer out as [E, g, cap, d] with one drop row
-after it, where the reference has [g, E * cap + 1, d], so that one
-batched product per weight covers every group with no permute; the
-slots that ``dispatch`` returns are the reference's group-local ones.
-The expert products are plain ``torch.bmm`` (the reference's are
-``jnp.einsum`` outside any Pallas kernel), and the rank is
-``torch.searchsorted`` as the reference's is ``jnp.searchsorted``.
+The port lays the expert buffer out as [E, g, cap, d], where the
+reference has [g, E * cap + 1, d], so that one batched product per
+weight covers every group with no permute; the slots that ``dispatch``
+returns are the reference's group-local ones. The scatter into the
+buffer and the gather back are an ``autograd.Function`` pair over two
+maps that ``routes`` computes from the sorted expert ids: each kept
+assignment's buffer row, and each buffer row's assignment (the inverse,
+read off the sorted order: expert j's kept assignments are sorted
+positions first_j .. first_j + min(count_j, cap) - 1). Kept rows are
+unique, so both directions are gathers, the forward's and the
+backward's alike: no scatter, no atomics and no run of equal ids added
+one after another, on the CPU and the card. The reference's drop row
+takes no row here: a dropped assignment reads zeros and its gradient is
+0 on both sides, as the reference's scatter-``set`` gives its drop-row
+writes no cotangent. The expert products are plain ``torch.bmm`` (the
+reference's are ``jnp.einsum`` outside any Pallas kernel), and the rank
+is ``torch.searchsorted`` as the reference's is ``jnp.searchsorted``.
 Every shape follows from T, ``groups``, the capacity and k, so no step
 reads the device from the host.
 
@@ -96,6 +106,21 @@ def route(router: torch.Tensor, x: torch.Tensor, top_k: int):
     return probs, top_p, top_e
 
 
+def _arrange(top_e: torch.Tensor):
+    """top_e [g, tg, k] -> (order, sorted_e, rank), each [g, tg * k]: the
+    stable argsort of the flat (token, choice) expert ids, the ids in that
+    order, and each assignment's rank within its expert (in token
+    order)."""
+    g, tg, k = top_e.shape
+    flat_e = top_e.reshape(g, tg * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank_sorted = torch.arange(tg * k, device=top_e.device) - first
+    rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
+    return order, sorted_e, rank
+
+
 def dispatch(top_p: torch.Tensor, top_e: torch.Tensor, n_experts: int,
              cap: int, dtype: torch.dtype):
     """top_p, top_e [g, tg, k] -> (slot, keep, gates), each [g, tg * k]
@@ -104,48 +129,114 @@ def dispatch(top_p: torch.Tensor, top_e: torch.Tensor, n_experts: int,
     cap + rank if kept, else the drop row E * cap; gates top_p * keep in
     ``dtype``."""
     g, tg, k = top_e.shape
-    flat_e = top_e.reshape(g, tg * k)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    sorted_e = torch.gather(flat_e, 1, order)
-    first = torch.searchsorted(sorted_e, sorted_e, side="left")
-    rank_sorted = torch.arange(tg * k, device=top_e.device) - first
-    rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
+    _, _, rank = _arrange(top_e)
     keep = rank < cap
-    slot = torch.where(keep, flat_e * cap + rank, n_experts * cap)
+    slot = torch.where(keep, top_e.reshape(g, tg * k) * cap + rank,
+                       n_experts * cap)
     gates = (top_p.reshape(g, tg * k) * keep).to(dtype)
     return slot, keep, gates
+
+
+class Routes(NamedTuple):
+    """Where each assignment goes in the [E, g, cap] buffer, and back.
+    Assignments are flat over (group, token, choice), [T * k]; buffer
+    rows are flat over (expert, group, rank), [E * g * cap]."""
+    row: torch.Tensor       # [T k] the assignment's row (0 when dropped)
+    keep: torch.Tensor      # [T k] kept (rank < cap)
+    gates: torch.Tensor     # [g, tg k] top_p * keep
+    src: torch.Tensor       # [E g cap] the assignment filling the row
+    filled: torch.Tensor    # [E g cap] whether one does
+
+
+def routes(top_p: torch.Tensor, top_e: torch.Tensor, n_experts: int,
+           cap: int, dtype: torch.dtype) -> Routes:
+    """``dispatch``'s choice of kept assignments, as the two maps of the
+    dispatch and combine: each kept assignment's row (expert j, group,
+    rank r) -> (j g + group) cap + r, and each row's assignment, read off
+    the sorted order (expert j's first cap sorted positions), with
+    ``filled`` false past expert j's count."""
+    g, tg, k = top_e.shape
+    e, dev = n_experts, top_e.device
+    order, sorted_e, rank = _arrange(top_e)
+    keep = rank < cap
+    gates = (top_p.reshape(g, tg * k) * keep).to(dtype)
+    group = torch.arange(g, device=dev)[:, None]
+    row = (top_e.reshape(g, tg * k) * g + group) * cap + rank
+    row = torch.where(keep, row, 0).reshape(g * tg * k)
+    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
+    first = torch.searchsorted(sorted_e, experts, side="left")     # [g, E]
+    end = torch.searchsorted(sorted_e, experts, side="right")
+    pos = first[..., None] + torch.arange(cap, device=dev)  # [g, E, cap]
+    filled = pos < end[..., None]
+    src = torch.gather(order, 1, pos.clamp_max(tg * k - 1).reshape(g, -1))
+    src = src.reshape(g, e, cap) + group[..., None] * (tg * k)
+    return Routes(row, keep.reshape(g * tg * k), gates,
+                  src.transpose(0, 1).reshape(-1),
+                  filled.transpose(0, 1).reshape(-1))
+
+
+def _gather_rows(x: torch.Tensor, index: torch.Tensor,
+                 live: torch.Tensor) -> torch.Tensor:
+    """Row index[i] of x [N, d] where live[i], else zeros: [len(index), d]."""
+    return x.index_select(0, index).masked_fill_(~live[:, None], 0)
+
+
+class _Dispatch(torch.autograd.Function):
+    """Tokens x [T, d] -> the expert buffer [E g cap, d], row r holding
+    token src[r] // k (zeros where unfilled). Backward: each kept
+    assignment reads its row's gradient, summed over a token's k
+    choices."""
+
+    @staticmethod
+    def forward(ctx, x, r: Routes, k: int):
+        ctx.save_for_backward(r.row, r.keep)
+        ctx.k = k
+        return _gather_rows(x, torch.div(r.src, k, rounding_mode="floor"),
+                            r.filled)
+
+    @staticmethod
+    def backward(ctx, grad):
+        row, keep = ctx.saved_tensors
+        gx = _gather_rows(grad.contiguous(), row, keep)
+        return gx.view(-1, ctx.k, gx.shape[-1]).sum(dim=1), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The experts' output [E g cap, d] -> each assignment's row [T k, d]
+    (zeros where dropped). Backward: each filled row reads its
+    assignment's gradient."""
+
+    @staticmethod
+    def forward(ctx, out, r: Routes):
+        ctx.save_for_backward(r.src, r.filled)
+        return _gather_rows(out, r.row, r.keep)
+
+    @staticmethod
+    def backward(ctx, grad):
+        src, filled = ctx.saved_tensors
+        return _gather_rows(grad.contiguous(), src, filled), None
 
 
 def mix(params, x: torch.Tensor, top_p: torch.Tensor, top_e: torch.Tensor,
         cfg: MoEConfig, cap: int) -> torch.Tensor:
     """The experts' output [T, d] for tokens x [T, d] routed to top_e
-    with weights top_p (both [g, tg, k]): dispatch, scatter into the
-    [E, g, cap, d] buffer, the (gated) expert FFN as batched products,
-    gather and the gate-weighted sum over the k choices."""
+    with weights top_p (both [g, tg, k]): the dispatch into the [E, g,
+    cap, d] buffer, the (gated) expert FFN as batched products, the
+    combine and the gate-weighted sum over the k choices; differentiable
+    in x, top_p and the weights."""
     t, d = x.shape
     g = top_e.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    slot, keep, gates = dispatch(top_p, top_e, e, cap, x.dtype)
-    # group-local slot (expert j, rank r) -> row (j * g + group) * cap + r
-    # of the [E, g, cap] buffer; drops -> its last row
-    rows = e * g * cap
-    expert = torch.div(slot, cap, rounding_mode="floor")
-    group = torch.arange(g, device=x.device)[:, None]
-    row = torch.where(keep, slot + (expert * (g - 1) + group) * cap, rows)
-    row = row.reshape(t * k)
-    buf = x.new_zeros((rows + 1, d))
-    buf.index_copy_(0, row, x[:, None].expand(t, k, d).reshape(t * k, d))
-    xin = buf[:rows].view(e, g * cap, d)
+    r = routes(top_p, top_e, e, cap, x.dtype)
+    xin = _Dispatch.apply(x, r, k).view(e, g * cap, d)
     h = torch.bmm(xin, params["w_in"])
     act = act_fn(cfg.act)
     if cfg.glu:
         h = act(torch.bmm(xin, params["w_gate"])) * h
     else:
         h = act(h)
-    out = x.new_empty((rows + 1, d))
-    out[rows].zero_()
-    torch.bmm(h, params["w_out"], out=out[:rows].view(e, g * cap, d))
-    y = out.index_select(0, row) * gates.reshape(t * k, 1)
+    out = torch.bmm(h, params["w_out"]).view(e * g * cap, d)
+    y = _Combine.apply(out, r) * r.gates.reshape(t * k, 1)
     return y.view(t, k, d).sum(dim=1)
 
 

@@ -7,7 +7,9 @@ override (gemma's 256), GeGLU/SwiGLU, qk-norm (qwen3), partial rotary
 ``nn.Module`` of per-layer ``Block``s with four entry points,
 ``forward`` (logits for every position), ``prefill`` (last-position
 logits and the KV cache), ``decode_step`` (one token against the cache)
-and ``loss_fn`` (the training loss, with gradients).
+and ``loss_fn`` (the training loss, with gradients: the cross-entropy
+plus 0.01 times the MoE layers' load-balance losses, as the
+reference's).
 
 Attention runs through ``kernels.flash_attention`` (prefill and
 training) and ``kernels.flash_decode`` (decode): the hand-written CUDA
@@ -229,10 +231,11 @@ class Block(nn.Module):
                 setattr(self, name, parameter(weights[name], train))
 
     def forward(self, x, sin, cos, cache_kv=None, pos=None):
-        """x [B, S, d]. Prefill (no cache): returns (y, (k, v)) with k, v
-        [B, hkv, S, hd]. Decode (S = 1): writes k, v at ``pos`` [B] of the
-        cache (k, v) [B, hkv, Scap, hd] and attends over pos + 1
-        positions; returns (y, cache_kv)."""
+        """x [B, S, d]. Prefill (no cache): returns (y, (k, v), aux) with
+        k, v [B, hkv, S, hd]. Decode (S = 1): writes k, v at ``pos`` [B]
+        of the cache (k, v) [B, hkv, Scap, hd] and attends over pos + 1
+        positions; returns (y, cache_kv, aux). aux is the MoE's
+        load-balancing loss (float32), None for a dense FFN."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -260,19 +263,21 @@ class Block(nn.Module):
         x = x + attn.reshape(B, S, hq * hd) @ self.wo
         h2 = rms_norm(x, self.ln2)
         if cfg.moe:
-            y, _ = moe.moe_ffn(self.moe_weights, h2.reshape(B * S, -1),
-                               cfg.moe, groups=cfg.moe_groups)
-            return x + y.reshape(B, S, -1), new_kv
+            y, aux = moe.moe_ffn(self.moe_weights, h2.reshape(B * S, -1),
+                                 cfg.moe, groups=cfg.moe_groups)
+            return x + y.reshape(B, S, -1), new_kv, aux
         up = h2 @ self.w_in
         if cfg.glu:
             up = act_fn(cfg.act)(h2 @ self.w_gate) * up
         else:
             up = act_fn(cfg.act)(up)
-        return x + up @ self.w_out, new_kv
+        return x + up @ self.w_out, new_kv, None
 
 
-def _block_out(block: Block, x, sin, cos) -> torch.Tensor:
-    return block(x, sin, cos)[0]
+def _block_out(block: Block, x, sin, cos):
+    """(y, aux) of a block in training: what its checkpoint keeps."""
+    y, _, aux = block(x, sin, cos)
+    return y, aux
 
 
 def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
@@ -375,49 +380,48 @@ class Transformer(nn.Module):
                              device=logits.device))
         return logits
 
-    def _all_logits(self, tokens: torch.Tensor,
-                    remat: bool = False) -> torch.Tensor:
-        """tokens [B, S] -> logits [B, S, V], soft-capped when the config
-        says so; with ``remat`` each block runs under checkpoint."""
+    def _all_logits(self, tokens: torch.Tensor, remat: bool = False):
+        """tokens [B, S] -> (logits [B, S, V], soft-capped when the config
+        says so; the MoE layers' load-balancing losses summed in float32,
+        0 for a dense FFN); with ``remat`` each block runs under
+        checkpoint, its aux loss a second output."""
         S = tokens.shape[1]
         x = self._embed(tokens)
         sin, cos = self._angles(
             torch.arange(S, dtype=torch.int32, device=self.device)[None, :])
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for block in self.layers:
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
+                x, aux = torch.utils.checkpoint.checkpoint(
                     _block_out, block, x, sin, cos, use_reentrant=False,
                     preserve_rng_state=False)
             else:
-                x = _block_out(block, x, sin, cos)
+                x, aux = _block_out(block, x, sin, cos)
+            if aux is not None:
+                aux_total = aux_total + aux
         logits = self._logits(rms_norm(x, self.ln_f))
         if self.cfg.logit_softcap > 0:
             c = self.cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
-        return logits
+        return logits, aux_total
 
     # -- entry points ---------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, V] (soft-capped when the config
         says so)."""
-        return self._all_logits(tokens)
+        return self._all_logits(tokens)[0]
 
     def loss_fn(self, tokens: torch.Tensor, labels: torch.Tensor):
         """The training loss with gradients: (ce + 0.01 * aux, ce), ce the
         mean token cross-entropy of the logits against ``labels``
-        (``cross_entropy_loss``); aux is 0 for a dense FFN. Layers run
-        under checkpoint when ``cfg.remat``. MoE training is not ported
-        (its load-balancing loss needs a gradient through ``moe.py``)."""
-        if self.cfg.moe:
-            raise NotImplementedError(
-                f"{self.cfg.name}: MoE training is not ported yet "
-                f"(ROADMAP.md); the port trains dense configs")
-        logits = self._all_logits(tokens, remat=self.cfg.remat)
+        (``cross_entropy_loss``), aux the MoE layers' load-balancing
+        losses summed over layers (0 for a dense FFN), as the reference's.
+        Layers run under checkpoint when ``cfg.remat``."""
+        logits, aux = self._all_logits(tokens, remat=self.cfg.remat)
         ce = cross_entropy_loss(
             logits, labels.to(self.device, dtype=torch.int32))
-        return ce + 0.01 * torch.zeros((), dtype=torch.float32,
-                                       device=ce.device), ce
+        return ce + 0.01 * aux, ce
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, capacity: Optional[int] = None):
@@ -436,7 +440,7 @@ class Transformer(nn.Module):
         sin, cos = self._angles(
             torch.arange(S, dtype=torch.int32, device=self.device)[None, :])
         for i, block in enumerate(self.layers):
-            x, (k, v) = block(x, sin, cos)
+            x, (k, v), _ = block(x, sin, cos)
             ks[i, :, :, :S] = k
             vs[i, :, :, :S] = v
         logits = self._logits(rms_norm(x, self.ln_f)[:, -1])
@@ -450,7 +454,8 @@ class Transformer(nn.Module):
         x = self._embed(token)
         sin, cos = self._angles(cache.length[:, None])
         for i, block in enumerate(self.layers):
-            x, _ = block(x, sin, cos, cache_kv=(cache.k[i], cache.v[i]),
-                         pos=cache.length)
+            x, _, _ = block(x, sin, cos,
+                            cache_kv=(cache.k[i], cache.v[i]),
+                            pos=cache.length)
         logits = self._logits(rms_norm(x, self.ln_f)[:, -1])
         return logits, KVCache(cache.k, cache.v, cache.length + 1)

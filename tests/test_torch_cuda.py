@@ -918,8 +918,8 @@ def _bwd_case(cuda, b, d, hq, hkv, s, causal):
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=cs.LSE_ATOL)
     before = dict(FA.LAUNCHES)
     got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal)
-    for key in ("flash_attention_bwd_pre", "flash_attention_bwd_dkdv",
-                "flash_attention_bwd_dq"):
+    stem = cs.bwd_stem(q)
+    for key in ("flash_attention_bwd_pre", f"{stem}_dkdv", f"{stem}_dq"):
         assert FA.LAUNCHES[key] == before[key] + 1
     want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal)
     if s == 1:
@@ -932,7 +932,7 @@ def _bwd_case(cuda, b, d, hq, hkv, s, causal):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (16, 1)])
 @pytest.mark.parametrize("s", [1, 77, 128, 129, 300])
 @pytest.mark.parametrize("causal", [True, False])
@@ -941,20 +941,23 @@ def test_flash_attention_bwd_matches_plain(cuda, d, hq, hkv, s, causal):
     in float32 on the same bf16 inputs, o and lse from the forward kernel
     (lse against attention_lse_ref): chip_smoke's tolerance, BWD_RTOL of a
     value plus BWD_ATOL_SHARE of the output's largest; a repeat gives the
-    same bits. s = 1 (one row, one key) and 129 (one key past a 128-key
-    tile) are the tiles' edges. At s = 1 the exact dq and dk are 0, and
-    the kernels and the plain version both return float32 rounding noise
-    of dP - D (about 1e-7; the mma.sync kernel this one replaced gave the
-    same), which no tolerance relative to the plain version's largest
+    same bits. d = 256 runs flash_attention_bwd256.cu's kernels (64-key
+    and 64-row blocks, 32-row and 32-key stages). s = 1 (one row, one
+    key) and 129 (one key past a 128-key tile) are the tiles' edges. At
+    s = 1 the exact dq and dk are 0, and the kernels and the plain
+    version both return float32 rounding noise of dP - D (about 1e-7;
+    the mma.sync kernel the d 64 / 128 one replaced gave the same), which no tolerance relative to the plain version's largest
     value can hold: there dv is held to hold_bwd and dq, dk to the bound
     of that rounding (``_one_key_bound``)."""
     _bwd_case(cuda, 2, d, hq, hkv, s, causal)
 
 
-def test_flash_attention_bwd_matches_plain_at_4096(cuda):
-    """The same at one 4096-token sequence, d = 128, GQA 2:1, causal: 32
-    dK/dV and dQ tiles a head, the longest first."""
-    _bwd_case(cuda, 1, 128, 16, 8, 4096, True)
+@pytest.mark.parametrize("d,hq,hkv", [(128, 16, 8), (256, 16, 16)])
+def test_flash_attention_bwd_matches_plain_at_4096(cuda, d, hq, hkv):
+    """The same at one 4096-token sequence, causal: d = 128 with GQA 2:1
+    (32 dK/dV and dQ tiles a head, the longest first) and gemma-7b's
+    d = 256 with 16 heads (64 tiles a head)."""
+    _bwd_case(cuda, 1, d, hq, hkv, 4096, True)
 
 
 def test_attention_autograd_on_card_matches_plain(cuda):
@@ -1044,15 +1047,13 @@ def test_fm_interaction_bwd_matches_plain(cuda, dtype, b, f, k, form):
 
 def test_training_refusals_on_card(cuda):
     """What the card's training path does not take raises: float32
-    attention with grad (its backward kernel is in ROADMAP), d = 256 with
-    grad, sq != skv with grad, and an MoE model's loss_fn."""
-    from repro_torch.configs import get_arch
+    attention with grad (its backward kernel is in ROADMAP), a head dim
+    the kernels are not built for, and sq != skv with grad."""
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models import transformer as T
     q = torch.zeros((1, 4, 64, 128), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FA.flash_attention(q, q, q)
-    q = torch.zeros((1, 4, 64, 256), device=cuda,
+    q = torch.zeros((1, 4, 64, 96), device=cuda,
                     dtype=torch.bfloat16).requires_grad_()
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(q, q, q)
@@ -1063,11 +1064,6 @@ def test_training_refusals_on_card(cuda):
         FA.flash_attention(q, kv, kv)
     with torch.no_grad():       # serving the same shapes still works
         assert FA.flash_attention(q, kv, kv).shape == q.shape
-    cfg = get_arch("granite-moe-1b-a400m").smoke_cfg
-    model = T.Transformer(cfg, device=cuda, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn(torch.zeros((1, 4), dtype=torch.int32),
-                      torch.zeros((1, 4), dtype=torch.int32))
 
 
 def test_qwen3_train_step_on_card_matches_cpu(cuda):
@@ -1113,6 +1109,37 @@ def test_qwen3_train_step_on_card_matches_cpu(cuda):
     cs.hold_close(torch, "card vs cpu", gg, gc, 2e-2, "gradient")
     cs.hold_close(torch, "card vs cpu", mug, muc, 2e-2, "mu")
     cs.hold_close(torch, "card vs cpu", nug, nuc, 4e-2, "nu")
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
+                                  "granite-moe-3b-a800m"])
+def test_moe_train_step_on_card_matches_plain(cuda, name):
+    """One train_4k step of a granite MoE at full width and 2 layers, B =
+    1 over 512 tokens, through the kernels (the wgmma forward with lse,
+    the d = 64 backward) against the same step through the plain
+    attention on the card, the plain step replaying the kernel step's
+    routing (chip_smoke.check_train_step_plain's tolerances: loss and ce
+    2e-3, gnorm 1e-2, gradients and mu 2e-2 of each leaf's scale, nu
+    4e-2); the dispatch and combine run as gathers both ways."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    _chip_smoke().check_train_step_plain(torch, 0, "cuda", name, seq=512)
+    counts = launch_counts()
+    assert counts["flash_attention_wgmma"] == 4        # forward + remat
+    assert counts["flash_attention_bwd_dkdv"] == 2
+
+
+def test_gemma_train_step_on_card_matches_plain(cuda):
+    """The same for gemma-7b (head dim 256: the backward of
+    flash_attention_bwd256.cu) at full width and 2 layers over 512
+    tokens."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    _chip_smoke().check_train_step_plain(torch, 0, "cuda", "gemma-7b",
+                                         seq=512)
+    counts = launch_counts()
+    assert counts["flash_attention_bwd256_dkdv"] == 2
+    assert counts["flash_attention_bwd256_dq"] == 2
 
 
 # -- the GNN path ------------------------------------------------------------

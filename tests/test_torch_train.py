@@ -232,14 +232,6 @@ def test_train_step_refusals():
         pa.step_fn("prefill_32k", smoke=True)
 
 
-def test_moe_loss_fn_raises():
-    cfg = get_arch("granite-moe-1b-a400m").smoke_cfg
-    model = T.Transformer(cfg, device="cpu", train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn(torch.zeros((1, 4), dtype=torch.int32),
-                      torch.zeros((1, 4), dtype=torch.int32))
-
-
 # -- the FM train step -------------------------------------------------------
 
 def test_fm_train_step_matches_reference():
@@ -281,7 +273,8 @@ def _join_writers():
             t.join()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "fm"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "fm",
+                                  "granite-moe-1b-a400m"])
 def test_launcher_crash_and_resume_is_byte_equal(arch, tmp_path):
     """6 steps with a checkpoint every 3: uninterrupted, and killed after
     step 4 (a crash at the launcher's train.step fault site) then resumed
