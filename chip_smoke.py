@@ -2913,16 +2913,14 @@ def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
           f"{bound_by} ({flops:.4g} flop; {100 * b_ms / ms:.1f}% of it)",
           flush=True)
     # the two main launches apart, each beside the bound of the products
-    # it issues (the bound counts five; at d 64 and 128 dK/dV issues six,
-    # dQ four; at d 256 eight and six)
+    # it issues (the bound counts five; dK/dV issues six, dQ four)
     outs = [torch.empty_like(t) for t in (q, k, v)]
     launches = FA.bwd_launches(q, k, v, o, do, lse, causal, *outs)
     launches["flash_attention_bwd_pre"]()
     apart = {}
     stem = bwd_stem(q)
-    issued = (8, 6) if q.shape[-1] == 256 else (6, 4)
     for (part, name), products in zip((("dkdv", "dK/dV"), ("dq", "dQ")),
-                                      issued):
+                                      (6, 4)):
         t = cuda_ms(torch, launches[f"{stem}_{part}"])
         own = products * t_ops / 5
         apart[f"{part}_ms"] = t

@@ -1,6 +1,7 @@
 // Hopper helpers (sm_90a PTX and the host's tensor maps) shared by the
 // kernels that feed wgmma from TMA tiles: flash_attention_wgmma.cu (the
-// bf16 prefill) and flash_attention_bwd.cu (its backward).
+// bf16 prefill), flash_attention_bwd.cu (its backward at d 64 and 128) and
+// flash_attention_bwd256.cu (its backward at d 256).
 //
 // Tiles are 3-D tensor maps over [heads, s, d] bfloat16 with the 128-byte
 // swizzle and boxes of SUB = 64 columns (128 bytes a row): a tile of R
@@ -67,6 +68,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---- wgmma instructions (operand lists written out) -------------------------
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32]; A and B from shared memory
+// (K-major, 128-byte swizzle); accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64]; A and B from shared memory
 // (K-major, 128-byte swizzle); accumulate = 0 overwrites D
@@ -224,6 +241,12 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 
 template <int N>
 struct MMA;
+template <>
+struct MMA<32> {
+  __device__ static void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+    wgmma_ss_n32(d, a, b, acc);
+  }
+};
 template <>
 struct MMA<64> {
   __device__ static void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {

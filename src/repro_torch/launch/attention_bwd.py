@@ -1,7 +1,8 @@
-"""Times the port's attention backward at qwen3-1.7b's training shape on
-the card.
+"""Times the port's attention backward at a training shape on the card:
+qwen3-1.7b's (the default) or gemma-7b's.
 
     PYTHONPATH=src python src/repro_torch/launch/attention_bwd.py
+    PYTHONPATH=src python src/repro_torch/launch/attention_bwd.py --shape gemma
 
 It reaches the port only through ``repro_torch.kernels.flash_attention``
 (``_prefill``, ``flash_attention_bwd``, ``bwd_launches`` where the tree
@@ -10,25 +11,29 @@ at another checkout's ``src`` it times that checkout: an A/B of two
 trees, or of a tree and a copy with an edited ``csrc/``, runs both in
 one call on one card, in turns (old, new, new, old).
 
-Shape: a train_4k step at the per-step batch chip_smoke.py trains, q [4,
-16, 4096, 128] over k, v [4, 8, 4096, 128] (GQA 2:1), causal; q, k, v
-and dO N(0, 1) in bfloat16 from seed 0, o and lse from the forward
-kernel. Each time is the mean of CUDA events around 5 back-to-back calls
-after 2 warm-up calls: the whole backward (three launches) and, where
-the tree has ``bwd_launches``, the dK/dV and dQ launches apart; SDPA's
-backward on the same inputs as the yardstick. The result is checked
+Shapes: a train_4k step at the per-step batch chip_smoke.py trains,
+causal: ``qwen3``, q [4, 16, 4096, 128] over k, v [4, 8, 4096, 128] (GQA
+2:1); ``gemma``, q [1, 16, 4096, 256] over 16 KV heads (the d = 256
+kernels). q, k, v and dO N(0, 1) in bfloat16 from seed 0, o and lse from
+the forward kernel. Each time is the mean of CUDA events around 5
+back-to-back calls after 2 warm-up calls: the whole backward (three
+launches) and, where the tree has ``bwd_launches``, its dK/dV and dQ
+launches apart (the second and third of its dict, whatever their keys);
+SDPA's backward on the same inputs as the yardstick. The result is checked
 against ``attention_bwd_ref`` (float32) on the first sequence and a
 repeat must give the same bits. Prints one JSON object.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
 import torch
 
 SEED = 0
-B, HQ, HKV, S, D = 4, 16, 8, 4096, 128
+# (b, hq, hkv, s, d) of each shape
+SHAPES = {"qwen3": (4, 16, 8, 4096, 128), "gemma": (1, 16, 16, 4096, 256)}
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor peak, data sheet
 
 
@@ -46,7 +51,11 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="qwen3")
+    args = ap.parse_args(argv)
+    B, HQ, HKV, S, D = SHAPES[args.shape]
     if not torch.cuda.is_available():
         raise SystemExit("attention_bwd: needs a CUDA device")
     from repro_torch.kernels import flash_attention as FA, ref
@@ -71,7 +80,8 @@ def main() -> dict:
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True, text=True,
                timeout=60).stdout.strip(),
-           "shape": {"q": list(q.shape), "k": list(k.shape), "causal": True},
+           "shape": {"name": args.shape, "q": list(q.shape),
+                     "k": list(k.shape), "causal": True},
            "max_abs_err": [float((g[:1].float() - w.float()).abs().max())
                            for g, w in zip(got, want)],
            "same_bits": all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -81,9 +91,11 @@ def main() -> dict:
     if launches is not None:
         steps = launches(q, k, v, o, do, lse, True, torch.empty_like(q),
                          torch.empty_like(k), torch.empty_like(v))
-        steps["flash_attention_bwd_pre"]()
-        out["dkdv_ms"] = cuda_ms(steps["flash_attention_bwd_dkdv"])
-        out["dq_ms"] = cuda_ms(steps["flash_attention_bwd_dq"])
+        pre, dkdv, dq = steps.values()
+        out["timed"] = list(steps)[1:]
+        pre()
+        out["dkdv_ms"] = cuda_ms(dkdv)
+        out["dq_ms"] = cuda_ms(dq)
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention(
         qq, kk, vv, is_causal=True, enable_gqa=True)

@@ -1,8 +1,9 @@
 """Prints a hash of the outputs of the decode attention kernel, the FM
-forward kernel, the attention backward at d 64 and 128 and the MoE layer
-on seeded inputs, on the card: a check that an edit to code they share
-(``csrc/mbarrier.cuh``, the backward's wrapper, ``models/moe.py``) left
-their bits unchanged.
+forward kernel, the attention backward at d 64, 128 and 256 and the MoE
+layer on seeded inputs, on the card: a check that an edit to code they
+share (``csrc/mbarrier.cuh``, ``csrc/wgmma.cuh``, the backward's wrapper
+and helpers, ``models/moe.py``) left their bits unchanged, and that the
+d = 256 backward gives the same bits when repeated.
 
     PYTHONPATH=src python src/repro_torch/launch/kernel_bits.py
     python src/repro_torch/launch/kernel_bits.py --trees build/parent/src src
@@ -18,9 +19,10 @@ whether every hash agrees. Inputs, from seed 0 on the card: decode over
 (chatglm3-6b), in bfloat16 and float32; the FM forward at the
 serve_bulk shape (per-row v [262144, 39, 10], x the stride-0 ones) and
 with one shared v [26, 16] under strided x [4096, 26]; the attention
-backward (``flash_attention_bwd``: dq, dk, dv) at [1, 16, 4096, d] over
-8 KV heads, causal, d 64 and 128 (granite's and qwen3's training
-shapes); ``moe_ffn``'s output and aux loss for granite-moe-3b-a800m's
+backward (``flash_attention_bwd``: dq, dk, dv) at [1, 16, 4096, d],
+causal, over 8 KV heads at d 64 and 128 (granite's and qwen3's training
+shapes) and over 16 at d 256 (gemma-7b's), the latter twice (the
+``repeat`` key); ``moe_ffn``'s output and aux loss for granite-moe-3b-a800m's
 layer (d 1536, 40 experts of 512, top-8) on 8 x 2048 bf16 tokens in 32
 groups. Prints one JSON object.
 """
@@ -67,15 +69,19 @@ def hashes() -> dict:
         x = torch.randn((26, 4096), generator=gen, device="cuda").to(dt).t()
         v = torch.randn((26, 16), generator=gen, device="cuda").to(dt)
         out[f"fm forward {name} shared"] = digest(FI.fm_interaction(x, v))
-    for d in (64, 128):
+    for d, hkv in ((64, 8), (128, 8), (256, 16)):
         q, do = (torch.randn((1, 16, 4096, d), generator=gen,
                              device="cuda").bfloat16() for _ in range(2))
-        k, v = (torch.randn((1, 8, 4096, d), generator=gen,
+        k, v = (torch.randn((1, hkv, 4096, d), generator=gen,
                             device="cuda").bfloat16() for _ in range(2))
         lse = torch.empty((1, 16, 4096), dtype=torch.float32, device="cuda")
         o = FA._prefill(q, k, v, True, lse)
         grads = FA.flash_attention_bwd(q, k, v, o, do, lse, True)
         out[f"attention backward d{d}"] = "".join(digest(g) for g in grads)
+        if d == 256:
+            grads = FA.flash_attention_bwd(q, k, v, o, do, lse, True)
+            out["attention backward d256 repeat"] = "".join(
+                digest(g) for g in grads)
     from repro_torch.models import moe as M
     cfg = M.MoEConfig(40, 8, 512)
     params = M.init_moe(cfg, 1536, torch.bfloat16, gen)

@@ -1,7 +1,8 @@
 """The arithmetic of the attention backward kernels (``csrc/flash_
-attention_bwd.cu``), emulated in torch on the CPU and held against the
-float64 backward: why P and dS enter their second products as bf16 hi +
-lo parts.
+attention_bwd.cu`` at d 64 and 128, ``csrc/flash_attention_bwd256.cu``
+at d 256, which compute alike), emulated in torch on the CPU and held
+against the float64 backward: why P and dS enter their second products
+as bf16 hi + lo parts.
 
 The kernels form S = Q K^T and dP = dO V^T in f32 accumulators (bf16
 products are exact, their sums taken in f32), P = exp2(S scale log2 e -
@@ -130,7 +131,7 @@ def worst(got, want):
 
 
 SHAPES = [(d, hq, hkv, s, causal)
-          for d in (64, 128) for hq, hkv in GROUPS for s in (77, 300)
+          for d in (64, 128, 256) for hq, hkv in GROUPS for s in (77, 300)
           for causal in (True, False)]
 
 

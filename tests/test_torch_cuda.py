@@ -934,7 +934,7 @@ def _bwd_case(cuda, b, d, hq, hkv, s, causal):
 
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (16, 1)])
-@pytest.mark.parametrize("s", [1, 77, 128, 129, 300])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 128, 129, 257, 300])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_bwd_matches_plain(cuda, d, hq, hkv, s, causal):
     """The attention backward (three launches) against attention_bwd_ref
@@ -942,8 +942,10 @@ def test_flash_attention_bwd_matches_plain(cuda, d, hq, hkv, s, causal):
     (lse against attention_lse_ref): chip_smoke's tolerance, BWD_RTOL of a
     value plus BWD_ATOL_SHARE of the output's largest; a repeat gives the
     same bits. d = 256 runs flash_attention_bwd256.cu's kernels (64-key
-    and 64-row blocks, 32-row and 32-key stages). s = 1 (one row, one
-    key) and 129 (one key past a 128-key tile) are the tiles' edges. At
+    dK/dV CTAs with 64-row stages, 128-row dQ CTAs with 32-key stages).
+    s = 1 (one row, one key), 63, 64 and 65 (about a 64-key tile or
+    stage), 129 (one key past a 128-key tile or a 128-row dQ CTA) and 257
+    (one past two) are the tiles' edges. At
     s = 1 the exact dq and dk are 0, and the kernels and the plain
     version both return float32 rounding noise of dP - D (about 1e-7;
     the mma.sync kernel the d 64 / 128 one replaced gave the same), which no tolerance relative to the plain version's largest
