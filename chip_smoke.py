@@ -132,11 +132,14 @@ Phases, each printing its wall time:
 10b. train  training through launch/train.py's pieces and the archs'
              train steps, deterministic algorithms on: the attention
              backward (csrc/flash_attention_bwd.cu; at d 256
-             csrc/flash_attention_bwd256.cu) against attention_bwd_ref on
-             adversarial shapes (d 64, 128 and 256, GQA 1:1 to 16:1,
-             causal and not, s 77 to 4096), the forward's lse
-             against attention_lse_ref, every check run twice for the same
-             bits; qwen3-1.7b at full width and depth (28 layers, bf16
+             csrc/flash_attention_bwd256.cu; float32
+             csrc/flash_attention_bwd_tf32.cu) against attention_bwd_ref
+             on adversarial shapes (d 64, 128 and 256, GQA 1:1 to 16:1,
+             causal and not, s 77 to 4096) in bf16 (the plain version in
+             float32) and in float32 (the plain version in float64,
+             BWD_TOL["float32"]), the forward's lse against
+             attention_lse_ref, every check run twice for the same bits;
+             qwen3-1.7b at full width and depth (28 layers, bf16
              weights from --seed, float32 AdamW moments, remat) at
              train_4k's 4096 tokens a sequence and the largest per-step
              batch of {8, 4, 2, 1} that its reckoned memory fits in 90% of
@@ -152,6 +155,19 @@ Phases, each printing its wall time:
              39 ids): its backward kernel on a step's rows (the route its
              plan takes printed; it must be the bulk stream), 20 counted,
              timed steps, crash and resume the same way;
+10b1. train_f32  qwen3-1.7b trained in float32 the same way at full width
+             and depth (28 layers, float32 weights from --seed, TF32
+             off), train_4k at the largest batch its float32 reckoning
+             fits (2 x 4096), one warm-up step capturing the backward's
+             inputs of layers 0 and 27, 4 timed steps that must launch
+             the 3xTF32 forward and the float32 backward's pre, dK/dV and
+             dQ kernels and no bf16 attention kernel (model-FLOP share
+             at the 67 TFLOP/s float32 peak); the float32 backward held
+             against its plain version in float64 on the captured inputs
+             and timed beside SDPA's float32 backward (each backend
+             forced, to name the one PyTorch picks), with the forward's
+             time with and without its lse; a 2-layer float32 step
+             through the kernels against the plain one;
 10b2. train_moe  granite-moe-1b-a400m and granite-moe-3b-a800m trained
              the same way at full width and depth (24 and 32 layers, 32
              and 40 experts, top-8, 32 routing groups; the loss ce + 0.01
@@ -188,7 +204,8 @@ Phases, each printing its wall time:
              kernel against the plain one (loss 1e-6 relative, gradients
              1e-4 of scale); crash and resume of gatedgcn at 2 layers;
 11. launches each kernel's launch count over the host-mode runs of
-             phases 5, 6, 9, 9b, 10, 10b, 10b2, 10b3 and 10c (each counted
+             phases 5, 6, 9, 9b, 10, 10b, 10b1, 10b2, 10b3 and 10c (each
+             counted
              from 0 just
              before it), and apart the engine kernels' calls in phases 7 and 8,
              in phase durable (a kernel inside a captured graph once
@@ -201,7 +218,8 @@ mode, the serve prefill, four decode steps, the float32 prefill,
 granite-moe-3b-a800m's prefill, four decode steps and one MoE layer at
 decode (with a "moe dispatch" family), one serve_bulk batch, one
 qwen3-1.7b train step (with the cross-entropy and the AdamW update also
-timed alone by CUDA events), one granite-moe-3b-a800m train step (its
+timed alone by CUDA events), one qwen3-1.7b float32 train step, one
+granite-moe-3b-a800m train step (its
 families from the ops around each launch: GEMMs, attention, the
 dispatch's and the combine's backwards, routing, gathers, AdamW), one
 gemma-7b train step at its cut, and one fm train_batch step (its families
@@ -2765,13 +2783,25 @@ def run_recsys_phase(torch, seed, profile=False):
 # version's cast does; sums in another order move a value that cancels
 # to near 0 by float32 units of the terms, well under the scale share.
 BWD_RTOL, BWD_ATOL_SHARE = 1e-2, 1e-3
-LSE_ATOL = 1e-4          # natural-log units; lse is O(1 to 10) in float32
+# float32 gradients against the plain version in float64 on the same
+# float32 inputs: every product of the kernels is 3xTF32 (about 22
+# significant bits of each term) and every long sum goes through fresh
+# fragments added in f32; the emulation of their arithmetic
+# (tests/test_torch_tf32_bwd_split.py, scores spanning +-60 in log2
+# units, d 64 to 256, GQA 16:1, s 300) stays within 0.26 of this
+# tolerance, attention_bwd_ref itself in float32 within 0.82 of it.
+BWD_TOL = {"bfloat16": (BWD_RTOL, BWD_ATOL_SHARE),
+           "float32": (1e-4, 1e-5)}
+# the forward's lse, natural-log units (O(1 to 10)): bf16 inputs against
+# the float32 plain version, float32 inputs against float64
+LSE_ATOL = {"bfloat16": 1e-4, "float32": 2e-5}
 TRAIN_TIMED_STEPS = 6
 FM_TIMED_STEPS = 20
 TRAIN_DIR = ROOT / "build" / "train"     # the resume check's checkpoints
-# the adversarial shapes of the attention backward: (b, hq, hkv, s, d,
-# causal): head dims 64, 128 and 256, GQA 1:1, 2:1, 8:1 and 16:1, causal
-# and not, s of 77 (a ragged tile), 128, 129, 300 and 4096
+# the adversarial shapes of the attention backward, run in bfloat16 and
+# in float32: (b, hq, hkv, s, d, causal): head dims 64, 128 and 256, GQA
+# 1:1, 2:1, 8:1 and 16:1, causal and not, s of 77 (a ragged tile), 128,
+# 129, 300 and 4096
 BWD_SHAPES = [(1, 16, 8, 4096, 128, True), (2, 16, 16, 128, 128, False),
               (1, 32, 2, 77, 128, True), (2, 8, 8, 77, 64, False),
               (1, 16, 8, 4096, 64, True), (1, 16, 1, 128, 64, True),
@@ -2779,21 +2809,33 @@ BWD_SHAPES = [(1, 16, 8, 4096, 128, True), (2, 16, 16, 128, 128, False),
               (1, 16, 2, 300, 256, True), (1, 4, 4, 129, 256, True)]
 
 
-def bwd_stem(q) -> str:
-    """The launch keys' stem of the backward's dK/dV and dQ kernels at q's
-    head dim: flash_attention_bwd256 at d = 256, else flash_attention_bwd."""
-    return ("flash_attention_bwd256" if q.shape[-1] == 256
-            else "flash_attention_bwd")
+def dtype_name(t) -> str:
+    """"float32" or "bfloat16": the key of a tensor's tolerances."""
+    return str(t.dtype).split(".")[-1]
 
 
 def attention_bwd_bound(q, causal):
-    """(flops, their ms at the bf16 tensor peak) of the attention
+    """(flops, their ms at the tensor peak of q's type) of the attention
     backward: five products of 2 d flops per visible (query, key) pair (s
-    (s + 1) / 2 of them a head under causal, s^2 otherwise)."""
+    (s + 1) / 2 of them a head under causal, s^2 otherwise), at the bf16
+    peak for bfloat16, TF32_PASSES times over at the TF32 peak for
+    float32 (3xTF32)."""
     b, hq, s, d = q.shape
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 5 * 2 * d * pairs * b * hq
+    if dtype_name(q) == "float32":
+        return flops, TF32_PASSES * flops / TF32_FLOPS_PER_S * 1e3
     return flops, flops / BF16_FLOPS_PER_S * 1e3
+
+
+def bwd_products(q) -> dict:
+    """The products the dK/dV and dQ kernels issue, in units of one of
+    the bound's five: bf16 six and four (P and dS as hi + lo parts);
+    float32 four and three (3xTF32 each, counted in the bound), six and
+    three at d = 256 (S^T and dP^T computed by both warps of a pair)."""
+    if dtype_name(q) == "float32":
+        return {"dkdv": 6 if q.shape[-1] == 256 else 4, "dq": 3}
+    return {"dkdv": 6, "dq": 4}
 
 
 def bwd_bytes(q, k, lse):
@@ -2825,7 +2867,7 @@ def sdpa_backward_backends(torch, q, k, v, do, causal) -> dict:
                                                   causal))}
     for backend in (SDPBackend.FLASH_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION,
-                    SDPBackend.CUDNN_ATTENTION):
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         name = backend.name.lower()
         try:
             with sdpa_kernel([backend]):
@@ -2841,18 +2883,24 @@ def sdpa_backward_backends(torch, q, k, v, do, causal) -> dict:
 
 
 def hold_bwd(torch, label, got, want):
-    """Each of dq, dk, dv within BWD_RTOL of the value plus BWD_ATOL_SHARE
-    of the output's largest value; returns the largest absolute error."""
+    """Each of dq, dk, dv within rtol of the value plus a share of the
+    output's largest value, ``BWD_TOL`` of the kernel outputs' dtype
+    (compared in float32 for bfloat16, in float64 for float32); returns
+    the largest absolute error."""
     worst = 0.0
+    rtol, share = BWD_TOL[dtype_name(got[0])]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        g, w = g.float(), w.float()
+        if dtype_name(got[0]) == "float32":
+            g, w = g.double(), w.double()
+        else:
+            g, w = g.float(), w.float()
         scale = float(w.abs().max())
         err = (g - w).abs()
-        bad = int((err > BWD_RTOL * w.abs() + BWD_ATOL_SHARE * scale).sum())
+        bad = int((err > rtol * w.abs() + share * scale).sum())
         if bad or not bool(torch.isfinite(g).all()):
             raise AssertionError(
-                f"{label}: {name} has {bad} values outside rtol {BWD_RTOL} "
-                f"+ {BWD_ATOL_SHARE} of max |want| {scale} (max abs err "
+                f"{label}: {name} has {bad} values outside rtol {rtol} "
+                f"+ {share} of max |want| {scale} (max abs err "
                 f"{float(err.max())})")
         worst = max(worst, float(err.max()))
         print(f"{label}: {name} max abs err {float(err.max())} of max |want| "
@@ -2862,25 +2910,32 @@ def hold_bwd(torch, label, got, want):
 
 def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
                         lse=None, timed=False):
-    """The forward kernel's lse against attention_lse_ref (LSE_ATOL), and
-    the backward kernels against attention_bwd_ref in float32 on the same
-    bf16 inputs (``hold_bwd``), the plain version taken a batch element at
+    """The forward kernel's lse against attention_lse_ref (``LSE_ATOL``),
+    and the backward kernels against attention_bwd_ref on the same inputs
+    (``hold_bwd``): for bf16 inputs the plain version in float32, for
+    float32 inputs in float64; the plain version taken a batch element at
     a time; a second launch must give the same bits. With ``timed``, CUDA
     event times of the three launches, of the dK/dV and dQ launches
-    apart, of the plain version and of SDPA's backward beside the
-    bound."""
+    apart, of the plain version (in the inputs' type) and of SDPA's
+    backward beside the bound, and of the forward with and without its
+    lse."""
     from repro_torch.kernels import flash_attention as FA, ref
     if lse is None:     # else the captured forward's output and lse
         lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
         o = FA._prefill(q, k, v, causal, lse)
+    kind = dtype_name(q)
+
+    def plain_in(*ts):      # the yardstick's inputs: float64 for float32
+        return [t.double() if kind == "float32" else t for t in ts]
+
     lse_err = 0.0
     for i in range(q.shape[0]):
-        _, want = ref.attention_lse_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                        causal)
+        _, want = ref.attention_lse_ref(
+            *plain_in(q[i:i + 1], k[i:i + 1], v[i:i + 1]), causal)
         lse_err = max(lse_err, float((lse[i:i + 1] - want).abs().max()))
-    if not lse_err <= LSE_ATOL:
+    if not lse_err <= LSE_ATOL[kind]:
         raise AssertionError(f"{label}: lse off attention_lse_ref by "
-                             f"{lse_err} (limit {LSE_ATOL})")
+                             f"{lse_err} (limit {LSE_ATOL[kind]})")
 
     def kernel():
         return FA.flash_attention_bwd(q, k, v, o, do, lse, causal)
@@ -2891,8 +2946,9 @@ def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{label}: a second launch gave other bits")
     want = [torch.cat(parts) for parts in zip(*(
-        ref.attention_bwd_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                              o[i:i + 1], do[i:i + 1], lse[i:i + 1], causal)
+        ref.attention_bwd_ref(*plain_in(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        o[i:i + 1], do[i:i + 1]),
+                              lse[i:i + 1], causal)
         for i in range(q.shape[0])))]
     err = hold_bwd(torch, label, got, want)
     del want, again
@@ -2913,14 +2969,14 @@ def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
           f"{bound_by} ({flops:.4g} flop; {100 * b_ms / ms:.1f}% of it)",
           flush=True)
     # the two main launches apart, each beside the bound of the products
-    # it issues (the bound counts five; dK/dV issues six, dQ four)
+    # it issues (the bound counts five; ``bwd_products``)
     outs = [torch.empty_like(t) for t in (q, k, v)]
     launches = FA.bwd_launches(q, k, v, o, do, lse, causal, *outs)
-    launches["flash_attention_bwd_pre"]()
+    next(iter(launches.values()))()         # the pre pass
     apart = {}
-    stem = bwd_stem(q)
-    for (part, name), products in zip((("dkdv", "dK/dV"), ("dq", "dQ")),
-                                      (6, 4)):
+    stem = FA.bwd_stem(q.dtype, q.shape[-1])
+    for (part, name) in (("dkdv", "dK/dV"), ("dq", "dQ")):
+        products = bwd_products(q)[part]
         t = cuda_ms(torch, launches[f"{stem}_{part}"])
         own = products * t_ops / 5
         apart[f"{part}_ms"] = t
@@ -2930,10 +2986,11 @@ def check_attention_bwd(torch, label, q, k, v, do, causal, o=None,
     del outs, launches
     fwd = cuda_ms(torch, lambda: FA._prefill(q, k, v, causal, None))
     fwd_lse = cuda_ms(torch, lambda: FA._prefill(q, k, v, causal, lse))
-    print(f"{label}: wgmma forward {fwd:.4f} ms without lse, {fwd_lse:.4f} "
-          f"ms with it", flush=True)
+    print(f"{label}: {FA.prefill_kernel(q.dtype)} forward {fwd:.4f} ms "
+          f"without lse, {fwd_lse:.4f} ms with it", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=bound_by, library_ms=library_ms, **apart)
+                bound_by=bound_by, library_ms=library_ms, forward_ms=fwd,
+                forward_lse_ms=fwd_lse, **apart)
 
 
 @contextlib.contextmanager
@@ -2960,29 +3017,32 @@ def attention_bwd_captured(FA, layers):
 
 def train_bytes(cfg, seq, b) -> int:
     """The reckoned peak of a train step of ``b`` sequences: the state
-    (bf16 parameters and gradients, float32 mu and nu: 12 bytes a
-    parameter) plus, a sequence, the cross-entropy's buffers (20 bytes a
+    (a bf16 config: bf16 parameters and gradients, float32 mu and nu, 12
+    bytes a parameter; a float32 config (``cfg.dtype``): all four float32,
+    16 bytes) plus, a sequence, the cross-entropy's buffers (20 bytes a
     token and vocab entry: the float32 logits and, at the backward's peak,
     four more logits-sized float32 buffers; the first full-depth run
     peaked at 21.1 bytes an entry at 4 x 4096) and the checkpointed layer
-    inputs (bf16, one a layer), plus one layer's transients in its
-    recompute and backward, each bf16 and counted twice (the tensor and
-    its gradient): a dense FFN's four [tokens, d_ff] hiddens; an MoE's
-    [E g cap, d] buffer and output, its four [E g cap, f] hiddens and two
-    [tokens k, d] gathered rows (granite-3b at 8 x 4096: 327,680 buffer
-    rows of 1536, 1.0 GB each)."""
+    inputs (one a layer, in the config's dtype: 2 or 4 bytes), plus one
+    layer's transients in its recompute and backward, each in the
+    config's dtype and counted twice (the tensor and its gradient): a
+    dense FFN's four [tokens, d_ff] hiddens; an MoE's [E g cap, d] buffer
+    and output, its four [E g cap, f] hiddens and two [tokens k, d]
+    gathered rows (granite-3b at 8 x 4096: 327,680 buffer rows of 1536,
+    1.0 GB each in bf16)."""
     n = cfg.param_count() + (cfg.vocab_padded - cfg.vocab) * cfg.d_model
     t = b * seq
-    per_seq = seq * (20 * cfg.vocab_padded + 2 * cfg.d_model * cfg.n_layers)
+    es = 4 if cfg.dtype == "float32" else 2     # bytes an activation
+    per_seq = seq * (20 * cfg.vocab_padded + es * cfg.d_model * cfg.n_layers)
     if cfg.moe:
         from repro_torch.models import moe as M
         g, _, cap = M.group_plan(t, cfg.moe_groups, cfg.moe)
         rows = cfg.moe.n_experts * g * cap
-        layer = 2 * 2 * (2 * rows * cfg.d_model + 4 * rows * cfg.moe.d_ff
-                         + 2 * t * cfg.moe.top_k * cfg.d_model)
+        layer = 2 * es * (2 * rows * cfg.d_model + 4 * rows * cfg.moe.d_ff
+                          + 2 * t * cfg.moe.top_k * cfg.d_model)
     else:
-        layer = 2 * 2 * 4 * t * cfg.d_ff
-    return 12 * n + b * per_seq + layer
+        layer = 2 * es * 4 * t * cfg.d_ff
+    return (16 if es == 4 else 12) * n + b * per_seq + layer
 
 
 def train_batch_size(torch, cfg, seq) -> tuple:
@@ -3029,22 +3089,41 @@ def hold_close(torch, label, got, want, share, what):
           f"{share})", flush=True)
 
 
+# check_train_step_plain's tolerances by the config's dtype: loss and ce
+# (relative), gnorm (relative), gradient leaves and mu, nu (each of the
+# leaf's scale), and the unit of a parameter's type (bits of precision)
+STEP_TOL = {"bfloat16": dict(loss=2e-3, gnorm=1e-2, grad=2e-2, nu=4e-2,
+                             bits=8),
+            "float32": dict(loss=1e-5, gnorm=1e-4, grad=1e-3, nu=2e-3,
+                            bits=24)}
+
+
 def check_train_step_plain(torch, seed, device="cuda",
-                           arch_name="qwen3-1.7b", seq=None):
+                           arch_name="qwen3-1.7b", seq=None,
+                           dtype="bfloat16"):
     """One train_4k step of an LM at full width and 2 layers, B = 1 (of
-    ``seq`` tokens, default 4096), through the kernels and through the
-    plain versions (the same autograd Function on attention_lse_ref and
-    attention_bwd_ref), from the same weights and batch: loss and ce
+    ``seq`` tokens, default 4096), its config in ``dtype``, through the
+    kernels and through the plain versions (the same autograd Function on
+    attention_lse_ref and attention_bwd_ref), from the same weights and
+    batch, held to ``STEP_TOL`` of the dtype. bfloat16: loss and ce
     within 2e-3 relative, gnorm 1e-2, every gradient leaf and mu within
     2e-2 of the leaf's scale, nu 4e-2 (bf16 activations differ by a unit
     here and there between the two attention routes, and the differences
-    add up through two layers), and each parameter within 2 lr (an Adam
-    step moves a parameter by at most lr, its sign set by the gradient's,
-    which may differ where that is near 0) plus one bf16 unit. An MoE
-    model's plain step routes as the kernel step did (``moe_routing``:
-    its forward and its recompute replay the recorded experts, the gates
-    its own probabilities at them): bf16 rounding flips choices near
-    ties, and one flip changes a token's output by a whole expert."""
+    add up through two layers). float32: loss and ce within 1e-5, gnorm
+    1e-4, gradients and mu 1e-3 of scale, nu 2e-3 (nu is the square of
+    the gradients: twice their relative error): every activation is
+    float32 and the two routes differ only in the attention kernels,
+    whose outputs are within ATTN_TOL's 2e-5 and gradients within
+    BWD_TOL's 1e-4 relative of the exact ones, so the step's values
+    differ by float32 units of these, added up through two layers and
+    the sums over 4096 tokens. Either type: each parameter within 2 lr
+    (an Adam step moves a parameter by at most lr, its sign set by the
+    gradient's, which may differ where that is near 0) plus one unit of
+    the type. An MoE model's plain step routes as the kernel step did
+    (``moe_routing``: its forward and its recompute replay the recorded
+    experts, the gates its own probabilities at them): bf16 rounding
+    flips choices near ties, and one flip changes a token's output by a
+    whole expert."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
@@ -3052,6 +3131,9 @@ def check_train_step_plain(torch, seed, device="cuda",
     from repro_torch.training.optim import (
         schedule, train_state_init, tree_leaves)
     arch = train.cut_layers(get_arch(arch_name), 2)
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
+                                                             dtype=dtype))
+    tol = STEP_TOL[dtype]
     dev = torch.device(device)
     out, recorded = {}, None
     for route in ("kernels", "plain"):
@@ -3084,25 +3166,28 @@ def check_train_step_plain(torch, seed, device="cuda",
         torch.cuda.empty_cache()
     (mk, gk, pk, muk, nuk), (mp, gp, pp, mup, nup) = (out["kernels"],
                                                       out["plain"])
-    label = f"{arch_name} train step, 2 layers, kernels against plain"
-    for k, rel in (("loss", 2e-3), ("ce", 2e-3), ("gnorm", 1e-2)):
+    label = (f"{arch_name} {dtype} train step, 2 layers, kernels against "
+             f"plain")
+    for k, rel in (("loss", tol["loss"]), ("ce", tol["loss"]),
+                   ("gnorm", tol["gnorm"])):
         a, b = float(mk[k]), float(mp[k])
         print(f"{label}: {k} {a} against {b}", flush=True)
         if not (math.isfinite(a) and abs(a - b) <= rel * abs(b)):
             raise AssertionError(f"{label}: {k} {a} against {b}")
-    hold_close(torch, label, gk, gp, 2e-2, "gradient")
-    hold_close(torch, label, muk, mup, 2e-2, "mu")
-    hold_close(torch, label, nuk, nup, 4e-2, "nu")
+    hold_close(torch, label, gk, gp, tol["grad"], "gradient")
+    hold_close(torch, label, muk, mup, tol["grad"], "mu")
+    hold_close(torch, label, nuk, nup, tol["nu"], "nu")
     lr = float(schedule(arch.opt, torch.tensor(1.0)))
+    ct = torch.float64 if dtype == "float32" else torch.float32
     for i, (a, b) in enumerate(zip(tree_leaves(pk), tree_leaves(pp))):
-        a, b = a.float(), b.float()
+        a, b = a.to(ct), b.to(ct)
         unit = torch.exp2(torch.floor(torch.log2(
-            b.abs().clamp_min(1e-30))) - 7)
+            b.abs().clamp_min(1e-30))) - (tol["bits"] - 1))
         if not bool(((a - b).abs() <= 2 * lr + unit).all()):
             raise AssertionError(f"{label}: parameter leaf {i} off by more "
-                                 f"than 2 lr + one bf16 unit")
+                                 f"than 2 lr + one {dtype} unit")
     print(f"{label}: every parameter within 2 lr ({2 * lr:.3g}) plus one "
-          f"bf16 unit", flush=True)
+          f"{dtype} unit", flush=True)
 
 
 def check_resume(torch, arch_name, extra, label):
@@ -3190,13 +3275,16 @@ MOE_STEP_FAMILIES = (
 
 def train_lm(torch, seed, arch, dev, timed_steps, profile=False):
     """An LM trained on the card through launch/train.py's pieces and the
-    arch's train_4k step: random bf16 weights from ``seed``, float32
-    moments, 4096 tokens a sequence at the largest batch that fits
-    (``train_batch_size``), one warm-up step (capturing the attention
-    backward's inputs of the first and last layer and, for an MoE, each
-    layer's dropped share), then ``timed_steps`` counted, timed steps:
-    step p50 and p99, tokens/s, peak memory against the reckoned, the
-    model-FLOP share from ``model_flops`` (active parameters). With
+    arch's train_4k step: random weights in the config's dtype (bf16 or
+    float32) from ``seed``, float32 moments, 4096 tokens a sequence at the
+    largest batch that fits (``train_batch_size``), one warm-up step
+    (capturing the attention backward's inputs of the first and last
+    layer and, for an MoE, each layer's dropped share), then
+    ``timed_steps`` counted, timed steps: step p50 and p99, tokens/s, peak
+    memory against the reckoned, the model-FLOP share from
+    ``model_flops`` (active parameters) at the bf16 tensor peak, or at
+    the float32 peak outside the tensor cores for a float32 config (its
+    GEMMs run with TF32 off). With
     ``profile`` one more step under torch.profiler (an MoE's by
     ``MOE_STEP_FAMILIES``) and the AdamW update alone by CUDA events.
     Returns {counts, captured, batch, seq, labels, p50, adamw_ms}."""
@@ -3208,6 +3296,8 @@ def train_lm(torch, seed, arch, dev, timed_steps, profile=False):
     from repro_torch.training.optim import adamw_update, train_state_init
     cfg = arch.cfg
     seq = arch.input_sizes("train_4k")["tokens"][1]
+    peak_flops = F32_FLOPS_PER_S if cfg.dtype == "float32" else (
+        BF16_FLOPS_PER_S)
     B, reckoned, total = train_batch_size(torch, cfg, seq)
     print(f"{cfg.name} training: per-step batch {B} x {seq} (train_4k is "
           f"256 x {seq}); reckoned {reckoned} B of the card's {total}",
@@ -3226,9 +3316,9 @@ def train_lm(torch, seed, arch, dev, timed_steps, profile=False):
                else "")
         print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, remat "
-              f"{cfg.remat}{moe}; {n_params} bf16 parameters, float32 "
-              f"moments, from seed {seed} in {time.perf_counter() - t0:.3f}"
-              f" s", flush=True)
+              f"{cfg.remat}{moe}; {n_params} {cfg.dtype} parameters, "
+              f"float32 moments, from seed {seed} in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
         torch.cuda.reset_peak_memory_stats()
         drops = moe_drops(M) if cfg.moe else contextlib.nullcontext([])
         with attention_bwd_captured(FA, cfg.n_layers) as captured, \
@@ -3269,8 +3359,10 @@ def train_lm(torch, seed, arch, dev, timed_steps, profile=False):
         print(f"{cfg.name} model-FLOP share: 6 N tokens = {flops:.4g} flop "
               f"(N = {cfg.active_param_count()} active of "
               f"{cfg.param_count()}) a step, "
-              f"{100 * flops / p50 / BF16_FLOPS_PER_S:.2f}% of "
-              f"{BF16_FLOPS_PER_S:.4g} flop/s", flush=True)
+              f"{100 * flops / p50 / peak_flops:.2f}% of "
+              f"{peak_flops:.4g} flop/s ({cfg.dtype}"
+              f"{', TF32 off' if cfg.dtype == 'float32' else ''})",
+              flush=True)
         if peak > 0.9 * total:
             raise AssertionError(f"peak {peak} B over 90% of the card")
         launches = {k: v for k, v in out["counts"].items() if v}
@@ -3317,7 +3409,8 @@ def hold_captured_bwd(torch, name, captured, causal=True):
 def run_train_phase(torch, seed, profile=False, device="cuda"):
     """Training on the card through launch/train.py's pieces and the
     arch's train_4k / train_batch step functions: the attention backward
-    on adversarial shapes; qwen3-1.7b at full width and depth, random bf16
+    on adversarial shapes, in bf16 and in float32; qwen3-1.7b at full
+    width and depth, random bf16
     weights from ``seed``, float32 moments, train_4k's 4096 tokens a
     sequence at the largest batch that fits, one warm-up step (capturing
     the attention backward's inputs of layers 0 and 27), then the counted
@@ -3332,16 +3425,20 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
     from repro_torch.models.common import cross_entropy_loss
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for b, hq, hkv, s, d, causal in BWD_SHAPES:
-        q = torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
-        k, v = (torch.randn((b, hkv, s, d), generator=gen,
-                            device=dev).bfloat16() for _ in range(2))
-        do = torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
-        check_attention_bwd(torch, f"attention backward b={b} hq={hq} "
-                            f"hkv={hkv} s={s} d={d} "
-                            f"{'causal' if causal else 'not causal'}",
-                            q, k, v, do, causal)
-        del q, k, v, do
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, hq, hkv, s, d, causal in BWD_SHAPES:
+            q = torch.randn((b, hq, s, d), generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            do = torch.randn((b, hq, s, d), generator=gen,
+                             device=dev).to(dtype)
+            check_attention_bwd(torch, f"attention backward "
+                                f"{str(dtype)[6:]} b={b} hq={hq} hkv={hkv} "
+                                f"s={s} d={d} "
+                                f"{'causal' if causal else 'not causal'}",
+                                q, k, v, do, causal)
+            del q, k, v, do
     torch.cuda.empty_cache()
 
     arch = get_arch("qwen3-1.7b")
@@ -3380,6 +3477,56 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
         torch, seed, device, profile)
     add_counts(counts, fm_counts)
     check_resume(torch, "fm", on, "fm resume (train_batch)")
+    return counts, measured
+
+
+F32_TRAIN_TIMED_STEPS = 4
+# the float32 train step's attention launches: these keys each launch,
+# the bf16 kernels' keys never
+F32_TRAIN_KERNELS = ("flash_attention_tf32", "flash_attention_bwd_tf32_pre",
+                     "flash_attention_bwd_tf32_dkdv",
+                     "flash_attention_bwd_tf32_dq")
+BF16_ATTENTION_KERNELS = ("flash_attention_wgmma", "flash_attention_bwd_pre",
+                          "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+                          "flash_attention_bwd256_dkdv",
+                          "flash_attention_bwd256_dq")
+
+
+def run_train_f32_phase(torch, seed, profile=False, device="cuda"):
+    """qwen3-1.7b trained in float32 on the card at full width and depth
+    (28 layers, d_model 2048, 16/8 heads of 128, vocab 151,936; its config
+    with dtype float32, as ``run_serve_f32`` builds its model) through
+    ``train_lm``: float32 weights from ``seed``, train_4k at the largest
+    batch ``train_bytes`` fits, one warm-up step capturing the backward's
+    inputs of layers 0 and 27, then ``F32_TRAIN_TIMED_STEPS`` timed
+    steps, whose launches must include every key of ``F32_TRAIN_KERNELS``
+    and none of ``BF16_ATTENTION_KERNELS``; the float32 backward
+    (csrc/flash_attention_bwd_tf32.cu) held against its plain version in
+    float64 on the captured inputs, layer 0 timed beside SDPA's float32
+    backward; one 2-layer float32 step through the kernels against the
+    plain step. With ``profile`` the step under torch.profiler. Returns
+    (launch counts of the timed steps, the backward's numbers)."""
+    from repro_torch.configs import get_arch
+    dev = torch.device(device)
+    arch = get_arch("qwen3-1.7b")
+    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+        arch.cfg, dtype="float32"))
+    run = train_lm(torch, seed, arch, dev, F32_TRAIN_TIMED_STEPS, profile)
+    counts = run["counts"]
+    wrong = ([k for k in F32_TRAIN_KERNELS if not counts[k]]
+             + [k for k in BF16_ATTENTION_KERNELS if counts[k]])
+    if wrong:
+        raise AssertionError(f"qwen3-1.7b float32 train steps: launches "
+                             f"{counts}; wrong for {wrong}")
+    measured = hold_captured_bwd(torch, "qwen3-1.7b float32",
+                                 run["captured"])
+    q, k, v, o, do, lse = run["captured"][0]
+    measured["library_backends"] = sdpa_backward_backends(torch, q, k, v,
+                                                          do, True)
+    del run, q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+    check_train_step_plain(torch, seed, device, dtype="float32")
+    torch.cuda.empty_cache()
     return counts, measured
 
 
@@ -3945,6 +4092,9 @@ KERNELS = [
     ("flash_attention_bwd256", "flash_attention_bwd256_dkdv",
      "src/repro_torch/csrc/flash_attention_bwd256.cu",
      "src/repro/kernels/ref.py:124", None),
+    ("flash_attention_bwd_tf32", "flash_attention_bwd_tf32_dkdv",
+     "src/repro_torch/csrc/flash_attention_bwd_tf32.cu",
+     "src/repro/kernels/ref.py:124", None),
     ("fm_interaction_bwd", "fm_interaction_bwd",
      "src/repro_torch/csrc/fm_interaction.cu",
      "src/repro/models/recsys/fm.py:69", None),
@@ -3967,8 +4117,9 @@ def main(argv=None) -> int:
                     help="also profile Reach, CC, SSSP (host and device "
                          "mode), the serve path (bf16 prefill and decode, "
                          "f32 prefill, the granite-3b MoE prefill and "
-                         "decode), a serve_bulk batch and the qwen3, fm "
-                         "and gatedgcn train steps on the card")
+                         "decode), a serve_bulk batch and the qwen3 (bf16 "
+                         "and float32), fm and gatedgcn train steps on the "
+                         "card")
     args = ap.parse_args(argv)
 
     import torch
@@ -4040,6 +4191,10 @@ def main(argv=None) -> int:
                                                  args.profile)
         measured.update(train_measured)
         add_counts(totals, counts)
+    with phase("train_f32"):
+        counts, measured["flash_attention_bwd_tf32"] = run_train_f32_phase(
+            torch, args.seed, args.profile)
+        add_counts(totals, counts)
     with phase("train_moe"):
         counts, moe_measured = run_moe_train_phase(torch, args.seed,
                                                    args.profile)
@@ -4090,7 +4245,10 @@ def main(argv=None) -> int:
             e["dq_launches"] = totals["flash_attention_bwd_dq"]
         if name == "flash_attention_bwd256":   # its pre pass is counted above
             e["dq_launches"] = totals["flash_attention_bwd256_dq"]
-        if name.endswith("_bwd"):
+        if name == "flash_attention_bwd_tf32":
+            e["pre_launches"] = totals["flash_attention_bwd_tf32_pre"]
+            e["dq_launches"] = totals["flash_attention_bwd_tf32_dq"]
+        if "_bwd" in name:
             e["note"] = ("no TPU kernel: replaces JAX's autograd of the "
                          "reference's XLA forward at 'replaces'")
         if name == "segment_reduce":    # the embedding_bag shape, timed

@@ -58,9 +58,19 @@
 //   the grid runs the longest q tiles first (the q-tile index is the
 //   grid's slowest dimension, reversed). No atomics: the same bits on
 //   every run.
+// - Epilogue: O / l, rows past sq not written. With an lse pointer (the
+//   training forward, whose backward is flash_attention_bwd_tf32.cu; the
+//   kernel's LSE instantiation) lane t = 0 of each row also writes the
+//   row's natural log-sum-exp, from the m and l the epilogue already holds;
+//   serving (a null pointer) runs the instantiation without the store,
+//   whose code and outputs are the kernel's without an lse.
+// - The copies, the split and the three products live in tf32x3.cuh, which
+//   the backward shares.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -68,21 +78,23 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int STAGES = 2;
 
 // warps per CTA (16 query rows each), keys per KV tile, and CTAs an SM
-// holds (launch bound): d = 64 and 128 fit several CTAs per SM in shared
-// memory; d = 256 takes one CTA of 8 warps with 16-key tiles.
+// holds (launch bound; MINB_LSE for the instantiation that writes the
+// lse, which spilled 12 bytes at d = 64 under 4): d = 64 and 128 fit
+// several CTAs per SM in shared memory; d = 256 takes one CTA of 8 warps
+// with 16-key tiles.
 template <int D>
 struct Cfg;
 template <>
 struct Cfg<64> {
-  static constexpr int NW = 4, BK = 32, MINB = 4;
+  static constexpr int NW = 4, BK = 32, MINB = 4, MINB_LSE = 3;
 };
 template <>
 struct Cfg<128> {
-  static constexpr int NW = 4, BK = 32, MINB = 2;
+  static constexpr int NW = 4, BK = 32, MINB = 2, MINB_LSE = 2;
 };
 template <>
 struct Cfg<256> {
-  static constexpr int NW = 8, BK = 16, MINB = 1;
+  static constexpr int NW = 8, BK = 16, MINB = 1, MINB_LSE = 1;
 };
 
 template <int D>
@@ -97,71 +109,13 @@ struct Geo {
       (int)sizeof(float) * (Q_FLOATS + STAGES * STAGE_FLOATS);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = hi + lo: hi = cvt.rna.tf32.f32(x) (nearest, ties away) with the low
-// 13 bits cleared, computed as (bits + 0x1000) & ~0x1fff, the same bits
-// for finite x in two integer operations (the cvt instruction is slower,
-// PERF.md); lo the f32 residual, whose low bits the tensor core drops
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// D[16 x 8] (+)= A[16 x 8] . B[8 x 8] in TF32 with f32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_fresh(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-}
-
-// the three products of one fragment pair: lo.hi + hi.lo + hi.hi
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0, uint32_t bl1,
-                                     bool fresh) {
-  if (fresh)
-    mma_fresh(d, al, bh0, bh1);
-  else
-    mma(d, al, bh0, bh1);
-  mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
-}
-
-template <int D>
-__global__ void __launch_bounds__(Geo<D>::THREADS, Cfg<D>::MINB)
+template <int D, bool LSE>
+__global__ void __launch_bounds__(Geo<D>::THREADS,
+                                  LSE ? Cfg<D>::MINB_LSE : Cfg<D>::MINB)
 attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int hq, int hkv, int sq, int skv, int causal,
-                 float scale_log2) {
+                 float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                 int causal, float scale_log2) {
   using G = Geo<D>;
   constexpr int BK = G::BK, BQ = G::BQ, NT = G::THREADS;
   constexpr int QS = G::QS, KS = G::KS, VS = G::VS;
@@ -380,24 +334,37 @@ attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(op + (int64_t)rb * D + col) =
           make_float2(o[n][2] * inv_b, o[n][3] * inv_b);
   }
+  // after O, whose registers are free by then; m is in log2 units (Q was
+  // scaled)
+  if (LSE && t == 0) {
+    constexpr float LN2 = 0.69314718055994531f;
+    float* lp = lse + ((int64_t)bi * hq + h) * sq;
+    if (ra < sq)
+      lp[ra] = l_a == 0.f ? -CUDART_INF_F : (m_a + log2f(l_a)) * LN2;
+    if (rb < sq)
+      lp[rb] = l_b == 0.f ? -CUDART_INF_F : (m_b + log2f(l_b)) * LN2;
+  }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   float* out, int b, int hq, int hkv, int sq, int skv,
-                   int causal, float scale_log2, cudaStream_t stream) {
+                   float* out, float* lse, int b, int hq, int hkv, int sq,
+                   int skv, int causal, float scale_log2,
+                   cudaStream_t stream) {
   using G = Geo<D>;
-  static bool ready = false;  // the shared-memory opt-in, once
-  if (!ready) {
+  const bool with_lse = lse != nullptr;
+  const auto kernel = with_lse ? attn_tf32_kernel<D, true>
+                               : attn_tf32_kernel<D, false>;
+  static bool ready[2] = {false, false};  // the shared-memory opt-in, once
+  if (!ready[with_lse]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        G::SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (e != cudaSuccess) return e;
-    ready = true;
+    ready[with_lse] = true;
   }
   const dim3 grid(hq, b, (sq + G::BQ - 1) / G::BQ);
-  attn_tf32_kernel<D><<<grid, G::THREADS, G::SMEM, stream>>>(
-      q, k, v, out, hq, hkv, sq, skv, causal, scale_log2);
+  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
+      q, k, v, out, lse, hq, hkv, sq, skv, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -405,33 +372,48 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 // q [b, hq, sq, d], k and v [b, hkv, skv, d], out [b, hq, sq, d], all
 // contiguous float32, 16-byte aligned; d in {64, 128, 256}; hq % hkv ==
-// 0. scale_log2 = softmax scale * log2(e). Returns cudaGetLastError()
-// after the launch.
-extern "C" int flash_attention_tf32(const void* q, const void* k,
-                                    const void* v, void* out, int b, int hq,
-                                    int hkv, int sq, int skv, int d,
-                                    int causal, float scale_log2,
-                                    void* stream) {
+// 0. scale_log2 = softmax scale * log2(e). lse: null (serving: nothing
+// more is written), or [b, hq, sq] float32 contiguous for each row's
+// natural log-sum-exp of its visible scaled scores, (m + log2 l) * ln 2
+// with m the row's largest score in log2 units (scale_log2 folded in), -inf
+// where the row sees no key. Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_tf32_lse(const void* q, const void* k,
+                                        const void* v, void* out, float* lse,
+                                        int b, int hq, int hkv, int sq,
+                                        int skv, int d, int causal,
+                                        float scale_log2, void* stream) {
   if (hkv <= 0 || hq % hkv) return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0 || hq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (skv <= 0)  // no key: every row gives 0
+  if (skv <= 0) {  // no key: every row gives 0 (no lse to give)
+    if (lse != nullptr) return (int)cudaErrorInvalidValue;
     return (int)cudaMemsetAsync(out, 0, (size_t)b * hq * sq * d * 4, s);
+  }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   switch (d) {
     case 64:
-      return (int)launch<64>(qf, kf, vf, of, b, hq, hkv, sq, skv, causal,
-                             scale_log2, s);
+      return (int)launch<64>(qf, kf, vf, of, lse, b, hq, hkv, sq, skv,
+                             causal, scale_log2, s);
     case 128:
-      return (int)launch<128>(qf, kf, vf, of, b, hq, hkv, sq, skv, causal,
-                              scale_log2, s);
+      return (int)launch<128>(qf, kf, vf, of, lse, b, hq, hkv, sq, skv,
+                              causal, scale_log2, s);
     case 256:
-      return (int)launch<256>(qf, kf, vf, of, b, hq, hkv, sq, skv, causal,
-                              scale_log2, s);
+      return (int)launch<256>(qf, kf, vf, of, lse, b, hq, hkv, sq, skv,
+                              causal, scale_log2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The serving entry: flash_attention_tf32_lse without the lse output.
+extern "C" int flash_attention_tf32(const void* q, const void* k,
+                                    const void* v, void* out, int b, int hq,
+                                    int hkv, int sq, int skv, int d,
+                                    int causal, float scale_log2,
+                                    void* stream) {
+  return flash_attention_tf32_lse(q, k, v, out, nullptr, b, hq, hkv, sq, skv,
+                                  d, causal, scale_log2, stream);
 }

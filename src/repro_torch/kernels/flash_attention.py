@@ -1,9 +1,9 @@
 """Attention kernels of the LM serving and training paths.
 
 The wrappers of ``csrc/flash_attention_wgmma.cu``,
-``csrc/flash_attention_tf32.cu``, ``csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd256.cu``:
-``flash_attention`` replaces
+``csrc/flash_attention_tf32.cu``, ``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd256.cu`` and
+``csrc/flash_attention_bwd_tf32.cu``: ``flash_attention`` replaces
 ``_attn_kernel`` and ``flash_decode`` replaces ``_decode_kernel`` of
 ``repro.kernels.flash_attention``. On CPU tensors they run the plain
 torch versions (``kernels/ref.py``); on CUDA tensors they launch a
@@ -11,19 +11,24 @@ kernel or raise.
 
 Training: when an input requires grad (and grad mode is on),
 ``flash_attention`` runs through a ``torch.autograd.Function`` whose
-forward is the wgmma kernel with its log-sum-exp output (launch key
-``flash_attention_wgmma``) and whose backward is ``flash_attention_bwd``,
-three hand-written kernels (keys ``flash_attention_bwd_pre``: D =
-rowsum(dO * O); then ``flash_attention_bwd_dkdv`` and
-``flash_attention_bwd_dq`` at d in {64, 128}, wgmma and TMA, or
-``flash_attention_bwd256_dkdv`` and ``flash_attention_bwd256_dq`` at
-d = 256, mma.sync) that recompute P from the saved log-sum-exp, without
-atomics, so a backward gives the same bits every time. On the CPU the
-same Function runs ``attention_lse_ref`` and ``attention_bwd_ref``. The
-reference has no Pallas backward (it trains through its XLA attention);
-the kernels replace that route on the card. On the card the backward
-takes bfloat16 only, every d in ``HEAD_DIMS`` and sq == skv; float32
-with grad (its backward is in ROADMAP.md) and sq != skv are refused.
+forward is the prefill kernel of its dtype with its log-sum-exp output
+(launch key ``flash_attention_wgmma`` for bfloat16,
+``flash_attention_tf32`` for float32) and whose backward is
+``flash_attention_bwd``, three hand-written kernels that recompute P
+from the saved log-sum-exp, without atomics, so a backward gives the
+same bits every time: the pre pass D = rowsum(dO * O), then dK/dV and
+dQ. Their launch keys are ``<stem>_dkdv`` and ``<stem>_dq`` with the
+stem of ``bwd_stem``: bfloat16 at d in {64, 128}
+``flash_attention_bwd`` (wgmma and TMA, pre pass
+``flash_attention_bwd_pre``), bfloat16 at d = 256
+``flash_attention_bwd256`` (wgmma and TMA; the same pre pass), float32
+at every d ``flash_attention_bwd_tf32`` (3xTF32 on mma.sync, pre pass
+``flash_attention_bwd_tf32_pre``). On the CPU the same Function runs
+``attention_lse_ref`` and ``attention_bwd_ref``. The reference has no
+Pallas backward (it trains through its XLA attention); the kernels
+replace that route on the card. On the card the backward takes float32
+and bfloat16, every d in ``BWD_HEAD_DIMS`` and sq == skv; sq != skv with
+grad is refused.
 
 ``flash_attention`` picks its kernel by type (``prefill_kernel``); both
 run on the tensor cores. bfloat16 goes to wgmma fed by TMA (launch key
@@ -57,7 +62,10 @@ LAUNCHES = {"flash_attention_tf32": 0, "flash_attention_wgmma": 0,
             "flash_decode": 0, "flash_decode_combine": 0,
             "flash_attention_bwd_pre": 0, "flash_attention_bwd_dkdv": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd256_dkdv": 0,
-            "flash_attention_bwd256_dq": 0}
+            "flash_attention_bwd256_dq": 0,
+            "flash_attention_bwd_tf32_pre": 0,
+            "flash_attention_bwd_tf32_dkdv": 0,
+            "flash_attention_bwd_tf32_dq": 0}
 HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128, 256)
 SM_COUNT = 132             # the H100's streaming multiprocessors
@@ -92,6 +100,16 @@ def prefill_kernel(dtype: torch.dtype) -> str:
     cores: "wgmma" (bfloat16) or "tf32x3" (float32, error-compensated
     TF32). Both take every d in ``HEAD_DIMS``."""
     return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def bwd_stem(dtype: torch.dtype, d: int) -> str:
+    """The source (``csrc/<stem>.cu``) and launch keys' stem of the
+    backward's dK/dV and dQ kernels: by dtype first, then by head dim.
+    float32 at every d: flash_attention_bwd_tf32; bfloat16 at d = 256:
+    flash_attention_bwd256; bfloat16 otherwise: flash_attention_bwd."""
+    if dtype == torch.float32:
+        return "flash_attention_bwd_tf32"
+    return "flash_attention_bwd256" if d == 256 else "flash_attention_bwd"
 
 
 def _scale_log2(d: int) -> float:
@@ -150,10 +168,6 @@ class _Attention(torch.autograd.Function):
 
 def _check_bwd(name: str, q, k, v) -> None:
     """What the backward kernels take, checked before the forward runs."""
-    if q.dtype == torch.float32:
-        raise NotImplementedError(
-            f"{name}: float32 attention with grad on the card; its "
-            f"backward kernel is not written yet (ROADMAP.md)")
     if q.shape[-1] not in BWD_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {q.shape[-1]} with grad; the "
                          f"backward kernels take {BWD_HEAD_DIMS}")
@@ -163,8 +177,8 @@ def _check_bwd(name: str, q, k, v) -> None:
 
 
 def _prefill(q, k, v, causal, lse):
-    """The tensor-core prefill kernel for q's dtype; ``lse`` (bf16 only)
-    also receives each row's log-sum-exp."""
+    """The tensor-core prefill kernel for q's dtype; ``lse``, when given,
+    also receives each row's log-sum-exp (the kernel's ``_lse`` entry)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _check("flash_attention", (q, k, v), d, hq, hkv)
@@ -186,7 +200,7 @@ def _prefill(q, k, v, causal, lse):
         if lse is None:
             rc = _prefill_fn(name)(*args, *tail)
         else:
-            rc = _wgmma_lse_fn()(*args, lse.data_ptr(), *tail)
+            rc = _lse_fn(name)(*args, lse.data_ptr(), *tail)
         _build.check(rc, name)
         _build.count_launch(LAUNCHES, name)
     return out
@@ -198,9 +212,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention`` at output ``o`` (as the
     forward gave it) with output gradient ``do`` and the forward's
     log-sum-exp ``lse`` [b, hq, s] float32: three launches
-    (``bwd_launches``). bfloat16 q, k, v, o, do; d in {64, 128, 256};
-    sq == skv; dk and dv summed over each KV head's group. On CPU
-    tensors, ``attention_bwd_ref``."""
+    (``bwd_launches``). q, k, v, o, do all float32 or all bfloat16; d in
+    {64, 128, 256}; sq == skv; dk and dv summed over each KV head's
+    group. On CPU tensors, ``attention_bwd_ref``."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
         return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
     b, hq, s, d = q.shape
@@ -231,19 +245,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_launches(q, k, v, o, do, lse, causal, dq, dk, dv) -> dict:
     """The backward's three launches on checked CUDA inputs, in order,
     as {name: function that launches it}: the pre pass (D = rowsum(dO
-    O) into a scratch buffer, ``csrc/flash_attention_bwd.cu``), then
-    dK/dV and dQ into the given outputs: that source's wgmma kernels at
-    d in {64, 128} (``flash_attention_bwd_dkdv``, ``_dq``), those of
-    ``csrc/flash_attention_bwd256.cu`` at d = 256
-    (``flash_attention_bwd256_dkdv``, ``_dq``).
+    O) into a scratch buffer: ``flash_attention_bwd_tf32_pre`` of
+    ``csrc/flash_attention_bwd_tf32.cu`` for float32,
+    ``flash_attention_bwd_pre`` of ``csrc/flash_attention_bwd.cu`` for
+    bfloat16), then dK/dV and dQ into the given outputs, the kernels of
+    ``csrc/<bwd_stem>.cu`` (``<stem>_dkdv``, ``<stem>_dq``).
     ``flash_attention_bwd`` runs them; ``chip_smoke.py`` also times the
     last two apart."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    lib = _bwd_lib("flash_attention_bwd")
-    main = _bwd_lib("flash_attention_bwd256") if d == 256 else lib
-    stem = "flash_attention_bwd256" if d == 256 else "flash_attention_bwd"
+    stem = bwd_stem(q.dtype, d)
+    main = _bwd_lib(stem)
+    # the bf16 d = 256 source has no pre pass of its own
+    pre_stem = ("flash_attention_bwd" if stem == "flash_attention_bwd256"
+                else stem)
+    lib = _bwd_lib(pre_stem)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     tail = (b, hq, hkv, s, d, int(causal), _scale_log2(d), 1.0 / math.sqrt(d))
@@ -255,8 +272,8 @@ def bwd_launches(q, k, v, o, do, lse, causal, dq, dk, dv) -> dict:
             _build.count_launch(LAUNCHES, name)
 
     return {
-        "flash_attention_bwd_pre": lambda: launch(
-            lib, "flash_attention_bwd_pre", o.data_ptr(), do.data_ptr(),
+        f"{pre_stem}_pre": lambda: launch(
+            lib, f"{pre_stem}_pre", o.data_ptr(), do.data_ptr(),
             delta.data_ptr(), b * hq * s, d),
         f"{stem}_dkdv": lambda: launch(
             main, f"{stem}_dkdv", *common, dk.data_ptr(), dv.data_ptr(),
@@ -341,10 +358,11 @@ def _prefill_fn(name: str):
     return fn
 
 
-def _wgmma_lse_fn():
-    """``flash_attention_wgmma_lse`` of ``csrc/flash_attention_wgmma.cu``:
-    the prefill entry with an lse pointer after ``out``."""
-    fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_lse
+def _lse_fn(name: str):
+    """The C entry ``<name>_lse`` of ``csrc/<name>.cu``
+    (flash_attention_wgmma or flash_attention_tf32): the prefill entry
+    with an lse pointer after ``out``."""
+    fn = getattr(_build.load(name), f"{name}_lse")
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, F, P]
@@ -353,18 +371,19 @@ def _wgmma_lse_fn():
 
 
 def _bwd_lib(name: str):
-    """``csrc/<name>.cu`` (flash_attention_bwd or flash_attention_bwd256)
-    with its entries typed: ``<name>_dkdv`` and ``<name>_dq`` (q, k, v,
-    dout, lse, delta, the outputs, b, hq, hkv, s, d, causal, scale_log2,
-    scale, stream), and the pre pass of flash_attention_bwd."""
+    """``csrc/<name>.cu`` (a ``bwd_stem``) with its entries typed:
+    ``<name>_dkdv`` and ``<name>_dq`` (q, k, v, dout, lse, delta, the
+    outputs, b, hq, hkv, s, d, causal, scale_log2, scale, stream), and
+    the pre pass ``<name>_pre`` of flash_attention_bwd and
+    flash_attention_bwd_tf32."""
     lib = _build.load(name)
     dkdv = getattr(lib, f"{name}_dkdv")
     if dkdv.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "flash_attention_bwd":
-            lib.flash_attention_bwd_pre.argtypes = [P, P, P, ctypes.c_int64,
-                                                    I, P]
-            lib.flash_attention_bwd_pre.restype = I
+        if name != "flash_attention_bwd256":
+            pre = getattr(lib, f"{name}_pre")
+            pre.argtypes = [P, P, P, ctypes.c_int64, I, P]
+            pre.restype = I
         for fn, outs in ((dkdv, 2), (getattr(lib, f"{name}_dq"), 1)):
             fn.argtypes = [P] * (6 + outs) + [I] * 6 + [F, F, P]
             fn.restype = I

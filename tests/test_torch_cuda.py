@@ -892,7 +892,10 @@ def _one_key_bound(q, k, v, do):
     what is left is the float32 rounding of dP and D, two d-term dot
     products of dO and v: at most 4 d 2**-24 of their sum of |terms|
     (3 for the two sums, accumulated in either order and rounded either
-    way, 1 of margin for P's and the scale's own roundings)."""
+    way, 1 of margin for P's and the scale's own roundings). For float32
+    inputs dP is 3xTF32, each term within about 3 2**-22 of itself and
+    each fragment's six steps rounded toward zero, under 32 2**-24 of the
+    sum in all: inside the same bound at every d."""
     group, d = q.shape[1] // k.shape[1], q.shape[-1]
     scale = d ** -0.5
     kk, vv = (t.float().repeat_interleave(group, 1) for t in (k, v))
@@ -904,24 +907,35 @@ def _one_key_bound(q, k, v, do):
     return dq, dk
 
 
-def _bwd_case(cuda, b, d, hq, hkv, s, causal):
+def _bwd_case(cuda, b, d, hq, hkv, s, causal, dtype):
+    """The backward kernels of ``dtype`` against attention_bwd_ref on the
+    same inputs: in float32 for bfloat16 inputs, in float64 for float32
+    ones (``chip_smoke.hold_bwd``'s tolerance of the dtype)."""
     from repro_torch.kernels import flash_attention as FA, ref
     cs = _chip_smoke()
     gen = torch.Generator(device=cuda).manual_seed(d + hq + s)
-    q = torch.randn((b, hq, s, d), generator=gen, device=cuda).bfloat16()
-    k = torch.randn((b, hkv, s, d), generator=gen, device=cuda).bfloat16()
-    v = torch.randn((b, hkv, s, d), generator=gen, device=cuda).bfloat16()
-    do = torch.randn((b, hq, s, d), generator=gen, device=cuda).bfloat16()
+    q = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+    do = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=cuda)
     o = FA._prefill(q, k, v, causal, lse)
-    _, want_lse = ref.attention_lse_ref(q, k, v, causal)
-    torch.testing.assert_close(lse, want_lse, rtol=0, atol=cs.LSE_ATOL)
+    f32 = dtype == torch.float32
+
+    def plain(*ts):
+        return [t.double() if f32 else t for t in ts]
+
+    _, want_lse = ref.attention_lse_ref(*plain(q, k, v), causal)
+    torch.testing.assert_close(plain(lse)[0], want_lse, rtol=0,
+                               atol=cs.LSE_ATOL[cs.dtype_name(q)])
     before = dict(FA.LAUNCHES)
     got = FA.flash_attention_bwd(q, k, v, o, do, lse, causal)
-    stem = cs.bwd_stem(q)
-    for key in ("flash_attention_bwd_pre", f"{stem}_dkdv", f"{stem}_dq"):
+    stem = FA.bwd_stem(dtype, d)
+    pre = ("flash_attention_bwd_tf32_pre" if f32
+           else "flash_attention_bwd_pre")
+    for key in (pre, f"{stem}_dkdv", f"{stem}_dq"):
         assert FA.LAUNCHES[key] == before[key] + 1
-    want = ref.attention_bwd_ref(q, k, v, o, do, lse, causal)
+    want = ref.attention_bwd_ref(*plain(q, k, v, o, do), lse, causal)
     if s == 1:
         cs.hold_bwd(torch, "backward", got[2:], want[2:])
         for g, bound in zip(got[:2], _one_key_bound(q, k, v, do)):
@@ -932,17 +946,22 @@ def _bwd_case(cuda, b, d, hq, hkv, s, causal):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (16, 1)])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 128, 129, 257, 300])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_bwd_matches_plain(cuda, d, hq, hkv, s, causal):
+def test_flash_attention_bwd_matches_plain(cuda, d, hq, hkv, s, causal,
+                                           dtype):
     """The attention backward (three launches) against attention_bwd_ref
-    in float32 on the same bf16 inputs, o and lse from the forward kernel
-    (lse against attention_lse_ref): chip_smoke's tolerance, BWD_RTOL of a
-    value plus BWD_ATOL_SHARE of the output's largest; a repeat gives the
-    same bits. d = 256 runs flash_attention_bwd256.cu's kernels (64-key
-    dK/dV CTAs with 64-row stages, 128-row dQ CTAs with 32-key stages).
+    on the same inputs, o and lse from the forward kernel (lse against
+    attention_lse_ref): bf16 inputs against the plain version in float32,
+    BWD_RTOL of a value plus BWD_ATOL_SHARE of the output's largest;
+    float32 inputs (flash_attention_bwd_tf32.cu, every d) against it in
+    float64, BWD_TOL["float32"]; a repeat gives the same bits. bf16 at
+    d = 256 runs flash_attention_bwd256.cu's kernels (64-key dK/dV CTAs
+    with 64-row stages, 128-row dQ CTAs with 32-key stages).
     s = 1 (one row, one key), 63, 64 and 65 (about a 64-key tile or
     stage), 129 (one key past a 128-key tile or a 128-row dQ CTA) and 257
     (one past two) are the tiles' edges. At
@@ -951,35 +970,47 @@ def test_flash_attention_bwd_matches_plain(cuda, d, hq, hkv, s, causal):
     the mma.sync kernel the d 64 / 128 one replaced gave the same), which no tolerance relative to the plain version's largest
     value can hold: there dv is held to hold_bwd and dq, dk to the bound
     of that rounding (``_one_key_bound``)."""
-    _bwd_case(cuda, 2, d, hq, hkv, s, causal)
+    _bwd_case(cuda, 2, d, hq, hkv, s, causal, dtype)
 
 
-@pytest.mark.parametrize("d,hq,hkv", [(128, 16, 8), (256, 16, 16)])
-def test_flash_attention_bwd_matches_plain_at_4096(cuda, d, hq, hkv):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("d,hq,hkv", [(128, 16, 8), (256, 16, 16),
+                                      (64, 16, 1)])
+def test_flash_attention_bwd_matches_plain_at_4096(cuda, d, hq, hkv, dtype):
     """The same at one 4096-token sequence, causal: d = 128 with GQA 2:1
-    (32 dK/dV and dQ tiles a head, the longest first) and gemma-7b's
-    d = 256 with 16 heads (64 tiles a head)."""
-    _bwd_case(cuda, 1, d, hq, hkv, 4096, True)
+    (32 dK/dV and dQ tiles a head, the longest first), gemma-7b's d = 256
+    with 16 heads (64 tiles a head) and d = 64 at GQA 16:1 (every query
+    head of the group summed into one key's dK and dV, 65,536 rows)."""
+    _bwd_case(cuda, 1, d, hq, hkv, 4096, True, dtype)
 
 
-def test_attention_autograd_on_card_matches_plain(cuda):
-    """flash_attention with grad on the card (the wgmma forward with lse,
-    the backward kernels) against the same autograd Function through the
-    plain versions."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+def test_attention_autograd_on_card_matches_plain(cuda, dtype):
+    """flash_attention with grad on the card (the prefill kernel of the
+    dtype with lse, the backward kernels) against the same autograd
+    Function through the plain versions: on the same bf16 inputs, or on
+    the float32 inputs cast to float64 (hold_bwd's tolerance of the
+    dtype; the output within ATTN_TOL)."""
     from repro_torch.kernels import flash_attention as FA
+    cs = _chip_smoke()
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn((1, 8, 200, 128), generator=gen,
-                           device=cuda).bfloat16() for _ in range(3))
+                           device=cuda).to(dtype) for _ in range(3))
     k, v = k[:, :4].contiguous(), v[:, :4].contiguous()
-    do = torch.randn((1, 8, 200, 128), generator=gen, device=cuda).bfloat16()
+    do = torch.randn((1, 8, 200, 128), generator=gen, device=cuda).to(dtype)
+    plain = torch.float64 if dtype == torch.float32 else dtype
     grads = []
-    for fn in (FA.flash_attention, FA.attention_plain_autograd):
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    for fn, dt in ((FA.flash_attention, dtype),
+                   (FA.attention_plain_autograd, plain)):
+        leaves = [t.to(dt).requires_grad_() for t in (q, k, v)]
         out = fn(*leaves, causal=True)
-        grads.append((out, *torch.autograd.grad(out, leaves, do)))
-    _chip_smoke().hold_bwd(torch, "autograd", grads[0][1:], grads[1][1:])
-    torch.testing.assert_close(grads[0][0].float(), grads[1][0].float(),
-                               rtol=1e-2, atol=1e-4)
+        grads.append((out, *torch.autograd.grad(out, leaves, do.to(dt))))
+    cs.hold_bwd(torch, "autograd", grads[0][1:], grads[1][1:])
+    rtol, atol = cs.ATTN_TOL[cs.dtype_name(q)]
+    torch.testing.assert_close(grads[0][0].double(), grads[1][0].double(),
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1048,13 +1079,9 @@ def test_fm_interaction_bwd_matches_plain(cuda, dtype, b, f, k, form):
 
 
 def test_training_refusals_on_card(cuda):
-    """What the card's training path does not take raises: float32
-    attention with grad (its backward kernel is in ROADMAP), a head dim
+    """What the card's training path does not take raises: a head dim
     the kernels are not built for, and sq != skv with grad."""
     from repro_torch.kernels import flash_attention as FA
-    q = torch.zeros((1, 4, 64, 128), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FA.flash_attention(q, q, q)
     q = torch.zeros((1, 4, 64, 96), device=cuda,
                     dtype=torch.bfloat16).requires_grad_()
     with pytest.raises(ValueError, match="head dim"):

@@ -39,6 +39,24 @@ def test_each_kernel_has_its_own_launch_key():
     assert "flash_attention" not in FA.LAUNCHES
 
 
+@pytest.mark.parametrize("dtype,d,stem", [
+    (torch.float32, 64, "flash_attention_bwd_tf32"),
+    (torch.float32, 128, "flash_attention_bwd_tf32"),
+    (torch.float32, 256, "flash_attention_bwd_tf32"),
+    (torch.bfloat16, 64, "flash_attention_bwd"),
+    (torch.bfloat16, 128, "flash_attention_bwd"),
+    (torch.bfloat16, 256, "flash_attention_bwd256")])
+def test_bwd_stem_picks_the_backward_by_dtype_then_head_dim(dtype, d, stem):
+    """The backward's source and launch keys: float32 at every head dim
+    to the 3xTF32 kernels, bfloat16 to the wgmma kernels of its head dim;
+    every stem's dK/dV and dQ keys are counted, and so is the pre pass of
+    each source that has one."""
+    assert FA.bwd_stem(dtype, d) == stem
+    assert {f"{stem}_dkdv", f"{stem}_dq"} <= set(FA.LAUNCHES)
+    assert {"flash_attention_bwd_pre", "flash_attention_bwd_tf32_pre"} <= (
+        set(FA.LAUNCHES))
+
+
 def _emulate(q, k, v, causal, bk=128):
     """The tensor-core kernel's arithmetic: KV tiles of ``bk`` keys, the
     online softmax in exp2 form in float32, P split into bfloat16 hi and

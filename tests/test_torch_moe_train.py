@@ -295,17 +295,27 @@ def test_aux_loss_gradient_matches_reference_one_hot_form():
 
 # -- the attention backward at head dim 256 ----------------------------------
 
+# (hq, hkv, s) of the vjp check, at each of the kernels' head dims; the
+# d = 256 cases keep their ids from before d 64 and 128 joined them
+VJP_SHAPES = [(4, 4, 33), (4, 2, 64), (2, 1, 17)]
+VJP_CASES = [pytest.param(d, *shape, id="-".join(
+    map(str, shape if d == 256 else (f"d{d}",) + shape)))
+    for d in (256, 64, 128) for shape in VJP_SHAPES]
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("hq,hkv,s", [(4, 4, 33), (4, 2, 64), (2, 1, 17)])
-def test_attention_bwd_ref_d256_matches_reference_vjp(causal, hq, hkv, s):
-    """attention_bwd_ref at d = 256 (gemma's head dim), from the forward's
-    log-sum-exp, against jax.vjp of the reference's attention_ref in
-    float32: dq, dk, dv within 2e-5 of each one's largest value; the
-    output within 1e-5."""
-    rng = np.random.default_rng(hq * 10 + s)
-    q, do = (rng.normal(size=(2, hq, s, 256)).astype(np.float32)
+@pytest.mark.parametrize("d,hq,hkv,s", VJP_CASES)
+def test_attention_bwd_ref_d256_matches_reference_vjp(causal, d, hq, hkv,
+                                                      s):
+    """attention_bwd_ref at every head dim the backward kernels take (64,
+    128, and 256 as gemma's; the float32 plain version the card holds
+    the float32 kernels to), from the forward's log-sum-exp, against
+    jax.vjp of the reference's attention_ref in float32: dq, dk, dv
+    within 2e-5 of each one's largest value; the output within 1e-5."""
+    rng = np.random.default_rng(hq * 10 + s + (0 if d == 256 else d))
+    q, do = (rng.normal(size=(2, hq, s, d)).astype(np.float32)
              for _ in range(2))
-    k, v = (rng.normal(size=(2, hkv, s, 256)).astype(np.float32)
+    k, v = (rng.normal(size=(2, hkv, s, d)).astype(np.float32)
             for _ in range(2))
     out, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(a, b, c, causal),
                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))

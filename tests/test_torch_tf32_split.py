@@ -3,16 +3,11 @@ tf32.cu``), emulated in torch on the CPU and held against float64
 attention: why each operand is split into TF32 hi and lo parts, and why
 the sums go into fresh fragments.
 
-A tensor core in TF32 mode reads an f32 register and ignores its low 13
-bits. The kernel splits x into hi = cvt.rna.tf32.f32(x) (round to
-nearest, ties away, the low 13 bits cleared) and lo = x - hi, which the
-tensor core truncates to TF32, and computes a . b as lo_a hi_b + hi_a
-lo_b + hi_a hi_b. Its mma instructions are modelled as the published
-studies of NVIDIA tensor cores describe them: exact products, their sum
-added to the f32 accumulator rounding toward zero. The kernel sums every
-two d steps of Q K^T into a fresh fragment that it adds to S in f32
-(round to nearest), and each KV tile's P V into a fresh fragment merged
-into O with the softmax rescale.
+The tensor core's arithmetic (the split, the three products, the
+toward-zero accumulation) is modelled in ``tests/tf32_emulation.py``.
+The kernel sums every two d steps of Q K^T into a fresh fragment that it
+adds to S in f32 (round to nearest), and each KV tile's P V into a fresh
+fragment merged into O with the softmax rescale.
 
 Inputs are the served model's head shape (GQA 2:1) at small sq and skv,
 made with numpy from a seed, with q and k scaled so that the scores span
@@ -26,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
+from tf32_emulation import mma_sum, split, tf32_read, tf32_rna
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,47 +41,6 @@ SPAN = 60.0                 # max |score| in log2 units
 TILE = {64: 32, 128: 32, 256: 16}
 KG = 2
 SHAPES = [(96, 96), (130, 61)]       # (sq, skv): square, and sq > skv
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32 on finite float32: round to nearest, ties away
-    from zero, to 10 fraction bits; the low 13 bits cleared."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_read(x: torch.Tensor) -> torch.Tensor:
-    """What a tensor core in TF32 mode reads of an f32 register: the
-    low 13 bits dropped (truncation)."""
-    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    """The kernel's split: hi exact in TF32, lo as the tensor core reads
-    the f32 residual."""
-    hi = tf32_rna(x)
-    return hi, tf32_read(x - hi)
-
-
-def toward_zero(x64: torch.Tensor) -> torch.Tensor:
-    """float64 -> float32 rounding toward zero."""
-    y = x64.float()
-    over = y.double().abs() > x64.abs()
-    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
-
-
-def mma_sum(a_parts, b_parts, acc=None):
-    """acc (+)= a . b over k steps of 8, three mma instructions a step
-    (lo.hi, hi.lo, hi.hi), each adding its exact products to the f32
-    accumulator rounding toward zero; acc None starts from 0."""
-    (ah, al), (bh, bl) = a_parts, b_parts
-    if acc is None:
-        acc = torch.zeros(ah.shape[:-1] + bh.shape[-1:])
-    for k0 in range(0, ah.shape[-1], 8):
-        ks = slice(k0, k0 + 8)
-        for x, y in ((al, bh), (ah, bl), (ah, bh)):
-            acc = toward_zero(acc.double()
-                              + x[..., ks].double() @ y[..., ks, :].double())
-    return acc
 
 
 def scores(qs, k, fresh):

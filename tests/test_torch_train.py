@@ -170,6 +170,36 @@ def test_lm_train_step_matches_reference(case):
         assert state.params is model.param_tree()
 
 
+def test_lm_float32_loss_and_grads_at_a_kernel_head_dim():
+    """qwen3-1.7b's config in float32 cut to 1 layer, d_model 256, 2
+    heads of 128 over 1 KV head (a head dim and a GQA group the card's
+    float32 attention backward takes), d_ff 512 and vocab 512: the loss,
+    ce and every gradient leaf of the port's loss over 64 tokens against
+    jax.value_and_grad of the reference's loss at the same weights (the
+    module's tolerances)."""
+    cut = dict(n_layers=1, d_model=256, n_heads=2, n_kv_heads=1,
+               head_dim=128, d_ff=512, vocab=512, dtype="float32")
+    ra, pa = jax_arch("qwen3-1.7b"), get_arch("qwen3-1.7b")
+    ra = dataclasses.replace(ra, smoke_cfg=dataclasses.replace(ra.cfg,
+                                                               **cut))
+    pa = dataclasses.replace(pa, smoke_cfg=dataclasses.replace(pa.cfg,
+                                                               **cut))
+    jp, model = _lm_model(ra, pa)
+    batch = next(lm_batch_stream(1, 64, 512))
+    (jloss, jce), jg = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, ra.smoke_cfg, jnp.asarray(batch["tokens"]),
+                             jnp.asarray(batch["labels"])),
+        has_aux=True)(jp)
+    grads = model.grad_tree()
+    loss, ce = model.loss_fn(torch.from_numpy(batch["tokens"]),
+                             torch.from_numpy(batch["labels"]))
+    loss.backward()
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(_np(loss), np.asarray(jloss), rtol=1e-5)
+    np.testing.assert_allclose(_np(ce), np.asarray(jce), rtol=1e-5)
+    _close_leaves(grads, jg, "grad")
+
+
 def test_remat_equals_no_remat():
     """remat=True (each block under torch.utils.checkpoint) gives the same
     bits as remat=False: loss, every gradient leaf and the state."""
