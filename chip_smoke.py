@@ -166,8 +166,10 @@ Phases, each printing its wall time:
              against its plain version in float64 on the captured inputs
              and timed beside SDPA's float32 backward (each backend
              forced, to name the one PyTorch picks), with the forward's
-             time with and without its lse; a 2-layer float32 step
-             through the kernels against the plain one;
+             time with and without its lse; the float32 backward at
+             gemma-7b's attention shape (q, k, v [1, 16, 4096, 256] from
+             --seed, causal) held and timed the same way; a 2-layer
+             float32 step through the kernels against the plain one;
 10b2. train_moe  granite-moe-1b-a400m and granite-moe-3b-a800m trained
              the same way at full width and depth (24 and 32 layers, 32
              and 40 experts, top-8, 32 routing groups; the loss ce + 0.01
@@ -2830,12 +2832,13 @@ def attention_bwd_bound(q, causal):
 
 def bwd_products(q) -> dict:
     """The products the dK/dV and dQ kernels issue, in units of one of
-    the bound's five: bf16 six and four (P and dS as hi + lo parts);
-    float32 four and three (3xTF32 each, counted in the bound), six and
-    three at d = 256 (S^T and dP^T computed by both warps of a pair)."""
-    if dtype_name(q) == "float32":
-        return {"dkdv": 6 if q.shape[-1] == 256 else 4, "dq": 3}
-    return {"dkdv": 6, "dq": 4}
+    the bound's five (``flash_attention.BWD_PRODUCTS``, as the sources'
+    headers give them): bf16 six and four (P and dS as hi + lo parts);
+    float32 four and three (3xTF32 each, counted in the bound), ten and
+    five at d = 256 (S^T and dP^T on four warps, S and dP on two)."""
+    from repro_torch.kernels import flash_attention as FA
+    dkdv, dq = FA.BWD_PRODUCTS[dtype_name(q)][q.shape[-1]]
+    return {"dkdv": dkdv, "dq": dq}
 
 
 def bwd_bytes(q, k, lse):
@@ -3481,6 +3484,9 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
 
 
 F32_TRAIN_TIMED_STEPS = 4
+# (b, hq, hkv, s, d) of gemma-7b's attention in a train_4k step: the
+# float32 backward's d = 256 kernels, timed in phase train_f32
+GEMMA_F32_SHAPE = (1, 16, 16, 4096, 256)
 # the float32 train step's attention launches: these keys each launch,
 # the bf16 kernels' keys never
 F32_TRAIN_KERNELS = ("flash_attention_tf32", "flash_attention_bwd_tf32_pre",
@@ -3503,9 +3509,11 @@ def run_train_f32_phase(torch, seed, profile=False, device="cuda"):
     and none of ``BF16_ATTENTION_KERNELS``; the float32 backward
     (csrc/flash_attention_bwd_tf32.cu) held against its plain version in
     float64 on the captured inputs, layer 0 timed beside SDPA's float32
-    backward; one 2-layer float32 step through the kernels against the
-    plain step. With ``profile`` the step under torch.profiler. Returns
-    (launch counts of the timed steps, the backward's numbers)."""
+    backward, and again at gemma-7b's attention shape (``GEMMA_F32_SHAPE``,
+    d = 256, inputs from ``seed``; its numbers under "gemma_shape"); one
+    2-layer float32 step through the kernels against the plain step. With
+    ``profile`` the step under torch.profiler. Returns (launch counts of
+    the timed steps, the backward's numbers)."""
     from repro_torch.configs import get_arch
     dev = torch.device(device)
     arch = get_arch("qwen3-1.7b")
@@ -3524,6 +3532,17 @@ def run_train_f32_phase(torch, seed, profile=False, device="cuda"):
     measured["library_backends"] = sdpa_backward_backends(torch, q, k, v,
                                                           do, True)
     del run, q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+    b, hq, hkv, s, d = GEMMA_F32_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev)
+            for _ in range(2))
+    measured["gemma_shape"] = check_attention_bwd(
+        torch, f"gemma-7b shape float32 attention backward {list(q.shape)} "
+        f"over {list(k.shape)}", q, k, v, do, True, timed=True)
+    del q, k, v, do
     torch.cuda.empty_cache()
     check_train_step_plain(torch, seed, device, dtype="float32")
     torch.cuda.empty_cache()
@@ -4151,7 +4170,7 @@ def main(argv=None) -> int:
         for name in _build.sources():
             lines = [ln for ln in _build.report(name).splitlines()
                      if "registers" in ln or "spill" in ln
-                     or "error" in ln.lower()]
+                     or "serialized" in ln or "error" in ln.lower()]
             print(f"{name}.cu:\n  " + "\n  ".join(lines), flush=True)
     with phase("kernels"):
         measured = run_kernel_checks(torch, args.seed, torch.device("cuda"))

@@ -3,8 +3,9 @@
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, h / group, j] * scale)
 //                  . v[b, h / group, j]
 // over keys j <= i when causal (sq == skv), over all j otherwise, in
-// error-compensated TF32 (3xTF32) on mma.sync, as the forward
-// (flash_attention_tf32.cu) computes it.
+// error-compensated TF32 (3xTF32), as the forward
+// (flash_attention_tf32.cu) computes it: on wgmma at d = 64 and 128, on
+// mma.sync at d = 256.
 //
 // Replaces no TPU kernel: the reference trains through its XLA attention
 // (autograd of src/repro/kernels/ref.py attention_ref) and has no Pallas
@@ -17,93 +18,176 @@
 // dS K), each done three times over (lo.hi + hi.lo + hi.hi) at 495
 // TFLOP/s dense TF32; q, k, v, o, dO, lse in and dq, dk, dv out cross HBM
 // once. At qwen3-1.7b's step shape (q [2, 16, 4096, 128], causal) that is
-// 2.08 ms. The kernels issue seven products: the dK/dV kernel four (S^T,
-// dP^T, P^T dO, dS^T Q), the dQ kernel three (S and dP again, dS K); at
-// d = 256 fifteen, since several warps compute the same S^T and dP^T (S
-// and dP; below).
+// 2.08 ms. Products issued, in units of the bound's five: at d = 64 and
+// 128 seven, the dK/dV kernel four (S^T, dP^T, P^T dO, dS^T Q) and the dQ
+// kernel three (S and dP again, dS K); at d = 256 fifteen, ten and five,
+// since several warps compute the same S^T and dP^T (S and dP; below).
+// kernels/flash_attention.py's BWD_PRODUCTS mirrors this line:
+// products (dK/dV, dQ) by d: 64: 4, 3; 128: 4, 3; 256: 10, 5
 //
-// Precision (tests/test_torch_tf32_bwd_split.py emulates it): every
-// operand, P and dS included, is split into hi = cvt.rna.tf32(x) and lo =
-// x - hi and each product is lo.hi + hi.lo + hi.hi, the small products
-// first (tf32x3.cuh, the forward's split and products bit for bit). A
+// Precision (tests/test_torch_tf32_bwd_split.py emulates it, with the
+// geometry of tests/tf32_emulation.py's BWD_GEOMETRY): every operand, P
+// and dS included, is split into hi and lo and each product is lo.hi +
+// hi.lo + hi.hi, the small products first. A B operand (read from shared
+// memory) and every operand at d = 256 take tf32x3.cuh's split, hi =
+// cvt.rna.tf32(x) (computed as (bits + 0x1000) & ~0x1fff) and lo = x -
+// hi; an A operand of the wgmma kernels (K, V, Q, dO, P^T, dS^T, dS, in
+// registers) passes its raw f32 bits as hi, which the tensor core
+// truncates, and lo = x - trunc(x) (split_a): one register and one
+// instruction less a value. Truncating one side keeps the emulation's
+// worst error at 0.292 of the tolerance; both sides would reach 0.561. A
 // tensor core adds into its accumulator rounding toward zero, so a long
-// sum through it drifts: every two d steps of S^T, dP^T, S and dP go into
-// a fresh fragment added to the f32 value (round to nearest), and so does
-// each query tile's P^T dO and dS^T Q before it is added to dV or dK, and
-// each key tile's dS K before it is added to dQ. dK and dV sum over every
+// sum through it drifts: every KG = 2 k-steps of 8 of S^T, dP^T, S and dP
+// go into a fresh fragment added to the f32 value (round to nearest), and
+// so does each stage's P^T dO and dS^T Q before it is added to dV or dK,
+// and each stage's dS K before it is added to dQ. dK and dV sum over every
 // query row of every head of the GQA group (16 x 4096 terms a value at
 // 16:1), so this matters more here than in the forward.
 //
-// Design (mma.sync.m16n8k8.tf32 for every product, not wgmma: wgmma takes
-// TF32 operands K-major only, and P^T dO, dS^T Q and dS K read one operand
-// MN-major; CUDA cores do the splits, exp2 and dS):
-// - bwd_pre_kernel: D[row] = sum_d dO * O in f32, one warp a row, float4
-//   reads.
-// - bwd_dkdv_kernel: a CTA owns BK keys of one (b, kv head), K and V staged
-//   once; each warp owns 16 keys. Q, dO, lse (in log2 units) and D tiles of
-//   BQ query rows stream through a cp.async ring of two stages (rows past s
+// d = 64 and 128: wgmma (bwd_dkdv_wgmma, bwd_dq_wgmma).
+// - What held PR 27's mma.sync kernels to 21% of the bound at qwen3's
+//   shape was issue slots: every operand fragment was read with 4-byte
+//   shared loads and split into hi and lo on the CUDA cores at each use,
+//   by each of four warps (about 76 instructions for 12 products of S^T
+//   and dP^T). Here each streamed value is split once, by a producer, and
+//   every product is one wgmma of a warpgroup.
+// - wgmma takes TF32 operands K-major only (no transpose bit), so: S^T =
+//   K Q^T and dP^T = V dO^T (dK/dV), S = Q K^T and dP = dO V^T (dQ) read
+//   Q, dO, K, V as stored (rows of d); dV += P^T dO, dK += dS^T Q and dQ +=
+//   dS K take P^T, dS^T, dS as register A fragments (RS) and read the
+//   transposed tiles dO^T, Q^T, K^T, which the producer writes.
+// - A CTA is 3 warpgroups (384 threads): a producer (setmaxnreg 56) and
+//   two consumers (224). The CTA's fixed operand lives in the consumers'
+//   registers as raw f32 A fragments (64 rows x d: d / 2 registers a
+//   thread) and is split one k-step at a time (4 values a thread; an empty
+//   asm statement keeps the compiler from hoisting the split of the whole
+//   operand out of the stage loop, 128 registers). dK/dV (a CTA owns BM =
+//   64 keys of one (b, kv head)): consumer 1 holds K and forms S^T, P^T and
+//   dV, consumer 2 holds V and forms dP^T, dS^T and dK; P^T passes to
+//   consumer 2 in f32 through one of two exchange buffers (thread t's pair
+//   p at [p][t]: both accumulators have one layout), ordered by named
+//   barriers over the 256 consumer threads: BAR_READY + b (1 arrives, 2
+//   waits), BAR_FREE + b (2 arrives, 1 waits before reusing b). dQ (BM =
+//   64 query rows of one (b, q head)): consumer 1 holds Q and forms S and
+//   P, consumer 2 holds dO and forms dP and dS = P (dP - D), written back
+//   in P's place (BAR_READY + b: P written, BAR_FREE + b: dS written), and
+//   each consumer adds dS K into its half of dQ's columns, so both take a
+//   share of the third product and no product sits on a branch that one
+//   consumer alone takes (there ptxas serialized every product, C7520, and
+//   dQ took 1.6 times as long).
+// - The producer streams raw f32 tiles of R = 2048 / d rows (query rows
+//   for dK/dV over each query head of the group in turn, under causal from
+//   the tile of the CTA's first key; keys for dQ, under causal up to the
+//   CTA's last row) by TMA (128-byte swizzle, rows past s zero-filled)
+//   into a ring of RAW = 4 slots, and writes each value's hi and lo once
+//   into a ring of STAGES = 2 operand stages: at the same swizzled offset
+//   (the K-major B of S^T, dP^T, S, dP) and, for Q, dO (dK/dV) and K (dQ),
+//   transposed into core matrices without swizzle ([d][R], the B of dV,
+//   dK, dQ), the rows' order permuted within each 8 (row 2 i + o at k
+//   index 4 o + i) so that an accumulator's column pair 2 t, 2 t + 1 is an
+//   A fragment's k indices t and t + 4: P^T, dS^T and dS go from the
+//   accumulator to the next product without a shuffle. A warp splits 4
+//   rows x 8 columns a step (rows 8 b + o + 2 (lane / 8), columns 8 c +
+//   lane % 8): its swizzled reads and writes and its transposed writes
+//   each hit 32 banks, at per-thread bases plus immediates, all of a
+//   tile's loads before its stores. It also writes each dK/dV stage's lse
+//   (times log2 e; +inf for rows past s, so their P is 0) and D, and
+//   fences its writes to the async proxy before it arrives on the stage's
+//   barrier.
+// - Per stage a consumer runs its first product over d in groups of KG
+//   k-steps, each group a fresh fragment (two in turn, so one group runs
+//   on the tensor cores while the last is added), then its second product
+//   over the stage's R rows by N = 64 halves of d (dQ: one half a
+//   consumer), each half a fresh fragment added to dV, dK or dQ.
+// - The d = 128 reckoning, a consumer thread's registers: the fixed
+//   operand 64 + dV or dK 64 (dQ's half 32) + the first product's
+//   accumulator 8 and two fresh fragments 16 + two groups' lo A fragments
+//   in flight 16 (hi is the operand's own register) + the stage's P^T lo 8
+//   + a half's fresh fragment 32: about 190 of 224 at the peak, with loop
+//   state. ptxas found too few registers for its wgmma pipeline at d = 128
+//   (C7511, every product serialized) with KG = 4, and in dK/dV with the
+//   warpgroup index broadcast by __shfl_sync (which dQ needs: without it
+//   ptxas took the consumers' branches as divergent).
+//   Shared memory (R = 16 at d = 128, 32 at d = 64: a tile is 8 KB at
+//   both): dK/dV the raw ring 4 x 2 tiles + 2 stages of 8 tiles (Q, dO hi
+//   and lo, their transposes) + 2 exchange buffers (64 x R f32) + lse, D
+//   + barriers + 1,024 of alignment: 206,144 B at d = 128, 214,592 B at d
+//   = 64; dQ 4 x 2 + 2 x 6 tiles (K, V hi and lo, K^T hi and lo) + the
+//   exchange: 173,120 and 181,312 B. One CTA an SM.
+// - What sets the pace (launch/wgmma_tf32_rate.py on the H100, PERF.md):
+//   an RS wgmma in TF32 costs about 28 clocks of an SM's tensor pipe at N =
+//   16 (29% of its peak; 31 clocks at N = 32, 32 at N = 64 with two
+//   accumulators in flight, the peak). At d = 128 a stage's first products
+//   are 2 x 48 such N = 16 instructions (its R = 16 rows are N), about
+//   2,700 clocks, against 1,536 clocks of the stage's work at the peak.
+//   Stages of 32 rows at d = 128 would need 2 x 128 KB of operand stages
+//   (or a single-buffered transposed half and B operands split by
+//   truncation, 209 KB) and about 230 registers a dK/dV consumer.
+// - Masks only on stages that cross the diagonal or the end of s. Keys
+//   past s give dK/dV rows that are never written, and are masked in dQ.
+//
+// d = 256: mma.sync (bwd_dkdv_kernel, bwd_dq_kernel: PR 27's kernels).
+// The wgmma design above does not fit: the fixed operand (64 x 256 f32)
+// takes 128 registers a consumer thread and dV or dK 128 more (255 is a
+// thread's most, 224 a consumer's here); held as hi and lo in shared
+// memory instead, K and V take 256 KB of the 232,448 B a block has;
+// split across four consumer warpgroups (d halves of dV and dK), the
+// five warpgroups have 504 / 5 registers a thread on average. So at d =
+// 256 a CTA of 8 warps shares its keys (rows) across warps: the dK/dV
+// kernel's warps w, w + 2, w + 4 and w + 6 own the same 16 keys and a
+// quarter of d each (64 registers of dK and dV), the dQ kernel's warps w
+// and w + 4 own the same 16 rows and half of d each (64 of dQ). Each warp
+// computes S^T and dP^T (S and dP) over all of d: fifteen products where
+// seven would do. ptxas spilled 4 to 44 bytes in each arrangement with
+// more registers of accumulators a warp (PERF.md, PR 27).
+// - bwd_dkdv_kernel: a CTA owns BK = 32 keys of one (b, kv head), K and V
+//   staged once; Q, dO, lse (in log2 units) and D tiles of BQ = 8 query
+//   rows stream through a cp.async ring of two stages (rows past s
 //   zero-filled, lse = +inf, D = 0, so their P and dS are 0), over each
-//   query head of the group in turn and, under causal, from the tile of the
-//   CTA's first key; the key tiles are the grid's slowest dimension, so
-//   under causal the longest run first. Per stage a warp computes S^T =
-//   K Q^T and dP^T = V dO^T, P^T = exp2(S^T scale log2 e - lse log2 e) and
-//   dS^T = P^T (dP^T - D) in registers, then dV += P^T dO and dK += dS^T Q.
-//   The S^T accumulator's fragment is P^T's A fragment with its query order
-//   permuted (queries 2t and 2t + 1 of each 8 as k indices t and t + 4), so
-//   P^T and dS^T never leave registers; dO's and Q's B fragments then read
-//   rows 2t and 2t + 1. dK is written times the scale.
-// - d = 256: dK and dV of 16 keys over all of d would take 256 registers a
-//   thread, so the dK/dV kernel's warps w, w + 2, w + 4 and w + 6 own the
-//   same 16 keys and a quarter of d each (64 registers of dK and dV), and
-//   the dQ kernel's warps w and w + 4 own the same 16 rows and half of d
-//   each (64 of dQ). Each warp computes S^T and dP^T (S and dP) over all
-//   of d, so the kernels issue fifteen products where seven would do.
-//   ptxas spilled 4 to 44 bytes in each arrangement with more registers
-//   of accumulators a warp (d halves of dK/dV, dV and dK on two warps,
-//   dQ on one warp; stages of 8 and 16, loops rolled or not, PERF.md).
-// - bwd_dq_kernel: a CTA owns BQ rows of one (b, q head), Q and dO staged
-//   once, each warp 16 rows; K and V tiles of BKQ keys stream through the
-//   ring, under causal up to the CTA's last row, the longest q tiles first.
-//   Per tile S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K (K's B
+//   query head of the group in turn and, under causal, from the tile of
+//   the CTA's first key; the key tiles are the grid's slowest dimension,
+//   so under causal the longest run first. Per stage a warp computes S^T
+//   = K Q^T and dP^T = V dO^T, P^T = exp2(S^T scale log2 e - lse log2 e)
+//   and dS^T = P^T (dP^T - D) in registers, then dV += P^T dO and dK +=
+//   dS^T Q. The S^T accumulator's fragment is P^T's A fragment with its
+//   query order permuted (queries 2t and 2t + 1 of each 8 as k indices t
+//   and t + 4), so P^T and dS^T never leave registers; dO's and Q's B
+//   fragments then read rows 2t and 2t + 1. dK is written times the
+//   scale.
+// - bwd_dq_kernel: a CTA owns BQ = 64 rows of one (b, q head), Q and dO
+//   staged once; K and V tiles of BKQ = 8 keys stream through the ring,
+//   under causal up to the CTA's last row, the longest q tiles first. Per
+//   tile S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K (K's B
 //   fragment rows 2t and 2t + 1, as the forward reads V). Keys past s are
 //   zero-filled and masked.
 // - Shared memory: every tile is f32 with rows D + 4 floats apart, which
 //   makes both reads conflict-free: a fragment of a row-major operand at
 //   (row g, column t) and one of an MN-major operand at (row 2t, column g),
-//   with 4-byte loads. Per CTA, with S = D + 4 floats a row:
-//     dK/dV: K and V (2 BK S) and two stages of Q and dO (2 x 2 BQ S) and
-//       lse, D (2 x 2 BQ):
-//       d = 64: BK 64, BQ 32: 34,816 + 35,328 B;
-//       d = 128: BK 64, BQ 16: 67,584 + 34,048 B;
-//       d = 256: 8 warps (2 groups of 16 keys, 4 d parts), BK 32, BQ 8:
-//         66,560 + 33,408 B.
-//     dQ: Q and dO (2 BQ S) and two stages of K and V (2 x 2 BKQ S):
-//       d = 64: BQ 64, BKQ 32: 34,816 + 34,816 B;
-//       d = 128: BQ 64, BKQ 16: 67,584 + 33,792 B;
-//       d = 256: 8 warps (4 groups of 16 rows, 2 d halves), BQ 64,
-//         BKQ 8: 133,120 + 33,280 B.
-// - Registers: dK and dV take 2 x 16 x DW / 32 f32 a thread, DW the
-//   warp's d columns (64 registers at d = 64 and 256, 128 at d = 128), dQ
-//   16 x its d columns / 32 (32, 64 and 64); the stage's P^T and dS^T hi
-//   and lo fragments 16 BQ / 8. At d = 128 the dK/dV kernel keeps its loop
-//   over d in KG-step groups rolled (unrolled, ptxas spilled 8 bytes;
-//   rolled at d = 256 it ran about 15% slower). ptxas reports no spill in
-//   any kernel.
-// - No atomics and no split reductions: each output element is summed by
-//   one thread in a fixed order, so every launch gives the same bits (a
-//   resumed training run must reproduce its state byte for byte).
+//   with 4-byte loads. dK/dV: K and V (2 BK S) and two stages of Q and dO
+//   (2 x 2 BQ S) and lse, D (2 x 2 BQ): 66,560 + 33,408 B; dQ: Q and dO
+//   (2 BQ S) and two stages of K and V (2 x 2 BKQ S): 133,120 + 33,280 B.
+//
+// No atomics and no split reductions at any d: each output element is
+// summed by one thread in a fixed order (dK and dV over the group's query
+// heads in turn, dQ over the key tiles in turn), so every launch gives the
+// same bits (a resumed training run must reproduce its state byte for
+// byte). ptxas reports no spill in any kernel (_build keeps the report).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
 #include "tf32x3.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int STAGES = 2;
-constexpr int KG = 2;   // d steps of S^T, dP^T, S, dP a fresh fragment
+constexpr int KG = 2;   // k-steps of S^T, dP^T, S, dP a fresh fragment
 constexpr int NG = 4;   // d steps of dK, dV or dQ a group of fragments
+                        // (mma.sync, d = 256)
 constexpr float LOG2E = 1.4426950408889634f;
 
 // lse in log2 units; a row with lse = -inf (no visible key) takes +inf,
@@ -189,9 +273,8 @@ __device__ __forceinline__ void d_steps(float (&f0)[NJ][4], const float* a0,
 
 // acc0 = A0 B0^T and acc1 = A1 B1^T over the D columns: the first KG d
 // steps straight into acc, then each KG steps in fresh fragments added in
-// f32 (d_steps). ROLLED keeps the groups a loop (ptxas otherwise spills
-// the dK/dV kernel at d = 128, whose accumulators take 128 registers).
-template <int D, int NJ, int S, bool ROLLED>
+// f32 (d_steps)
+template <int D, int NJ, int S>
 __device__ __forceinline__ void over_d2(float (&acc0)[NJ][4],
                                         const float* a0, const float* b0,
                                         float (&acc1)[NJ][4],
@@ -208,13 +291,8 @@ __device__ __forceinline__ void over_d2(float (&acc0)[NJ][4],
         acc1[j][e] += f1[j][e];
       }
   };
-  if constexpr (ROLLED) {
-#pragma unroll 1
-    for (int k0 = KG; k0 < D / 8; k0 += KG) group(k0);
-  } else {
 #pragma unroll
-    for (int k0 = KG; k0 < D / 8; k0 += KG) group(k0);
-  }
+  for (int k0 = KG; k0 < D / 8; k0 += KG) group(k0);
 }
 
 // acc[n] += A B over a stage: A the stage's NJ hi and lo A fragments (k
@@ -294,27 +372,15 @@ bwd_pre_kernel(const float* __restrict__ o, const float* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
-// ---- dK, dV --------------------------------------------------------------
+// ---- d = 256: mma.sync, dK, dV ---------------------------------------------
 
-// warps a CTA, query rows a stage, warps a 16-key group (each takes
-// 1 / SPLIT of dK's and dV's d columns), and whether S^T and dP^T keep
-// their loop over d rolled (over_d2)
+// warps a CTA, query rows a stage, and warps a 16-key group (each takes
+// 1 / SPLIT of dK's and dV's d columns)
 template <int D>
 struct KvCfg;
 template <>
-struct KvCfg<64> {
-  static constexpr int NW = 4, BQ = 32, SPLIT = 1;
-  static constexpr bool ROLLED = false;
-};
-template <>
-struct KvCfg<128> {
-  static constexpr int NW = 4, BQ = 16, SPLIT = 1;
-  static constexpr bool ROLLED = true;
-};
-template <>
 struct KvCfg<256> {
   static constexpr int NW = 8, BQ = 8, SPLIT = 4;
-  static constexpr bool ROLLED = false;
 };
 
 template <int D>
@@ -425,8 +491,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // S^T = K Q^T, dP^T = V dO^T (16 keys x BQ queries)
     float st[NJ][4], dpt[NJ][4];
-    over_d2<D, NJ, S, KvCfg<D>::ROLLED>(st, ka, qs + g * S + t, dpt, va,
-                                        ds + g * S + t);
+    over_d2<D, NJ, S>(st, ka, qs + g * S + t, dpt, va, ds + g * S + t);
 
     // P^T and dS^T as A fragments, hi and lo; st[j][e] is (key kw + g +
     // (e < 2 ? 0 : 8), query q0 + 8 j + 2 t + (e & 1)), and the fragment's
@@ -463,20 +528,12 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<D>(dk + kv_off + dc0, dka, kw + g, s, t, scale);
 }
 
-// ---- dQ --------------------------------------------------------------------
+// ---- d = 256: mma.sync, dQ -------------------------------------------------
 
 // warps a CTA, keys a stage, and warps a 16-row group (2: each takes half
 // of dQ's d columns)
 template <int D>
 struct QCfg;
-template <>
-struct QCfg<64> {
-  static constexpr int NW = 4, BKQ = 32, SPLIT = 1;
-};
-template <>
-struct QCfg<128> {
-  static constexpr int NW = 4, BKQ = 16, SPLIT = 1;
-};
 template <>
 struct QCfg<256> {
   static constexpr int NW = 8, BKQ = 8, SPLIT = 2;
@@ -577,8 +634,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q K^T, dP = dO V^T (16 rows x BKQ keys)
     float sc[NJ][4], dp[NJ][4];
-    over_d2<D, NJ, S, false>(sc, qa, ks + g * S + t, dp, oa,
-                             vs + g * S + t);
+    over_d2<D, NJ, S>(sc, qa, ks + g * S + t, dp, oa, vs + g * S + t);
 
     // dS as A fragments, hi and lo; sc[j][e] is (row e < 2 ? ra : rb, key
     // kb0 + 8 j + 2 t + (e & 1)), the fragment's k indices t and t + 4
@@ -608,6 +664,656 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows<D>(dq + bh * s * D + dc0, dqa, ra, s, t, scale);
 }
 
+// ---- d = 64 and 128: wgmma -------------------------------------------------
+
+constexpr int WG_THREADS = 384;  // producer + 2 consumer warpgroups
+constexpr int BM = 64;           // keys a dK/dV CTA, query rows a dQ CTA
+constexpr int RAW = 4;           // slots of raw tiles
+constexpr int P_REGS = 56, C_REGS = 224;  // setmaxnreg: 56 + 2 x 224 =
+                                          // 3 x 168, the launch's
+// named barriers (0 is __syncthreads'): between the consumers, BAR_READY +
+// b (P^T or P written to exchange buffer b) and BAR_FREE + b (dK/dV:
+// buffer b read; dQ: dS written in P's place); among the producer's 128
+// threads, BAR_RAW (a raw slot read)
+constexpr int BAR_READY = 1, BAR_FREE = 3, BAR_RAW = 5;
+
+template <int D>
+struct WgGeo {
+  static constexpr int R = 2048 / D;       // streamed rows a stage
+  static constexpr int TILE = R * D * 4;   // bytes of a streamed f32 tile
+  static constexpr int XBUF = BM * R * 4;  // bytes of an exchange buffer
+  static constexpr int BARS = 8 * (RAW + 2 * STAGES);
+  // raw slots of two tiles, stages of 8 (dK/dV) or 6 (dQ) tiles, two
+  // exchange buffers, lse and D of each dK/dV stage, the barriers; +1024
+  // to align to the swizzle's period
+  static constexpr int KV_SMEM = 1024 + RAW * 2 * TILE + STAGES * 8 * TILE +
+                                 2 * XBUF + 2 * STAGES * R * 4 + BARS;
+  static constexpr int Q_SMEM =
+      1024 + RAW * 2 * TILE + STAGES * 6 * TILE + 2 * XBUF + BARS;
+  static_assert(KV_SMEM <= 232448 && Q_SMEM <= 232448,
+                "a block has 232,448 B of shared memory");
+  static_assert(BM % R == 0, "a dK/dV CTA's first stage starts at its key");
+};
+
+// a position in a ring of N slots: the slot, and the parity of the phase
+// its mbarriers are in
+template <int N>
+struct Ring {
+  int st = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++st == N) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// p advanced to the swizzle's period (1024 B) by pointer arithmetic, so
+// that the compiler keeps the shared address space (32-bit addresses,
+// shared loads and stores)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// barrier BASE + buf over the 256 consumer threads, the id an immediate
+template <int BASE>
+__device__ __forceinline__ void bar_arrive(int buf) {
+  if (buf)
+    asm volatile("bar.arrive %0, 256;\n" ::"n"(BASE + 1) : "memory");
+  else
+    asm volatile("bar.arrive %0, 256;\n" ::"n"(BASE) : "memory");
+}
+template <int BASE>
+__device__ __forceinline__ void bar_sync(int buf) {
+  if (buf)
+    asm volatile("bar.sync %0, 256;\n" ::"n"(BASE + 1) : "memory");
+  else
+    asm volatile("bar.sync %0, 256;\n" ::"n"(BASE) : "memory");
+}
+
+// Tile layouts (byte offsets). A streamed tile as TMA writes it, [D /
+// 32][R][32] f32 with the 128-byte swizzle: (row r, column c) at (c / 32) R
+// 128 + 128 r + 16 ((c % 32 / 4) XOR (r % 8)) + 4 (c % 4). A transposed
+// tile, K-major core matrices without swizzle ([N][R]: 8 rows x 4 k values
+// of 128 B, R / 4 of them along k 128 B apart, 8-row groups R 32 B apart):
+// (row n, k index k) at (n / 8) R 32 + (k / 4) 128 + 16 (n % 8) + 4 (k %
+// 4).
+
+// The producer's split of one raw tile of R rows x D columns (swizzled, as
+// TMA wrote it): hi and lo at the same offsets and, with TRANS, the
+// transposed hi and lo ([D][R] core matrices, row 8 b + 2 i + o at k index
+// 8 b + 4 o + i). Warp w, lane l takes rows 8 b + o + 2 i (i = l >> 3) x
+// columns 32 q + 8 w + (l & 7): each of its shared-memory accesses hits 32
+// banks. Its offsets are per-thread bases (SplitAt) plus immediates, and
+// all R D / 128 values of a thread are loaded before the first store (the
+// compiler keeps shared loads behind earlier stores it cannot tell apart,
+// which made each value wait out a load's latency).
+struct SplitAt {
+  int sw[2];  // swizzled offset of row o + 2 i, the thread's column (o = 0, 1)
+  int tr;     // transposed offset of the thread's column and k index i
+};
+
+template <int R>
+__device__ __forceinline__ SplitAt split_at(int warp, int lane) {
+  const int i = lane >> 3, c7 = lane & 7;
+  const int chunk = 2 * warp + (c7 >> 2);  // 16-byte chunk of the row
+  const int col = (c7 & 3) << 2;
+  SplitAt a;
+#pragma unroll
+  for (int o = 0; o < 2; ++o)
+    a.sw[o] = (o + 2 * i) * 128 + ((chunk ^ (o + 2 * i)) << 4) + col;
+  a.tr = warp * (R * 32) + (c7 << 4) + (i << 2);
+  return a;
+}
+
+template <int D, int R, bool TRANS>
+__device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi,
+                                           uint8_t* lo, uint8_t* thi,
+                                           uint8_t* tlo, const SplitAt& a) {
+  float x[R / 8][2][D / 32];
+#pragma unroll
+  for (int rb = 0; rb < R / 8; ++rb)
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int q = 0; q < D / 32; ++q)
+        x[rb][o][q] = *reinterpret_cast<const float*>(
+            raw + a.sw[o] + q * (R * 128) + rb * 1024);
+#pragma unroll
+  for (int rb = 0; rb < R / 8; ++rb)
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int q = 0; q < D / 32; ++q) {
+        const int at = a.sw[o] + q * (R * 128) + rb * 1024;
+        uint32_t h, l;
+        split(x[rb][o][q], h, l);
+        *reinterpret_cast<uint32_t*>(hi + at) = h;
+        *reinterpret_cast<uint32_t*>(lo + at) = l;
+        if constexpr (TRANS) {
+          const int tt = a.tr + 4 * q * (R * 32) + (2 * rb + o) * 128;
+          *reinterpret_cast<uint32_t*>(thi + tt) = h;
+          *reinterpret_cast<uint32_t*>(tlo + tt) = l;
+        }
+      }
+}
+
+// rows ra and ra + 8 of a 64-row [s][D] f32 head as A fragments (k-step
+// kk: (ra, 8 kk + tq), (ra + 8, 8 kk + tq), (ra, 8 kk + tq + 4), (ra + 8,
+// 8 kk + tq + 4)), raw; rows past s as 0
+template <int D>
+__device__ __forceinline__ void load_fixed(float (&af)[D / 8][4],
+                                           const float* head, int ra, int s,
+                                           int tq) {
+  const bool a_in = ra < s, b_in = ra + 8 < s;
+  const float* pa = head + (int64_t)(a_in ? ra : 0) * D + tq;
+  const float* pb = head + (int64_t)(b_in ? ra + 8 : 0) * D + tq;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    af[kk][0] = a_in ? pa[8 * kk] : 0.f;
+    af[kk][1] = b_in ? pb[8 * kk] : 0.f;
+    af[kk][2] = a_in ? pa[8 * kk + 4] : 0.f;
+    af[kk][3] = b_in ? pb[8 * kk + 4] : 0.f;
+  }
+}
+
+// An A operand split for wgmma: hi the raw f32 bits, which the tensor
+// core truncates to TF32, and lo = x - trunc(x), exact in f32 and read
+// truncated (a B operand keeps split's hi = rna(x): truncating both sides
+// misses the emulation's margin, one side keeps it)
+__device__ __forceinline__ void split_a(float x, uint32_t& hi,
+                                        uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+// KG k-steps from k-step k0 of acc (+)= A B^T: A the fixed operand's raw
+// fragments, split here; B a swizzled [R][D] tile as hi (descriptor dh)
+// and lo (dl); the group's first product overwrites acc. Small products
+// first: lo.hi, hi.lo, hi.hi.
+template <int D, int R>
+__device__ __forceinline__ void rs_group(float (&acc)[R / 2],
+                                         const float (&af)[D / 8][4], int k0,
+                                         uint64_t dh, uint64_t dl) {
+#pragma unroll
+  for (int kk = k0; kk < k0 + KG; ++kk) {
+    // opaque, so the split is not hoisted out of the stage loop (hi and
+    // lo of the whole operand would take twice its registers)
+    float x[4] = {af[kk][0], af[kk][1], af[kk][2], af[kk][3]};
+    asm volatile("" : "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3]));
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_a(x[e], h[e], l[e]);
+    // k-step kk: sub-tile kk / 4, 32 bytes a k-step within it (the
+    // descriptor's address field counts 16 bytes)
+    const uint32_t off = ((kk >> 2) * (R * 128) + (kk & 3) * 32) >> 4;
+    TF32<R>::rs(acc, l, dh + off, kk > k0);
+    TF32<R>::rs(acc, h, dl + off, 1);
+    TF32<R>::rs(acc, h, dh + off, 1);
+  }
+}
+
+// acc = A B^T over d (64 rows x R columns): the first group straight into
+// acc, each later group into a fresh fragment (two in turn: one runs while
+// the last is added) added in f32, in order
+template <int D, int R>
+__device__ __forceinline__ void first_product(float (&acc)[R / 2],
+                                              const float (&af)[D / 8][4],
+                                              uint32_t bh, uint32_t bl) {
+  constexpr int GROUPS = D / 8 / KG;
+  const uint64_t dh = desc(bh, 16, 1024), dl = desc(bl, 16, 1024);
+  float f[2][R / 2];
+  wgmma_fence();
+  rs_group<D, R>(acc, af, 0, dh, dl);
+  wgmma_commit();
+#pragma unroll
+  for (int gi = 1; gi < GROUPS; ++gi) {
+    wgmma_fence();
+    rs_group<D, R>(f[gi & 1], af, gi * KG, dh, dl);
+    wgmma_commit();
+    wgmma_wait<1>();   // every group but this one is done
+    if (gi >= 2) {
+      fence_regs(f[(gi - 1) & 1]);
+#pragma unroll
+      for (int e = 0; e < R / 2; ++e) acc[e] += f[(gi - 1) & 1][e];
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if constexpr (GROUPS > 1) {
+    fence_regs(f[(GROUPS - 1) & 1]);
+#pragma unroll
+    for (int e = 0; e < R / 2; ++e) acc[e] += f[(GROUPS - 1) & 1][e];
+  }
+}
+
+// an accumulator's R / 2 values as R / 8 A fragments, hi and lo
+// (split_a): the columns 2 t and 2 t + 1 of k-step j are its k indices t
+// and t + 4 (the transposed tiles' row order)
+template <int R>
+__device__ __forceinline__ void a_frags(const float (&x)[R / 2],
+                                        uint32_t (&hi)[R / 8][4],
+                                        uint32_t (&lo)[R / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j) {
+    split_a(x[4 * j], hi[j][0], lo[j][0]);
+    split_a(x[4 * j + 2], hi[j][1], lo[j][1]);
+    split_a(x[4 * j + 1], hi[j][2], lo[j][2]);
+    split_a(x[4 * j + 3], hi[j][3], lo[j][3]);
+  }
+}
+
+// out[h] += A B over the stage's R rows for the N columns of d from col0 +
+// N h, h < H, each into a fresh fragment added in f32: A the stage's hi and
+// lo fragments, B a transposed [D][R] tile as hi (th) and lo (tl). (One
+// descriptor a tile and the blocks looped here: with a descriptor a block,
+// ptxas ran short of registers for its wgmma pipeline in dK/dV at d = 128
+// and serialized the products, C7511.)
+template <int R, int N, int H>
+__device__ __forceinline__ void second_product(float (&out)[H][N / 2],
+                                               const uint32_t (&hi)[R / 8][4],
+                                               const uint32_t (&lo)[R / 8][4],
+                                               uint32_t th, uint32_t tl,
+                                               int col0) {
+  // rows col0 of the tile: col0 / 8 core-matrix rows of R * 32 bytes
+  const uint32_t row0 = (col0 / 8) * (R * 32);
+  const uint64_t dh = desc_plain(th + row0, 128, R * 32);
+  const uint64_t dl = desc_plain(tl + row0, 128, R * 32);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    float f[N / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      // block h (N / 8 core-matrix rows), k-step j (two core matrices of
+      // 128 bytes); the address field counts 16 bytes
+      const uint32_t off = (h * (N / 8) * (R * 32) + j * 256) >> 4;
+      TF32<N>::rs(f, lo[j], dh + off, j > 0);
+      TF32<N>::rs(f, hi[j], dl + off, 1);
+      TF32<N>::rs(f, hi[j], dh + off, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(f);
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) out[h][e] += f[e];
+  }
+}
+
+// rows ra and ra + 8 of a [64 x H N] accumulator kept as H blocks of N
+// columns (block h, entry 4 j + e: row ra + 8 (e >> 1), column col0 + N h
+// + 8 j + 2 tq + (e & 1)) times mul to a [s][D] head; rows past s not
+// written
+template <int D, int N, int H>
+__device__ __forceinline__ void store_cols(float* head,
+                                           const float (&out)[H][N / 2],
+                                           int ra, int s, int tq, int col0,
+                                           float mul) {
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = col0 + N * h + 8 * j + 2 * tq;
+      if (ra < s)
+        *reinterpret_cast<float2*>(head + (int64_t)ra * D + col) =
+            make_float2(out[h][4 * j] * mul, out[h][4 * j + 1] * mul);
+      if (ra + 8 < s)
+        *reinterpret_cast<float2*>(head + (int64_t)(ra + 8) * D + col) =
+            make_float2(out[h][4 * j + 2] * mul, out[h][4 * j + 3] * mul);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_do,
+               const float* __restrict__ k, const float* __restrict__ v,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, int hq, int hkv, int s, int causal,
+               float scale_log2, float scale) {
+  using G = WgGeo<D>;
+  constexpr int R = G::R, TILE = G::TILE, STAGE = 8 * TILE;
+  extern __shared__ uint8_t smem_raw[];
+  // raw slots [RAW][Q, dO]; stages [STAGES][Q hi, lo, dO hi, lo, Q^T hi,
+  // lo, dO^T hi, lo]; exchange [2][R / 4][128] pairs; lse2, D [STAGES][R]
+  uint8_t* sRaw = align1024(smem_raw);
+  uint8_t* sStage = sRaw + RAW * 2 * TILE;
+  float2* sX = reinterpret_cast<float2*>(sStage + STAGES * STAGE);
+  float* sL = reinterpret_cast<float*>(sStage + STAGES * STAGE + 2 * G::XBUF);
+  float* sD = sL + STAGES * R;
+  const uint32_t bars = smem_u32(sD + STAGES * R);
+  auto raw_full = [&](int i) { return bars + 8 * i; };
+  auto full = [&](int st) { return bars + 8 * (RAW + st); };
+  auto empty = [&](int st) { return bars + 8 * (RAW + STAGES + st); };
+
+  const int hk = blockIdx.x, bi = blockIdx.y;
+  const int k0 = blockIdx.z * BM;  // under causal the first tiles are the
+  const int group = hq / hkv;      // longest: they start first
+  const int bh0 = bi * hq + hk * group;  // the group's first query head
+  // the walk: each query head of the group, over query tiles qt_begin ..
+  // qt_end - 1 (under causal from the tile of the CTA's first key)
+  const int qt_begin = causal ? k0 / R : 0, qt_end = (s + R - 1) / R;
+  const int n_iter = group * (qt_end - qt_begin);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RAW; ++i) mbar_init(raw_full(i), 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 128);  // every producer thread
+      mbar_init(empty(st), 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup (not broadcast through __shfl_sync as in the dQ kernel:
+  // here ptxas then ran short of registers for the wgmma pipeline at d =
+  // 128 and serialized the products, C7511)
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: thread 0 loads raw tiles, everyone splits them ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(P_REGS));
+    const int tid = threadIdx.x;
+    const SplitAt at = split_at<R>(tid >> 5, tid & 31);
+    int lbh = bh0, lqt = qt_begin;  // the next load's head and query tile
+    auto load = [&](int slot) {
+      const uint32_t bar = raw_full(slot);
+      uint8_t* dst = sRaw + slot * 2 * TILE;
+      mbar_expect_tx(bar, 2 * TILE);
+      for (int c = 0; c < D / 32; ++c)
+        tma_load(smem_u32(dst + c * R * 128), &tm_q, bar, c * 32, lqt * R,
+                 lbh);
+      for (int c = 0; c < D / 32; ++c)
+        tma_load(smem_u32(dst + TILE + c * R * 128), &tm_do, bar, c * 32,
+                 lqt * R, lbh);
+      if (++lqt == qt_end) {
+        lqt = qt_begin;
+        ++lbh;
+      }
+    };
+    if (tid == 0)
+      for (int i = 0; i < RAW && i < n_iter; ++i) load(i);
+    Ring<RAW> rr;
+    Ring<STAGES> sr;
+    const float* lp = lse + (int64_t)bh0 * s;
+    const float* dp = delta + (int64_t)bh0 * s;
+    int qt = qt_begin;
+    for (int it = 0; it < n_iter; ++it) {
+      // the stage's lse (log2 units, +inf past s) and D, read first
+      const int row = qt * R + tid;
+      float l2 = CUDART_INF_F, dd = 0.f;
+      if (tid < R && row < s) {
+        l2 = lse2_of(lp[row]);
+        dd = dp[row];
+      }
+      if (++qt == qt_end) {
+        qt = qt_begin;
+        lp += s;
+        dp += s;
+      }
+      mbar_wait(raw_full(rr.st), rr.ph);
+      mbar_wait(empty(sr.st), sr.ph ^ 1);
+      const uint8_t* raw = sRaw + rr.st * 2 * TILE;
+      uint8_t* st = sStage + sr.st * STAGE;
+      split_tile<D, R, true>(raw, st, st + TILE, st + 4 * TILE,
+                             st + 5 * TILE, at);
+      split_tile<D, R, true>(raw + TILE, st + 2 * TILE, st + 3 * TILE,
+                             st + 6 * TILE, st + 7 * TILE, at);
+      if (tid < R) {
+        sL[sr.st * R + tid] = l2;
+        sD[sr.st * R + tid] = dd;
+      }
+      fence_proxy_async();  // the writes, before wgmma reads them
+      mbar_arrive(full(sr.st));
+      // every producer thread has read the raw slot: refill it
+      asm volatile("bar.sync %0, 128;\n" ::"n"(BAR_RAW) : "memory");
+      if (tid == 0 && it + RAW < n_iter) load(rr.st);
+      rr.next();
+      sr.next();
+    }
+  } else {
+    // ---- consumers: 64 keys; K, S^T, P^T, dV (1) and V, dP^T, dS^T, dK
+    // (2) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C_REGS));
+    const int cons = wg - 1, t = threadIdx.x - wg * 128;
+    const int warp = t >> 5, lane = t & 31, tq = lane & 3;
+    const int key = k0 + 16 * warp + (lane >> 2);  // rows key, key + 8
+    const int64_t kv_off = ((int64_t)bi * hkv + hk) * s * D;
+    float af[D / 8][4];
+    load_fixed<D>(af, (cons ? v : k) + kv_off, key, s, tq);
+    float out[D / 64][32];
+#pragma unroll
+    for (int hf = 0; hf < D / 64; ++hf)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) out[hf][e] = 0.f;
+    Ring<STAGES> ring;
+    int qt = qt_begin;
+    for (int it = 0; it < n_iter; ++it) {
+      const int q0 = qt * R;
+      if (++qt == qt_end) qt = qt_begin;
+      mbar_wait(full(ring.st), ring.ph);
+      const uint32_t st = smem_u32(sStage + ring.st * STAGE);
+      // S^T = K Q^T (1) or dP^T = V dO^T (2): 64 keys x R queries; entry
+      // 4 j + e is (key + 8 (e >> 1), query q0 + 8 j + 2 tq + (e & 1))
+      float acc[R / 2];
+      first_product<D, R>(acc, af, st + (cons ? 2 : 0) * TILE,
+                          st + (cons ? 3 : 1) * TILE);
+      const int buf = it & 1;
+      float2* x = sX + buf * (G::XBUF / 8) + t;
+      if (cons == 0) {
+        const float* lt = sL + ring.st * R;
+        const bool mask = causal && q0 < k0 + BM - 1;  // a query before
+#pragma unroll                                         // a key
+        for (int j = 0; j < R / 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lt + 8 * j + 2 * tq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(acc[4 * j + e], scale_log2,
+                                 -(e & 1 ? l2.y : l2.x)));
+            if (mask && key + 8 * (e >> 1) > q0 + 8 * j + 2 * tq + (e & 1))
+              p = 0.f;
+            acc[4 * j + e] = p;
+          }
+        }
+        if (it >= 2) bar_sync<BAR_FREE>(buf);
+#pragma unroll
+        for (int pi = 0; pi < R / 4; ++pi)
+          x[pi * 128] = make_float2(acc[2 * pi], acc[2 * pi + 1]);
+        bar_arrive<BAR_READY>(buf);
+      } else {
+        const float* dt = sD + ring.st * R;
+        bar_sync<BAR_READY>(buf);
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dt + 8 * j + 2 * tq);
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const float2 p = x[(2 * j + e / 2) * 128];
+            acc[4 * j + e] = p.x * (acc[4 * j + e] - d2.x);
+            acc[4 * j + e + 1] = p.y * (acc[4 * j + e + 1] - d2.y);
+          }
+        }
+        if (it + 2 < n_iter) bar_arrive<BAR_FREE>(buf);
+      }
+      // dV += P^T dO (1) or dK += dS^T Q (2) over the stage's R queries
+      uint32_t hi[R / 8][4], lo[R / 8][4];
+      a_frags<R>(acc, hi, lo);
+      second_product<R, 64, D / 64>(out, hi, lo, st + (cons ? 4 : 6) * TILE,
+                                    st + (cons ? 5 : 7) * TILE, 0);
+      if (lane == 0) mbar_arrive(empty(ring.st));
+      ring.next();
+    }
+    // dK times the scale
+    store_cols<D, 64, D / 64>((cons ? dk : dv) + kv_off, out, key, s, tq, 0,
+                              cons ? scale : 1.f);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const float* __restrict__ q, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dq, int hq, int hkv, int s, int causal,
+             float scale_log2, float scale) {
+  using G = WgGeo<D>;
+  constexpr int R = G::R, TILE = G::TILE, STAGE = 6 * TILE;
+  extern __shared__ uint8_t smem_raw[];
+  // raw slots [RAW][K, V]; stages [STAGES][K hi, lo, V hi, lo, K^T hi,
+  // lo]; exchange [2][R / 4][128] pairs
+  uint8_t* sRaw = align1024(smem_raw);
+  uint8_t* sStage = sRaw + RAW * 2 * TILE;
+  float2* sX = reinterpret_cast<float2*>(sStage + STAGES * STAGE);
+  const uint32_t bars = smem_u32(sStage + STAGES * STAGE + 2 * G::XBUF);
+  auto raw_full = [&](int i) { return bars + 8 * i; };
+  auto full = [&](int st) { return bars + 8 * (RAW + st); };
+  auto empty = [&](int st) { return bars + 8 * (RAW + STAGES + st); };
+
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;  // longest tiles first
+  const int bh = bi * hq + h, bh_kv = bi * hkv + h / (hq / hkv);
+  const int kv_end = causal ? min(s, q0 + BM) : s;
+  const int n_iter = (kv_end + R - 1) / R;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RAW; ++i) mbar_init(raw_full(i), 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 128);
+      mbar_init(empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, broadcast so that the compiler knows it is uniform in
+  // a warp: the consumers' branches are then not divergent, which made
+  // ptxas serialize the products (C7520)
+  const int wg = __shfl_sync(FULL, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(P_REGS));
+    const int tid = threadIdx.x;
+    const SplitAt at = split_at<R>(tid >> 5, tid & 31);
+    int lkt = 0;  // the next load's key tile
+    auto load = [&](int slot) {
+      const uint32_t bar = raw_full(slot);
+      uint8_t* dst = sRaw + slot * 2 * TILE;
+      mbar_expect_tx(bar, 2 * TILE);
+      for (int c = 0; c < D / 32; ++c)
+        tma_load(smem_u32(dst + c * R * 128), &tm_k, bar, c * 32, lkt * R,
+                 bh_kv);
+      for (int c = 0; c < D / 32; ++c)
+        tma_load(smem_u32(dst + TILE + c * R * 128), &tm_v, bar, c * 32,
+                 lkt * R, bh_kv);
+      ++lkt;
+    };
+    if (tid == 0)
+      for (int i = 0; i < RAW && i < n_iter; ++i) load(i);
+    Ring<RAW> rr;
+    Ring<STAGES> sr;
+    for (int it = 0; it < n_iter; ++it) {
+      mbar_wait(raw_full(rr.st), rr.ph);
+      mbar_wait(empty(sr.st), sr.ph ^ 1);
+      const uint8_t* raw = sRaw + rr.st * 2 * TILE;
+      uint8_t* st = sStage + sr.st * STAGE;
+      split_tile<D, R, true>(raw, st, st + TILE, st + 4 * TILE,
+                             st + 5 * TILE, at);
+      split_tile<D, R, false>(raw + TILE, st + 2 * TILE, st + 3 * TILE,
+                              nullptr, nullptr, at);
+      fence_proxy_async();
+      mbar_arrive(full(sr.st));
+      asm volatile("bar.sync %0, 128;\n" ::"n"(BAR_RAW) : "memory");
+      if (tid == 0 && it + RAW < n_iter) load(rr.st);
+      rr.next();
+      sr.next();
+    }
+  } else {
+    // ---- consumers: 64 rows; Q, S, P (1) and dO, dP, dS, dQ (2) ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C_REGS));
+    const int cons = wg - 1, t = threadIdx.x - wg * 128;
+    const int warp = t >> 5, lane = t & 31, tq = lane & 3;
+    const int ra = q0 + 16 * warp + (lane >> 2), rb = ra + 8;
+    const float* lp = lse + (int64_t)bh * s;
+    const float* dp = delta + (int64_t)bh * s;
+    const float la = ra < s ? lse2_of(lp[ra]) : CUDART_INF_F;
+    const float lb = rb < s ? lse2_of(lp[rb]) : CUDART_INF_F;
+    const float da = ra < s ? dp[ra] : 0.f;
+    const float db = rb < s ? dp[rb] : 0.f;
+    float af[D / 8][4];
+    load_fixed<D>(af, (cons ? dout : q) + (int64_t)bh * s * D, ra, s, tq);
+    // this consumer's half of dQ: columns cons D / 2 .. + D / 2
+    float out[1][D / 4];
+#pragma unroll
+    for (int e = 0; e < D / 4; ++e) out[0][e] = 0.f;
+    Ring<STAGES> ring;
+    for (int it = 0; it < n_iter; ++it) {
+      const int kb0 = it * R;
+      mbar_wait(full(ring.st), ring.ph);
+      const uint32_t st = smem_u32(sStage + ring.st * STAGE);
+      // S = Q K^T (1) or dP = dO V^T (2): 64 rows x R keys; entry 4 j + e
+      // is (row e < 2 ? ra : rb, key kb0 + 8 j + 2 tq + (e & 1))
+      float acc[R / 2];
+      first_product<D, R>(acc, af, st + (cons ? 2 : 0) * TILE,
+                          st + (cons ? 3 : 1) * TILE);
+      const int buf = it & 1;
+      float2* x = sX + buf * (G::XBUF / 8) + t;
+      if (cons == 0) {
+        const bool mask = kb0 + R > s || (causal && kb0 + R - 1 > q0);
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(
+                fmaf(acc[4 * j + e], scale_log2, -(e < 2 ? la : lb)));
+            if (mask) {
+              const int key = kb0 + 8 * j + 2 * tq + (e & 1);
+              if (key >= s || (causal && key > (e < 2 ? ra : rb))) p = 0.f;
+            }
+            acc[4 * j + e] = p;
+          }
+#pragma unroll
+        for (int pi = 0; pi < R / 4; ++pi)
+          x[pi * 128] = make_float2(acc[2 * pi], acc[2 * pi + 1]);
+        bar_arrive<BAR_READY>(buf);   // P written
+        bar_sync<BAR_FREE>(buf);      // dS written in its place
+#pragma unroll
+        for (int pi = 0; pi < R / 4; ++pi) {
+          const float2 v = x[pi * 128];
+          acc[2 * pi] = v.x;
+          acc[2 * pi + 1] = v.y;
+        }
+      } else {
+        bar_sync<BAR_READY>(buf);
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const float2 p = x[(2 * j + e / 2) * 128];
+            const float dd = e < 2 ? da : db;
+            acc[4 * j + e] = p.x * (acc[4 * j + e] - dd);
+            acc[4 * j + e + 1] = p.y * (acc[4 * j + e + 1] - dd);
+            x[(2 * j + e / 2) * 128] =
+                make_float2(acc[4 * j + e], acc[4 * j + e + 1]);
+          }
+        bar_arrive<BAR_FREE>(buf);
+      }
+      // dQ += dS K over the stage's R keys, this consumer's half of d
+      uint32_t hi[R / 8][4], lo[R / 8][4];
+      a_frags<R>(acc, hi, lo);
+      second_product<R, D / 2, 1>(out, hi, lo, st + 4 * TILE, st + 5 * TILE,
+                                  cons * (D / 2));
+      if (lane == 0) mbar_arrive(empty(ring.st));
+      ring.next();
+    }
+    store_cols<D, D / 2, 1>(dq + (int64_t)bh * s * D, out, ra, s, tq,
+                            cons * (D / 2), scale);
+  }
+}
+
 // ---- host side ------------------------------------------------------------
 
 template <int D>
@@ -617,14 +1323,10 @@ cudaError_t launch_dkdv(const float* q, const float* k, const float* v,
                         int hq, int hkv, int s, int causal, float scale_log2,
                         float scale, cudaStream_t stream) {
   using G = KvGeo<D>;
-  static bool ready = false;  // the shared-memory opt-in, once
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        G::SMEM);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (e != cudaSuccess) return e;
   const dim3 grid(hkv, b, (s + G::BK - 1) / G::BK);
   bwd_dkdv_kernel<D><<<grid, G::THREADS, G::SMEM, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, hq, hkv, s, causal, scale_log2,
@@ -639,17 +1341,68 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       int s, int causal, float scale_log2, float scale,
                       cudaStream_t stream) {
   using G = QGeo<D>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        G::SMEM);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (e != cudaSuccess) return e;
   const dim3 grid(hq, b, (s + G::BQ - 1) / G::BQ);
   bwd_dq_kernel<D><<<grid, G::THREADS, G::SMEM, stream>>>(
       q, k, v, dout, lse, delta, dq, hq, hkv, s, causal, scale_log2, scale);
+  return cudaGetLastError();
+}
+
+// the two tensor maps of a wgmma launch: [heads, s, D] f32 tiles of R rows
+template <int D>
+cudaError_t make_maps(CUtensorMap (&m)[2], const void* a, const void* b,
+                      int64_t heads, int s) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return cudaErrorNotSupported;
+  if (!make_map_f32(fn, &m[0], a, heads, s, D, WgGeo<D>::R) ||
+      !make_map_f32(fn, &m[1], b, heads, s, D, WgGeo<D>::R))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dkdv_wgmma(const float* q, const float* k, const float* v,
+                              const float* dout, const float* lse,
+                              const float* delta, float* dk, float* dv,
+                              int b, int hq, int hkv, int s, int causal,
+                              float scale_log2, float scale,
+                              cudaStream_t stream) {
+  using G = WgGeo<D>;
+  CUtensorMap m[2];
+  cudaError_t e = make_maps<D>(m, q, dout, (int64_t)b * hq, s);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           G::KV_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(hkv, b, (s + BM - 1) / BM);
+  bwd_dkdv_wgmma<D><<<grid, WG_THREADS, G::KV_SMEM, stream>>>(
+      m[0], m[1], k, v, lse, delta, dk, dv, hq, hkv, s, causal, scale_log2,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* delta, float* dq, int b, int hq,
+                            int hkv, int s, int causal, float scale_log2,
+                            float scale, cudaStream_t stream) {
+  using G = WgGeo<D>;
+  CUtensorMap m[2];
+  cudaError_t e = make_maps<D>(m, k, v, (int64_t)b * hkv, s);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(bwd_dq_wgmma<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           G::Q_SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(hq, b, (s + BM - 1) / BM);
+  bwd_dq_wgmma<D><<<grid, WG_THREADS, G::Q_SMEM, stream>>>(
+      m[0], m[1], q, dout, lse, delta, dq, hq, hkv, s, causal, scale_log2,
+      scale);
   return cudaGetLastError();
 }
 
@@ -679,7 +1432,8 @@ extern "C" int flash_attention_bwd_tf32_pre(const void* o, const void* dout,
 // float32, 16-byte aligned; lse, delta [b, hq, s] float32; d in {64, 128,
 // 256}; hq % hkv == 0. dk and dv are summed over each KV head's group of
 // query heads. scale_log2 = softmax scale * log2(e). Returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch (cudaErrorNotSupported without
+// cuTensorMapEncodeTiled at d 64 and 128).
 extern "C" int flash_attention_bwd_tf32_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv, int b, int hq,
@@ -694,11 +1448,13 @@ extern "C" int flash_attention_bwd_tf32_dkdv(
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
   if (d == 64)
-    return (int)launch_dkdv<64>(qf, kf, vf, of, lse, delta, dkf, dvf, b, hq,
-                                hkv, s, causal, scale_log2, scale, st);
+    return (int)launch_dkdv_wgmma<64>(qf, kf, vf, of, lse, delta, dkf, dvf,
+                                      b, hq, hkv, s, causal, scale_log2,
+                                      scale, st);
   if (d == 128)
-    return (int)launch_dkdv<128>(qf, kf, vf, of, lse, delta, dkf, dvf, b, hq,
-                                 hkv, s, causal, scale_log2, scale, st);
+    return (int)launch_dkdv_wgmma<128>(qf, kf, vf, of, lse, delta, dkf, dvf,
+                                       b, hq, hkv, s, causal, scale_log2,
+                                       scale, st);
   return (int)launch_dkdv<256>(qf, kf, vf, of, lse, delta, dkf, dvf, b, hq,
                                hkv, s, causal, scale_log2, scale, st);
 }
@@ -716,11 +1472,11 @@ extern "C" int flash_attention_bwd_tf32_dq(
   const float* of = static_cast<const float*>(dout);
   float* dqf = static_cast<float*>(dq);
   if (d == 64)
-    return (int)launch_dq<64>(qf, kf, vf, of, lse, delta, dqf, b, hq, hkv, s,
-                              causal, scale_log2, scale, st);
+    return (int)launch_dq_wgmma<64>(qf, kf, vf, of, lse, delta, dqf, b, hq,
+                                    hkv, s, causal, scale_log2, scale, st);
   if (d == 128)
-    return (int)launch_dq<128>(qf, kf, vf, of, lse, delta, dqf, b, hq, hkv, s,
-                               causal, scale_log2, scale, st);
+    return (int)launch_dq_wgmma<128>(qf, kf, vf, of, lse, delta, dqf, b, hq,
+                                     hkv, s, causal, scale_log2, scale, st);
   return (int)launch_dq<256>(qf, kf, vf, of, lse, delta, dqf, b, hq, hkv, s,
                              causal, scale_log2, scale, st);
 }

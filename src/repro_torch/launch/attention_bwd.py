@@ -1,10 +1,12 @@
 """Times the port's attention backward at a training shape on the card:
-qwen3-1.7b's (the default) or gemma-7b's, in bfloat16 (the default) or
-float32.
+qwen3-1.7b's (the default), gemma-7b's or granite-moe-1b-a400m's, in
+bfloat16 (the default) or float32.
 
     PYTHONPATH=src python src/repro_torch/launch/attention_bwd.py
     PYTHONPATH=src python src/repro_torch/launch/attention_bwd.py --shape gemma
     PYTHONPATH=src python src/repro_torch/launch/attention_bwd.py --dtype float32
+    PYTHONPATH=src python src/repro_torch/launch/attention_bwd.py \
+        --shape granite --dtype float32
 
 It reaches the port only through ``repro_torch.kernels.flash_attention``
 (``_prefill``, ``flash_attention_bwd``, ``bwd_launches`` where the tree
@@ -16,7 +18,9 @@ one call on one card, in turns (old, new, new, old).
 Shapes: a train_4k step at the per-step batch chip_smoke.py trains,
 causal: ``qwen3``, q [4, 16, 4096, 128] over k, v [4, 8, 4096, 128] (GQA
 2:1), in float32 q [2, 16, 4096, 128] (the float32 step's batch of 2);
-``gemma``, q [1, 16, 4096, 256] over 16 KV heads (the d = 256 kernels).
+``gemma``, q [1, 16, 4096, 256] over 16 KV heads (the d = 256 kernels);
+``granite``, q [8, 16, 4096, 64] over 8 KV heads (the d = 64 kernels), in
+float32 at a batch of 2 as qwen3's.
 q, k, v and dO N(0, 1) in the dtype from seed 0, o and lse from the
 forward kernel. The bound counts five products of 2 d flops per visible
 pair, at 989 TFLOP/s for bfloat16 and three times over at 495 (3xTF32)
@@ -40,8 +44,9 @@ import torch
 
 SEED = 0
 # (b, hq, hkv, s, d) of each shape
-SHAPES = {"qwen3": (4, 16, 8, 4096, 128), "gemma": (1, 16, 16, 4096, 256)}
-F32_BATCH = {"qwen3": 2}     # the float32 step's per-step batch
+SHAPES = {"qwen3": (4, 16, 8, 4096, 128), "gemma": (1, 16, 16, 4096, 256),
+          "granite": (8, 16, 8, 4096, 64)}
+F32_BATCH = {"qwen3": 2, "granite": 2}  # the float32 step's per-step batch
 # H100 SXM dense tensor peaks, data sheet: bf16, and TF32 taken three times
 FLOPS_PER_S = {"bfloat16": 989e12, "float32": 495e12 / 3}
 

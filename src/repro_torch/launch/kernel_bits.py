@@ -5,7 +5,8 @@ where the tree has its kernels) and the MoE layer on seeded inputs, on
 the card: a check that an edit to code they share (``csrc/mbarrier.cuh``,
 ``csrc/wgmma.cuh``, ``csrc/tf32x3.cuh``, the backward's wrapper and
 helpers, ``models/moe.py``) left their bits unchanged, and that the
-d = 256 backwards give the same bits when repeated.
+d = 256 backwards and the float32 backward at every d give the same bits
+when repeated.
 
     PYTHONPATH=src python src/repro_torch/launch/kernel_bits.py
     python src/repro_torch/launch/kernel_bits.py --trees build/parent/src src
@@ -32,9 +33,9 @@ shapes) and over 16 at d 256 (gemma-7b's), the latter twice (the
 granite-moe-3b-a800m's layer (d 1536, 40 experts of 512, top-8) on 8 x
 2048 bf16 tokens in 32 groups; last, where the tree has the float32
 backward (its launch keys in ``LAUNCHES``), the backward's shapes again
-in float32 with the lse of the float32 forward's training entry (drawn
-after every other input, so a tree without them hashes the same inputs
-for the rest). Prints one JSON object.
+in float32, each twice, with the lse of the float32 forward's training
+entry (drawn after every other input, so a tree without them hashes the
+same inputs for the rest). Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -57,9 +58,9 @@ def digest(t: torch.Tensor) -> str:
 
 def backward_hashes(FA, gen, dt, tag: str) -> dict:
     """The attention backward's (dq, dk, dv) hashes at [1, 16, 4096, d],
-    causal, d 64 and 128 over 8 KV heads and d 256 over 16 (twice), and
-    whether the forward's training entry (with lse) gave the serving
-    entry's output bits."""
+    causal, d 64 and 128 over 8 KV heads and d 256 over 16 (twice; in
+    float32 each d twice), and whether the forward's training entry (with
+    lse) gave the serving entry's output bits."""
     out = {}
     for d, hkv in ((64, 8), (128, 8), (256, 16)):
         q, do = (torch.randn((1, 16, 4096, d), generator=gen,
@@ -73,9 +74,9 @@ def backward_hashes(FA, gen, dt, tag: str) -> dict:
         grads = FA.flash_attention_bwd(q, k, v, o, do, lse, True)
         out[f"attention backward{tag} d{d}"] = "".join(
             digest(g) for g in grads)
-        if d == 256:
+        if d == 256 or dt == torch.float32:
             grads = FA.flash_attention_bwd(q, k, v, o, do, lse, True)
-            out[f"attention backward{tag} d256 repeat"] = "".join(
+            out[f"attention backward{tag} d{d} repeat"] = "".join(
                 digest(g) for g in grads)
     return out
 

@@ -5,14 +5,17 @@ and why the sums go into fresh fragments.
 
 The kernels' tensor-core arithmetic is the forward's (the split, the three
 products lo.hi + hi.lo + hi.hi, toward-zero accumulation; modelled in
-``tests/tf32_emulation.py``). The dK/dV kernel forms S^T = K Q^T and
-dP^T = V dO^T, every two d steps in a fresh fragment added in f32 (round
-to nearest), P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T
-(dP^T - D) in f32, then dV += P^T dO and dK += dS^T Q, each stage of BQ
-query rows in a fresh fragment added to dV or dK, over every query head
-of the GQA group in turn. The dQ kernel forms S = Q K^T and dP = dO V^T
-the same way (Q and dO as the A operands, so its products run in another
-order) and dQ += dS K, each stage of BKQ keys in a fresh fragment.
+``tests/tf32_emulation.py``), with the geometry of its ``BWD_GEOMETRY``.
+The dK/dV kernel forms S^T = K Q^T and dP^T = V dO^T, every "kg" k-steps
+of 8 in a fresh fragment added in f32 (round to nearest), P^T =
+exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T - D) in f32,
+then dV += P^T dO and dK += dS^T Q, each stage of "kv_rows" query rows
+in a fresh fragment ("kv_cols" columns of d each) added to dV or dK,
+over every query head of the GQA group in turn. The dQ kernel forms S =
+Q K^T and dP = dO V^T the same way (Q and dO as the A operands, so its
+products run in another order) and dQ += dS K, each stage of "q_keys"
+keys in a fresh fragment ("q_cols" columns each). The A operands are
+split as "a_split" says, the B operands by ``split``.
 
 Inputs: q, do [1, hq, s, d] and k, v [1, hkv, s, d] made with numpy from
 a seed, q and k scaled alike so that the largest |score| in log2 units is
@@ -23,13 +26,16 @@ tolerance is ``chip_smoke.BWD_TOL["float32"]``: |err| <= RTOL |want| +
 SHARE max |want| per output, against ``attention_bwd_ref`` in float64 on
 the same float32 inputs."""
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref
-from tf32_emulation import mma_sum, split, tf32_rna
+from tf32_emulation import (BWD_GEOMETRY, mma_sum, split, split_trunc,
+                            tf32_rna)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,10 +52,6 @@ def _one_torch_thread():
 RTOL, SHARE = 1e-4, 1e-5    # chip_smoke.BWD_TOL["float32"]
 SPAN = 60.0                 # max |score| in log2 units
 LOG2E = math.log2(math.e)
-KG = 2                      # d steps a fresh fragment of S^T, dP^T, S, dP
-# query rows a dK/dV stage and keys a dQ stage of the kernels, by d
-BQ = {64: 32, 128: 16, 256: 8}
-BKQ = {64: 32, 128: 16, 256: 8}
 GROUPS = [(4, 2), (16, 1)]  # (hq, hkv): GQA 2:1 and 16:1
 
 
@@ -58,14 +60,21 @@ def f32(x: torch.Tensor) -> torch.Tensor:
     return x.float().double()
 
 
+def split_a(x):
+    """The A operands' split at x's head dim ("a_split")."""
+    geo = BWD_GEOMETRY[x.shape[-1]]
+    return split_trunc(x) if geo["a_split"] == "trunc" else split(x)
+
+
 def over_d(a, b, fresh=True):
     """a b^T over the last axis (d) as the kernels sum it, a the A
-    operand: with ``fresh``, every KG d steps after the first in a fresh
-    fragment added in f32; without, all d steps straight through."""
-    ap, bp = split(a), split(b.transpose(-1, -2).contiguous())
+    operand: with ``fresh``, every "kg" k-steps after the first in a
+    fresh fragment added in f32; without, all d steps straight
+    through."""
+    ap, bp = split_a(a), split(b.transpose(-1, -2).contiguous())
     if not fresh:
         return mma_sum(ap, bp)
-    out, step = None, 8 * KG
+    out, step = None, 8 * BWD_GEOMETRY[a.shape[-1]]["kg"]
     for c0 in range(0, a.shape[-1], step):
         cs = slice(c0, c0 + step)
         f = mma_sum((ap[0][..., cs], ap[1][..., cs]),
@@ -74,18 +83,21 @@ def over_d(a, b, fresh=True):
     return out
 
 
-def over_tiles(a, b, tile, fresh=True):
+def over_tiles(a, b, tile, cols, a_split, fresh=True):
     """a b over a's last axis in stages of ``tile`` as the kernels sum
-    it: each stage's product in a fresh fragment added to the f32 output
-    in stage order; without ``fresh``, every stage straight into it."""
-    ap, bp = split(a), split(b)
+    it, a split as ``a_split`` does: each stage's product in fresh
+    fragments of ``cols`` of b's columns each, added to the f32 output in
+    stage order; without ``fresh``, every stage straight into it."""
+    ap, bp = a_split(a), split(b)
     if not fresh:
         return mma_sum(ap, bp)
     out = None
     for c0 in range(0, a.shape[-1], tile):
         cs = slice(c0, c0 + tile)
-        f = mma_sum((ap[0][..., cs], ap[1][..., cs]),
-                    (bp[0][..., cs, :], bp[1][..., cs, :]))
+        f = torch.cat([mma_sum((ap[0][..., cs], ap[1][..., cs]),
+                               (bp[0][..., cs, n0:n0 + cols],
+                                bp[1][..., cs, n0:n0 + cols]))
+                       for n0 in range(0, b.shape[-1], cols)], -1)
         out = f if out is None else out + f
     return out
 
@@ -103,6 +115,8 @@ def emulate(q, k, v, o, do, lse, causal, passes=3, fresh=True):
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
+    geo = BWD_GEOMETRY[d]
+    a_split = split_trunc if geo["a_split"] == "trunc" else split
     kk = k.repeat_interleave(group, 1)
     vv = v.repeat_interleave(group, 1)
     sl2 = float(np.float32(LOG2E / math.sqrt(d)))
@@ -129,11 +143,11 @@ def emulate(q, k, v, o, do, lse, causal, passes=3, fresh=True):
     def rows_of_group(x):
         """[b, hq, s, d] -> [b, hkv, group x padded s, d]: the group's
         heads end to end, as the dK/dV kernel walks them."""
-        return pad(x, -2, BQ[d]).reshape(b, hkv, -1, d)
+        return pad(x, -2, geo["kv_rows"]).reshape(b, hkv, -1, d)
 
     def cols_of_group(x):
         """[b, hq, keys, s] -> [b, hkv, keys, group x padded s]."""
-        x = pad(x, -1, BQ[d])
+        x = pad(x, -1, geo["kv_rows"])
         return x.reshape(b, hkv, group, *x.shape[2:]).permute(
             0, 1, 3, 2, 4).reshape(b, hkv, x.shape[2], -1)
 
@@ -145,14 +159,17 @@ def emulate(q, k, v, o, do, lse, causal, passes=3, fresh=True):
     a_v, a_k = cols_of_group(pt), cols_of_group(dst)
     b_v, b_k = rows_of_group(do), rows_of_group(q)
     if passes == 3:
-        dv = over_tiles(a_v, b_v, BQ[d], fresh)
-        dk = over_tiles(a_k, b_k, BQ[d], fresh)
+        dv = over_tiles(a_v, b_v, geo["kv_rows"], geo["kv_cols"], a_split,
+                        fresh)
+        dk = over_tiles(a_k, b_k, geo["kv_rows"], geo["kv_cols"], a_split,
+                        fresh)
     else:
         dv, dk = one_pass(a_v, b_v), one_pass(a_k, b_k)
     # the dQ kernel: S and dP with Q and dO the A operands
     _, ds = p_and_ds(prod_d(q, kk), prod_d(do, vv))
-    ds, kp = pad(ds, -1, BKQ[d]), pad(kk, -2, BKQ[d])
-    dq = (over_tiles(ds, kp, BKQ[d]) if passes == 3 else one_pass(ds, kp))
+    ds, kp = pad(ds, -1, geo["q_keys"]), pad(kk, -2, geo["q_keys"])
+    dq = (over_tiles(ds, kp, geo["q_keys"], geo["q_cols"], a_split)
+          if passes == 3 else one_pass(ds, kp))
     return (f32(dq.double() * scale).float(), f32(dk.double() * scale).float(),
             dv)
 
@@ -235,3 +252,55 @@ def test_dv_dk_summed_straight_through_the_tensor_core_drift():
     print(f"dk, dv worst ratio: fresh {ratios[0]}, straight {ratios[1]}")
     assert ratios[0] <= 0.5
     assert ratios[1] > 1.0
+
+
+SOURCE = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+          / "csrc" / "flash_attention_bwd_tf32.cu")
+
+
+def source_geometry(d: int) -> dict:
+    """The geometry the kernel source sets at head dim d, read from its
+    constants: KG; at d 64 and 128 the wgmma kernels' R = 2048 / d rows a
+    stage, the N of a fresh fragment of dV and dK (64) and of dQ (d / 2),
+    and whether split_a passes the raw value as hi; at d 256 KvCfg's BQ,
+    QCfg's BKQ and NG d steps of 8 a fragment group (the mma.sync kernels
+    split both operands with tf32x3.cuh's split)."""
+    src = SOURCE.read_text()
+
+    def const(pattern):
+        return int(re.search(pattern, src).group(1))
+
+    kg = const(r"constexpr int KG = (\d+);")
+    if d == 256:
+        cols = 8 * const(r"constexpr int NG = (\d+);")
+        return {"kg": kg,
+                "kv_rows": const(r"struct KvCfg<256> \{\s*static constexpr "
+                                 r"int NW = \d+, BQ = (\d+)"),
+                "q_keys": const(r"struct QCfg<256> \{\s*static constexpr "
+                                r"int NW = \d+, BKQ = (\d+)"),
+                "kv_cols": cols, "q_cols": cols, "a_split": "rna"}
+    rows = const(r"static constexpr int R = (\d+) / D;") // d
+    raw_hi = ("hi = __float_as_uint(x);" in src
+              and "split_a(x[e], h[e], l[e])" in src)
+    q_cols = d // const(r"second_product<R, D / (\d+), 1>\(out,")
+    return {"kg": kg, "kv_rows": rows, "q_keys": rows,
+            "kv_cols": const(r"second_product<R, (\d+), D / \d+>\(out,"),
+            "q_cols": q_cols, "a_split": "trunc" if raw_hi else "rna"}
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_emulated_geometry_is_the_kernels(d):
+    """BWD_GEOMETRY, which the emulation above runs, is what the kernel
+    source sets."""
+    assert BWD_GEOMETRY[d] == source_geometry(d)
+
+
+def test_products_table_is_the_sources():
+    """flash_attention.BWD_PRODUCTS["float32"], which chip_smoke.py's
+    timed check reads, is the products line of the kernel's header."""
+    from repro_torch.kernels import flash_attention as FA
+    line = re.search(r"products \(dK/dV, dQ\) by d: (.*)",
+                     SOURCE.read_text()).group(1)
+    got = {int(d): tuple(int(x) for x in pair.split(","))
+           for d, pair in (part.split(":") for part in line.split(";"))}
+    assert FA.BWD_PRODUCTS["float32"] == got

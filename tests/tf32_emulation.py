@@ -11,6 +11,29 @@ studies of NVIDIA tensor cores describe them: exact products, their sum
 added to the f32 accumulator rounding toward zero."""
 import torch
 
+# The float32 attention backward kernels' geometry
+# (csrc/flash_attention_bwd_tf32.cu), by head dim, which
+# tests/test_torch_tf32_bwd_split.py emulates: "kg", the k-steps of 8 of
+# S^T, dP^T, S and dP that go into one fresh fragment (the source's KG);
+# "kv_rows", the query rows of a dK/dV stage, and "q_keys", the keys of a
+# dQ stage, each stage's P^T dO, dS^T Q or dS K a fresh fragment added to
+# dV, dK or dQ (R = 2048 / d on wgmma at d 64 and 128; BQ and BKQ of
+# KvCfg<256> and QCfg<256> on mma.sync at d 256); "kv_cols" and
+# "q_cols", the columns of d that one such fragment of dV, dK and of dQ
+# spans (on wgmma N = 64 halves of dV and dK and one consumer's half of
+# dQ; on mma.sync NG = 4 d steps of 8); "a_split", how the A operands (K,
+# V, Q, dO in the first products; P^T, dS^T, dS in the second) are split:
+# "rna" as ``split``, "trunc" as ``split_trunc`` (the wgmma kernels pass
+# the raw value as hi). The B operands are always split by ``split``.
+BWD_GEOMETRY = {
+    64: {"kg": 2, "kv_rows": 32, "q_keys": 32, "kv_cols": 64, "q_cols": 32,
+         "a_split": "trunc"},
+    128: {"kg": 2, "kv_rows": 16, "q_keys": 16, "kv_cols": 64,
+          "q_cols": 64, "a_split": "trunc"},
+    256: {"kg": 2, "kv_rows": 8, "q_keys": 8, "kv_cols": 32, "q_cols": 32,
+          "a_split": "rna"},
+}
+
 # the low 29 of a float64's 52 fraction bits: clearing them leaves a
 # value with float32's 23, the float32 rounding toward zero
 _F64_BELOW_F32 = ~((1 << 29) - 1)
@@ -32,6 +55,14 @@ def split(x: torch.Tensor):
     """The kernels' split: hi exact in TF32, lo as the tensor core reads
     the f32 residual."""
     hi = tf32_rna(x)
+    return hi, tf32_read(x - hi)
+
+
+def split_trunc(x: torch.Tensor):
+    """The split of an operand passed raw as hi: the tensor core reads it
+    truncated, and lo = x - trunc(x) (exact in f32) is read truncated
+    too."""
+    hi = tf32_read(x)
     return hi, tf32_read(x - hi)
 
 
