@@ -166,10 +166,14 @@ Phases, each printing its wall time:
              against its plain version in float64 on the captured inputs
              and timed beside SDPA's float32 backward (each backend
              forced, to name the one PyTorch picks), with the forward's
-             time with and without its lse; the float32 backward at
-             gemma-7b's attention shape (q, k, v [1, 16, 4096, 256] from
-             --seed, causal) held and timed the same way; a 2-layer
-             float32 step through the kernels against the plain one;
+             time with and without its lse; then gemma-7b trained in
+             float32 at full width and the most layers whose step of 1 x
+             4096 fits (about 8 of 28), a warm-up step capturing the
+             backward's inputs of its first and last layer, 2 timed steps
+             (the same launch rule; step p50, tokens/s, peak), its
+             backward (d = 256: the cluster of two CTAs) held and timed
+             the same way on the captured inputs; a 2-layer qwen3 float32
+             step through the kernels against the plain one;
 10b2. train_moe  granite-moe-1b-a400m and granite-moe-3b-a800m trained
              the same way at full width and depth (24 and 32 layers, 32
              and 40 experts, top-8, 32 routing groups; the loss ce + 0.01
@@ -2834,8 +2838,8 @@ def bwd_products(q) -> dict:
     """The products the dK/dV and dQ kernels issue, in units of one of
     the bound's five (``flash_attention.BWD_PRODUCTS``, as the sources'
     headers give them): bf16 six and four (P and dS as hi + lo parts);
-    float32 four and three (3xTF32 each, counted in the bound), ten and
-    five at d = 256 (S^T and dP^T on four warps, S and dP on two)."""
+    float32 four and three (3xTF32 each, counted in the bound; at d = 256
+    each CTA of a pair issues half of each over its half of d)."""
     from repro_torch.kernels import flash_attention as FA
     dkdv, dq = FA.BWD_PRODUCTS[dtype_name(q)][q.shape[-1]]
     return {"dkdv": dkdv, "dq": dq}
@@ -3384,7 +3388,8 @@ def train_lm(torch, seed, arch, dev, timed_steps, profile=False):
             out["adamw_ms"] = cuda_ms(
                 torch, lambda: adamw_update(state, grads, arch.opt), reps=3,
                 warmup=1)
-        out.update(labels=batch["labels"], captured=captured, p50=p50)
+        out.update(labels=batch["labels"], captured=captured, p50=p50,
+                   tokens_per_s=tokens / p50, peak=peak)
         del model, state, batches, batch
         torch.cuda.empty_cache()
     return out
@@ -3484,9 +3489,7 @@ def run_train_phase(torch, seed, profile=False, device="cuda"):
 
 
 F32_TRAIN_TIMED_STEPS = 4
-# (b, hq, hkv, s, d) of gemma-7b's attention in a train_4k step: the
-# float32 backward's d = 256 kernels, timed in phase train_f32
-GEMMA_F32_SHAPE = (1, 16, 16, 4096, 256)
+GEMMA_F32_TIMED_STEPS = 2
 # the float32 train step's attention launches: these keys each launch,
 # the bf16 kernels' keys never
 F32_TRAIN_KERNELS = ("flash_attention_tf32", "flash_attention_bwd_tf32_pre",
@@ -3498,34 +3501,50 @@ BF16_ATTENTION_KERNELS = ("flash_attention_wgmma", "flash_attention_bwd_pre",
                           "flash_attention_bwd256_dq")
 
 
-def run_train_f32_phase(torch, seed, profile=False, device="cuda"):
-    """qwen3-1.7b trained in float32 on the card at full width and depth
-    (28 layers, d_model 2048, 16/8 heads of 128, vocab 151,936; its config
-    with dtype float32, as ``run_serve_f32`` builds its model) through
-    ``train_lm``: float32 weights from ``seed``, train_4k at the largest
-    batch ``train_bytes`` fits, one warm-up step capturing the backward's
-    inputs of layers 0 and 27, then ``F32_TRAIN_TIMED_STEPS`` timed
-    steps, whose launches must include every key of ``F32_TRAIN_KERNELS``
-    and none of ``BF16_ATTENTION_KERNELS``; the float32 backward
-    (csrc/flash_attention_bwd_tf32.cu) held against its plain version in
-    float64 on the captured inputs, layer 0 timed beside SDPA's float32
-    backward, and again at gemma-7b's attention shape (``GEMMA_F32_SHAPE``,
-    d = 256, inputs from ``seed``; its numbers under "gemma_shape"); one
-    2-layer float32 step through the kernels against the plain step. With
-    ``profile`` the step under torch.profiler. Returns (launch counts of
-    the timed steps, the backward's numbers)."""
-    from repro_torch.configs import get_arch
-    dev = torch.device(device)
-    arch = get_arch("qwen3-1.7b")
-    arch = dataclasses.replace(arch, cfg=dataclasses.replace(
+def in_float32(arch):
+    """The arch with its config's dtype float32, as the reference trains
+    its float32 configs."""
+    return dataclasses.replace(arch, cfg=dataclasses.replace(
         arch.cfg, dtype="float32"))
-    run = train_lm(torch, seed, arch, dev, F32_TRAIN_TIMED_STEPS, profile)
-    counts = run["counts"]
+
+
+def hold_f32_launches(label, counts) -> None:
+    """A float32 train run's launches include every key of
+    ``F32_TRAIN_KERNELS`` and none of ``BF16_ATTENTION_KERNELS``."""
     wrong = ([k for k in F32_TRAIN_KERNELS if not counts[k]]
              + [k for k in BF16_ATTENTION_KERNELS if counts[k]])
     if wrong:
-        raise AssertionError(f"qwen3-1.7b float32 train steps: launches "
-                             f"{counts}; wrong for {wrong}")
+        raise AssertionError(f"{label}: launches {counts}; wrong for "
+                             f"{wrong}")
+
+
+def run_train_f32_phase(torch, seed, profile=False, device="cuda"):
+    """LM training in float32 on the card (each config with dtype float32,
+    as ``run_serve_f32`` builds its model) through ``train_lm``: float32
+    weights from ``seed``, train_4k at the largest batch ``train_bytes``
+    fits, one warm-up step capturing the attention backward's inputs of
+    the first and last layer, then timed steps whose launches must
+    include every key of ``F32_TRAIN_KERNELS`` and none of
+    ``BF16_ATTENTION_KERNELS``; the float32 backward
+    (csrc/flash_attention_bwd_tf32.cu) held against its plain version in
+    float64 on the captured inputs, layer 0 timed beside SDPA's float32
+    backward. First qwen3-1.7b at full width and depth (28 layers,
+    d_model 2048, 16/8 heads of 128, vocab 151,936; the d = 128 kernels),
+    ``F32_TRAIN_TIMED_STEPS`` steps; then gemma-7b at full width (d_model
+    3072, 16 heads of 256, GeGLU of 24,576, vocab 256,000) and the most
+    layers whose float32 step of one 4096-token sequence fits
+    (``train_depth``), ``GEMMA_F32_TIMED_STEPS`` steps (the d = 256
+    kernels, a cluster of two CTAs; numbers under "gemma"); last one
+    2-layer qwen3 float32 step through the kernels against the plain
+    step. With ``profile`` each step under torch.profiler. Returns
+    (launch counts of the timed steps, the backward's numbers)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    dev = torch.device(device)
+    run = train_lm(torch, seed, in_float32(get_arch("qwen3-1.7b")), dev,
+                   F32_TRAIN_TIMED_STEPS, profile)
+    counts = run["counts"]
+    hold_f32_launches("qwen3-1.7b float32 train steps", counts)
     measured = hold_captured_bwd(torch, "qwen3-1.7b float32",
                                  run["captured"])
     q, k, v, o, do, lse = run["captured"][0]
@@ -3533,16 +3552,20 @@ def run_train_f32_phase(torch, seed, profile=False, device="cuda"):
                                                           do, True)
     del run, q, k, v, o, do, lse
     torch.cuda.empty_cache()
-    b, hq, hkv, s, d = GEMMA_F32_SHAPE
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev)
-             for _ in range(2))
-    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev)
-            for _ in range(2))
-    measured["gemma_shape"] = check_attention_bwd(
-        torch, f"gemma-7b shape float32 attention backward {list(q.shape)} "
-        f"over {list(k.shape)}", q, k, v, do, True, timed=True)
-    del q, k, v, do
+    arch = in_float32(get_arch("gemma-7b"))
+    seq = arch.input_sizes("train_4k")["tokens"][1]
+    layers = train_depth(torch, arch.cfg, seq)
+    print(f"gemma-7b float32: {layers} of its {arch.cfg.n_layers} layers "
+          f"fit one step of 1 x {seq} in 90% of the card", flush=True)
+    run = train_lm(torch, seed, train.cut_layers(arch, layers), dev,
+                   GEMMA_F32_TIMED_STEPS, profile)
+    hold_f32_launches("gemma-7b float32 train steps", run["counts"])
+    add_counts(counts, run["counts"])
+    gemma = hold_captured_bwd(torch, "gemma-7b float32", run["captured"])
+    gemma.update(layers=layers, batch=run["batch"], step_p50_s=run["p50"],
+                 tokens_per_s=run["tokens_per_s"], peak_bytes=run["peak"])
+    measured["gemma"] = gemma
+    del run
     torch.cuda.empty_cache()
     check_train_step_plain(torch, seed, device, dtype="float32")
     torch.cuda.empty_cache()

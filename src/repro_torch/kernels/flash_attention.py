@@ -22,8 +22,9 @@ stem of ``bwd_stem``: bfloat16 at d in {64, 128}
 ``flash_attention_bwd`` (wgmma and TMA, pre pass
 ``flash_attention_bwd_pre``), bfloat16 at d = 256
 ``flash_attention_bwd256`` (wgmma and TMA; the same pre pass), float32
-at every d ``flash_attention_bwd_tf32`` (3xTF32: on wgmma at d 64 and
-128, on mma.sync at d 256; pre pass ``flash_attention_bwd_tf32_pre``).
+at every d ``flash_attention_bwd_tf32`` (3xTF32 on wgmma: one CTA a tile
+at d 64 and 128, a cluster of two CTAs that split d at d 256; pre pass
+``flash_attention_bwd_tf32_pre``).
 On the CPU the same Function runs ``attention_lse_ref`` and
 ``attention_bwd_ref``. The reference has no
 Pallas backward (it trains through its XLA attention); the kernels
@@ -72,10 +73,9 @@ BWD_HEAD_DIMS = (64, 128, 256)
 # the products the backward's (dK/dV, dQ) kernels issue, in units of one
 # of the five its bound counts, by dtype and head dim, as their sources'
 # headers give them: bf16 P and dS enter as hi + lo parts; float32 is
-# 3xTF32 (counted in the bound), and at d = 256 several warps compute the
-# same S^T and dP^T (S and dP)
+# 3xTF32 (counted in the bound)
 BWD_PRODUCTS = {"bfloat16": {64: (6, 4), 128: (6, 4), 256: (6, 4)},
-                "float32": {64: (4, 3), 128: (4, 3), 256: (10, 5)}}
+                "float32": {64: (4, 3), 128: (4, 3), 256: (4, 3)}}
 SM_COUNT = 132             # the H100's streaming multiprocessors
 DECODE_CTAS_PER_SM = 2     # split CTAs resident per SM (96 KB rings)
 

@@ -35,7 +35,8 @@ granite-moe-3b-a800m's layer (d 1536, 40 experts of 512, top-8) on 8 x
 backward (its launch keys in ``LAUNCHES``), the backward's shapes again
 in float32, each twice, with the lse of the float32 forward's training
 entry (drawn after every other input, so a tree without them hashes the
-same inputs for the rest). Prints one JSON object.
+same inputs for the rest), and that entry's output and lse at each shape
+and dtype. Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -59,8 +60,8 @@ def digest(t: torch.Tensor) -> str:
 def backward_hashes(FA, gen, dt, tag: str) -> dict:
     """The attention backward's (dq, dk, dv) hashes at [1, 16, 4096, d],
     causal, d 64 and 128 over 8 KV heads and d 256 over 16 (twice; in
-    float32 each d twice), and whether the forward's training entry (with
-    lse) gave the serving entry's output bits."""
+    float32 each d twice), the forward's training entry (its output and
+    lse), and whether it gave the serving entry's output bits."""
     out = {}
     for d, hkv in ((64, 8), (128, 8), (256, 16)):
         q, do = (torch.randn((1, 16, 4096, d), generator=gen,
@@ -71,6 +72,7 @@ def backward_hashes(FA, gen, dt, tag: str) -> dict:
         o = FA._prefill(q, k, v, True, lse)
         out[f"forward{tag} d{d} with lse as served"] = str(
             torch.equal(o, FA._prefill(q, k, v, True, None)))
+        out[f"forward{tag} d{d} with lse"] = digest(o) + digest(lse)
         grads = FA.flash_attention_bwd(q, k, v, o, do, lse, True)
         out[f"attention backward{tag} d{d}"] = "".join(
             digest(g) for g in grads)

@@ -13,25 +13,27 @@ import torch
 
 # The float32 attention backward kernels' geometry
 # (csrc/flash_attention_bwd_tf32.cu), by head dim, which
-# tests/test_torch_tf32_bwd_split.py emulates: "kg", the k-steps of 8 of
-# S^T, dP^T, S and dP that go into one fresh fragment (the source's KG);
-# "kv_rows", the query rows of a dK/dV stage, and "q_keys", the keys of a
-# dQ stage, each stage's P^T dO, dS^T Q or dS K a fresh fragment added to
-# dV, dK or dQ (R = 2048 / d on wgmma at d 64 and 128; BQ and BKQ of
-# KvCfg<256> and QCfg<256> on mma.sync at d 256); "kv_cols" and
-# "q_cols", the columns of d that one such fragment of dV, dK and of dQ
-# spans (on wgmma N = 64 halves of dV and dK and one consumer's half of
-# dQ; on mma.sync NG = 4 d steps of 8); "a_split", how the A operands (K,
-# V, Q, dO in the first products; P^T, dS^T, dS in the second) are split:
-# "rna" as ``split``, "trunc" as ``split_trunc`` (the wgmma kernels pass
-# the raw value as hi). The B operands are always split by ``split``.
+# tests/test_torch_tf32_bwd_split.py emulates: "cta_cols", the columns of
+# d one CTA holds (d at 64 and 128; at 256 a cluster of two CTAs each sums
+# its 128 columns of S^T, dP^T, S and dP as below and the two partials are
+# added once in f32); "kg", the k-steps of 8 of S^T, dP^T, S and dP that
+# go into one fresh fragment within a CTA (the source's KG); "kv_rows",
+# the query rows of a dK/dV stage, and "q_keys", the keys of a dQ stage,
+# each stage's P^T dO, dS^T Q or dS K a fresh fragment added to dV, dK or
+# dQ (R = 2048 / cta_cols); "kv_cols" and "q_cols", the columns of d that
+# one such fragment of dV, dK and of dQ spans (N = 64 blocks of dV and dK,
+# one consumer's half of a CTA's dQ columns); "a_split", how the A
+# operands (K, V, Q, dO in the first products; P^T, dS^T, dS in the
+# second) are split: "rna" as ``split``, "trunc" as ``split_trunc`` (the
+# kernels pass the raw value as hi). The B operands are always split by
+# ``split``.
 BWD_GEOMETRY = {
-    64: {"kg": 2, "kv_rows": 32, "q_keys": 32, "kv_cols": 64, "q_cols": 32,
-         "a_split": "trunc"},
-    128: {"kg": 2, "kv_rows": 16, "q_keys": 16, "kv_cols": 64,
-          "q_cols": 64, "a_split": "trunc"},
-    256: {"kg": 2, "kv_rows": 8, "q_keys": 8, "kv_cols": 32, "q_cols": 32,
-          "a_split": "rna"},
+    64: {"cta_cols": 64, "kg": 2, "kv_rows": 32, "q_keys": 32,
+         "kv_cols": 64, "q_cols": 32, "a_split": "trunc"},
+    128: {"cta_cols": 128, "kg": 2, "kv_rows": 16, "q_keys": 16,
+          "kv_cols": 64, "q_cols": 64, "a_split": "trunc"},
+    256: {"cta_cols": 128, "kg": 2, "kv_rows": 16, "q_keys": 16,
+          "kv_cols": 64, "q_cols": 64, "a_split": "trunc"},
 }
 
 # the low 29 of a float64's 52 fraction bits: clearing them leaves a
