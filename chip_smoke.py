@@ -209,6 +209,26 @@ Phases, each printing its wall time:
              beside scatter_reduce; a 2-layer gatedgcn step through the
              kernel against the plain one (loss 1e-6 relative, gradients
              1e-4 of scale); crash and resume of gatedgcn at 2 layers;
+10d. tools  the port's CLIs and the examples' launchers:
+             ``python -m repro_torch.analysis --corpus`` (exit 0, no
+             violation); ``repro_torch.observe``'s monitor demo at 2**20
+             nodes in host mode, in device mode, with 4 updates and with
+             2 shards, each with --trace (schema and required spans) and
+             --check, its views held against scipy's BFS, and --check in
+             a process of its own that leaves CUDA uninitialised;
+             launch/quickstart.py on the card against the same launcher
+             on the CPU; launch/program_analysis.py (Andersen points-to,
+             the FlowLog and the no-opt plan) at TOOLS_N_VARS variables,
+             both plans' pt equal to a dense boolean-matrix fixpoint on
+             the card, no grow retry (wall, iterations, peak, facts and
+             launches per plan); launch/train_lm.py --full (about 100M
+             parameters, bf16, d = 64) for 40 steps at 8 x 128 (the loss
+             falls, step p50, the bf16 forward and the d = 64 backward
+             launched), and SMALL (d = 32) raising the kernels' head-dim
+             error on the card; launch/gnn_relational.py, 120 steps (the
+             loss falls; the first step's loss within 1e-6 relative of
+             the launcher's on the CPU from the same parameters) and the
+             sampler's subgraph;
 11. launches each kernel's launch count over the host-mode runs of
              phases 5, 6, 9, 9b, 10, 10b, 10b1, 10b2, 10b3 and 10c (each
              counted
@@ -216,8 +236,11 @@ Phases, each printing its wall time:
              before it), and apart the engine kernels' calls in phases 7 and 8,
              in phase durable (a kernel inside a captured graph once
              per capture, so a memo hit adds nothing) and in the sharded
-             engines' runs of phase sharded (every shard's launches); a
-             zero in any fails.
+             engines' runs of phase sharded (every shard's launches),
+             and phase 10d's own ("tools_launches" in the kernels line;
+             each tool counted from 0 just before it); a zero in any
+             fails (in 10d, of the probe, the segment reduce, the bf16
+             forward or the d = 64 backward).
 
 With ``--profile``, each of Reach, CC and SSSP in host and in device
 mode, the serve prefill, four decode steps, the float32 prefill,
@@ -251,8 +274,11 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -4101,8 +4127,309 @@ def run_gnn_phase(torch, seed, profile=False, device="cuda"):
     return counts, measured
 
 
+# -- phase tools: the CLIs and the examples' launchers -----------------------
+
+# Andersen's variables: the top step of the ladder 2**10 .. 2**13 that fit
+# the card with the FlowLog plan under 30 s (PERF.md section 4)
+TOOLS_N_VARS = 1 << 11
+TOOLS_OBSERVE_SIZE = 1 << 20     # the monitor demo's nodes
+TOOLS_OBSERVE_RUNS = (("host", ["--mode", "host"]),
+                      ("device", ["--mode", "device"]),
+                      ("updates", ["--updates", "4"]),
+                      ("shards", ["--shards", "2"]))
+TOOLS_LM_STEPS = 40              # train_lm --full at its 8 x 128
+TOOLS_GNN_STEPS = 120            # gnn_relational's default
+TOOLS_DIR = ROOT / "build" / "tools"
+GNN_LOSS_RTOL = 1e-6             # the gnn phase's step gate
+
+
+def captured_stdout(fn, *args):
+    """(fn's result, what it printed)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    return result, out.getvalue()
+
+
+def sorted_rows(np, a):
+    a = np.asarray(a, np.int64)
+    return a[np.lexsort(a.T[::-1])] if len(a) else a
+
+
+def monitor_reference(np, edbs, n):
+    """The monitor demo's views over ``edbs`` by scipy's BFS: the nodes
+    reached from the monitor, their hop counts, and the link sources not
+    reached."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+    links = np.asarray(edbs["link"], np.int64)
+    g = sp.csr_matrix((np.ones(len(links)), (links[:, 0], links[:, 1])),
+                      shape=(n, n))
+    source = int(edbs["monitor"][0, 0])
+    dist = shortest_path(g, directed=True, unweighted=True, indices=source)
+    reach = np.flatnonzero(np.isfinite(dist))
+    return {"reaches": reach[:, None],
+            "pathlen": np.stack([reach, dist[reach].astype(np.int64)], 1),
+            "dark": np.setdiff1d(np.unique(links[:, 0]), reach)[:, None]}
+
+
+def hold_relations(np, label, got, want):
+    for rel in want:
+        g, w = sorted_rows(np, got[rel]), sorted_rows(np, want[rel])
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{label}: {rel} has {len(g)} rows, "
+                                 f"{len(w)} wanted, or other rows")
+    print(f"{label}: " + ", ".join(f"{rel} {len(want[rel])}" for rel in want)
+          + " rows, equal to the reference", flush=True)
+
+
+def dense_points_to(torch, edbs, n, dev):
+    """Andersen's pt as a boolean-matrix fixpoint on the card, independent
+    of the engine: P <- A | Asg P | L P P | P^T S P until it is fixed,
+    each product a ``torch.matmul`` of 0/1 bf16 matrices (float32
+    accumulation; every term is a sum of non-negative integers, so its
+    rounding never turns a positive sum into 0). -> (sorted (p, x) rows,
+    iterations)."""
+    def matrix(rows):
+        m = torch.zeros((n, n), dtype=torch.bfloat16, device=dev)
+        idx = torch.from_numpy(rows.astype("int64")).to(dev)
+        m[idx[:, 0], idx[:, 1]] = 1
+        return m
+
+    def boolean(x):
+        return (x > 0).to(torch.bfloat16)
+    a, asg, ld, st = (matrix(edbs[k]) for k in
+                      ("addr", "assign", "load", "store"))
+    p, iters = a, 0
+    while True:
+        iters += 1
+        nxt = boolean(a + asg @ p + boolean(ld @ p) @ p
+                      + boolean(p.T @ st) @ p)
+        if torch.equal(nxt, p):
+            return torch.nonzero(p).cpu().numpy(), iters
+        p = nxt
+
+
+def step_clock(torch, dev, times):
+    """An ``on_step`` callback appending each step's seconds to ``times``
+    (the first from the call that made the clock)."""
+    last = [time.perf_counter()]
+
+    def tick(_i):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        last[0] = now
+    return tick
+
+
+def tools_counts(totals, label, counts):
+    """Adds a tool's launches to the phase's and prints them."""
+    add_counts(totals, counts)
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"{label}: launches {json.dumps(launched)}", flush=True)
+
+
+def run_tools_observe(torch, dev, totals, size):
+    """``python -m repro_torch.observe --demo monitor`` at ``size`` nodes
+    in host mode, device mode, with 4 updates and with 2 shards: each
+    through the CLI's run and report with ``--trace`` (schema and required
+    spans), then ``--check`` on the file; each run's views held against
+    scipy over the EDBs they were derived from. ``--check`` also in a
+    process of its own, which must leave CUDA uninitialised."""
+    import numpy as np
+    from repro_torch import observe
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    device = dev.type
+    for label, flags in TOOLS_OBSERVE_RUNS:
+        path = TOOLS_DIR / f"trace_{label}.json"
+        args = observe.parse_args(["--demo", "monitor", "--size", str(size),
+                                   "--device", device, "--trace", str(path)]
+                                  + flags)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        obs, out, edbs = observe.run_demo(args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        rc, printed = captured_stdout(observe.report, args, obs)
+        if rc != 0 or "schema ok" not in printed:
+            raise AssertionError(f"observe {label}: rc {rc}\n{printed}")
+        if label == "host":     # the fixpoint report's iteration table
+            print(printed.split("-- rules")[0].rstrip(), flush=True)
+        trace = json.loads(path.read_text())
+        errs = observe.trace_errors(trace, args.mode)
+        rc, checked = captured_stdout(observe.main, ["--check", str(path)])
+        if errs or rc != 0:
+            raise AssertionError(f"observe {label}: trace {errs}, --check "
+                                 f"rc {rc}: {checked}")
+        print(f"observe monitor {label} at {size} nodes: {wall:.3f} s; "
+              f"{printed.strip().splitlines()[-1]}; --check: "
+              f"{checked.strip()}", flush=True)
+        hold_relations(np, f"observe monitor {label}", out,
+                       monitor_reference(np, edbs, size))
+        tools_counts(totals, f"observe monitor {label}", counts)
+    code = ("import sys, torch\n"
+            "from repro_torch.observe import main\n"
+            f"rc = main(['--check', {str(TOOLS_DIR / 'trace_host.json')!r}])\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "sys.exit(rc)\n")
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if done.returncode != 0:
+        raise AssertionError(f"observe --check in its own process: "
+                             f"{done.stdout}{done.stderr}")
+    print(f"observe --check in its own process, CUDA left uninitialised: "
+          f"{done.stdout.strip()}", flush=True)
+
+
+def run_tools_andersen(torch, dev, totals, n_vars):
+    """``launch/program_analysis.py`` at ``n_vars``: both plans, their pt
+    byte-equal and equal to the dense fixpoint on the device, no grow
+    retry."""
+    import numpy as np
+    from repro_torch.launch import program_analysis as PA
+    results = PA.main(["--n-vars", str(n_vars), "--device", dev.type])
+    t0 = time.perf_counter()
+    dense, iters = dense_points_to(torch, PA.synthesize_program(n_vars),
+                                   n_vars, dev)
+    print(f"andersen dense fixpoint ({n_vars} x {n_vars} 0/1 bf16 "
+          f"matmuls): {len(dense)} facts, {iters} iterations, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for label, (pt, stats, peak, launches) in results.items():
+        if stats.grow_retries:
+            raise AssertionError(f"andersen {label}: {stats.grow_retries} "
+                                 f"grow retries at {stats.effective_caps}")
+        if not np.array_equal(sorted_rows(np, pt), dense):
+            raise AssertionError(f"andersen {label}: {len(pt)} pt facts, "
+                                 f"not the dense fixpoint's {len(dense)}")
+        print(f"andersen {label}: wall {stats.wall_s:.4f} s, "
+              f"{stats.total_iterations} iterations, peak "
+              f"{peak} B, {len(pt)} pt facts equal to the dense "
+              f"fixpoint, no grow retry, probe {launches.get('probe', 0)} "
+              f"segment_reduce {launches.get('segment_reduce', 0)} "
+              f"probe_multi {launches.get('probe_multi', 0)} launches",
+              flush=True)
+        add_counts(totals, launches)
+
+
+def run_tools_train_lm(torch, dev, totals, steps):
+    """``launch/train_lm.py --full`` (bf16, d = 64) for ``steps`` steps
+    at 8 x 128: the loss falls, step p50; SMALL (d = 32) must raise the
+    kernels' head-dim error on the card."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train_lm as TL
+    times = []
+    reset_launch_counts()
+    losses = TL.train(TL.FULL_100M, steps, 8, 128, dev,
+                      on_step=step_clock(torch, dev, times))
+    counts = launch_counts()
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train_lm --full: losses {losses}")
+    print(f"train_lm --full ({TL.FULL_100M.param_count()} parameters, bf16, "
+          f"8 x 128): loss {losses[0]} -> {losses[-1]} over {steps} steps; "
+          f"step p50 {float(np.median(times[1:])) * 1e3:.4f} ms (first step "
+          f"{times[0] * 1e3:.1f} ms with the model's build)", flush=True)
+    tools_counts(totals, "train_lm --full", counts)
+    if dev.type == "cuda":
+        need = ("flash_attention_wgmma", "flash_attention_bwd_pre",
+                "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+        if not all(counts.get(k) for k in need):
+            raise AssertionError(f"train_lm --full launched {counts}")
+        try:
+            TL.main(["--steps", "1"])
+        except ValueError as e:
+            if "head dim 32" not in str(e):
+                raise
+            print(f"train_lm SMALL on the card raises, as it must: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("train_lm SMALL (d = 32) ran on the card")
+
+
+def run_tools_gnn(torch, dev, totals, steps):
+    """``launch/gnn_relational.py``: ``steps`` steps, the loss falls; the
+    first step's loss against the same launcher on the CPU from the same
+    parameters; the sampler's subgraph."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import gnn_relational as GR
+    from repro_torch.training.optim import tree_map
+    arch = get_arch("gat-cora")
+    params = arch.init_fn(arch.config(GR.SHAPE, True),
+                          torch.Generator(dev).manual_seed(0))
+    on_cpu = tree_map(lambda t: t.detach().cpu().clone(), params)
+    times = []
+    reset_launch_counts()
+    losses = GR.train(steps, dev, params=params,
+                      on_step=step_clock(torch, dev, times))
+    counts = launch_counts()
+    first_cpu = GR.train(1, torch.device("cpu"), params=on_cpu)[0]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"gnn_relational: losses {losses}")
+    if abs(losses[0] - first_cpu) > GNN_LOSS_RTOL * abs(first_cpu):
+        raise AssertionError(f"gnn_relational: first loss {losses[0]} on "
+                             f"the card, {first_cpu} on the CPU")
+    sub = GR.sample_subgraph(GR.graph())
+    print(f"gnn_relational: loss {losses[0]} -> {losses[-1]} over {steps} "
+          f"steps (first step on the CPU {first_cpu}); step p50 "
+          f"{float(np.median(times[1:])) * 1e3:.4f} ms; sampled subgraph "
+          f"{sub['n_nodes']} nodes, {sub['n_edges']} edges for 8 seeds",
+          flush=True)
+    tools_counts(totals, "gnn_relational", counts)
+    if dev.type == "cuda" and not counts.get("segment_reduce"):
+        raise AssertionError(f"gnn_relational launched {counts}")
+
+
+def run_tools_phase(torch, seed, device="cuda", n_vars=TOOLS_N_VARS,
+                    size=TOOLS_OBSERVE_SIZE, lm_steps=TOOLS_LM_STEPS,
+                    gnn_steps=TOOLS_GNN_STEPS):
+    """The port's CLIs and the examples' launchers (``repro_torch.analysis``,
+    ``.observe``, ``.launch.{quickstart, program_analysis, train_lm,
+    gnn_relational}``) on the card. Returns their launch counts."""
+    import numpy as np
+    from repro_torch import analysis
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import quickstart
+    dev = torch.device(device)
+    totals = {}
+    rc, printed = captured_stdout(analysis.main, ["--corpus"])
+    if rc != 0 or "clean: 0 violation(s) total" not in printed:
+        raise AssertionError(f"analysis --corpus: rc {rc}\n{printed}")
+    print(f"analysis --corpus: {printed.count('== ')} programs; "
+          f"{printed.strip().splitlines()[-1]}", flush=True)
+
+    run_tools_observe(torch, dev, totals, size)
+
+    reset_launch_counts()
+    card, _ = captured_stdout(quickstart.main, ["--device", device])
+    counts = launch_counts()
+    host, printed = captured_stdout(quickstart.main, ["--device", "cpu"])
+    for run in ("batch", "updated"):
+        hold_relations(np, f"quickstart {run} on {device}", card[run],
+                       host[run])
+    tools_counts(totals, "quickstart", counts)
+
+    run_tools_andersen(torch, dev, totals, n_vars)
+    run_tools_train_lm(torch, dev, totals, lm_steps)
+    run_tools_gnn(torch, dev, totals, gnn_steps)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    if dev.type == "cuda":
+        for k in ("probe", "segment_reduce", "flash_attention_wgmma",
+                  "flash_attention_bwd_dkdv"):
+            if not totals.get(k):
+                raise AssertionError(f"phase tools never launched {k}")
+    return totals
+
+
 # the MoE phase's models and greedy tokens; 8 requests of 2048 tokens
-MOE_SERVES = (("granite-moe-3b-a800m", 64), ("granite-moe-1b-a400m", 16))
+MOE_SERVES =(("granite-moe-3b-a800m", 64), ("granite-moe-1b-a400m", 16))
 
 KERNELS = [
     ("merge_probe", "probe", "src/repro_torch/csrc/merge_probe.cu",
@@ -4251,6 +4578,8 @@ def main(argv=None) -> int:
         gnn_counts, measured["segment_reduce_gnn"] = run_gnn_phase(
             torch, args.seed, args.profile)
         add_counts(totals, gnn_counts)
+    with phase("tools"):
+        tools = run_tools_phase(torch, args.seed)
     with phase("launches"):
         print("kernels " + json.dumps(totals), flush=True)
         print("kernels captured in device mode " + json.dumps(captured),
@@ -4259,6 +4588,7 @@ def main(argv=None) -> int:
               flush=True)
         print("kernels of the sharded engines " + json.dumps(
             {k: sharded.get(k, 0) for k in ENGINE_KERNELS}), flush=True)
+        print("kernels of phase tools " + json.dumps(tools), flush=True)
         missing = [k for k, v in totals.items() if v == 0]
         missing += [f"{k} (device mode)" for k in ENGINE_KERNELS
                     if not captured.get(k)]
@@ -4272,7 +4602,8 @@ def main(argv=None) -> int:
     entries = []
     for name, count_key, source, replaces, also in KERNELS:
         e = {"name": name, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": totals[count_key]}
+             "replaces": replaces, "launches": totals[count_key],
+             "tools_launches": tools.get(count_key, 0)}
         if count_key in ENGINE_KERNELS:
             e["captured_launches"] = captured[count_key]
             e["durable_launches"] = durable.get(count_key, 0)
