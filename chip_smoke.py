@@ -24,7 +24,11 @@ Phases, each printing its wall time:
              types, decode over a 32768-position cache, each decode run
              twice for the same bits), timed beside their bounds and
              scaled_dot_product_attention, with the prefill and decode
-             kernels' ptxas registers and spills;
+             kernels' ptxas registers and spills; then every attention
+             kernel at head dims 16 and 32 (q [8, 4, 2048, d] over 2 KV
+             heads in bf16 and float32: the prefill, the backward with
+             the forward's lse, the decode over an [8, 2, 32768, d]
+             cache), each against its plain version and timed;
 5. engine    Reach, CC and SSSP with the port's Engine on the card over a
              Graph500 Kronecker graph (scale 22, edge factor 16, A, B, C =
              0.57, 0.19, 0.19), each checked against scipy.sparse.csgraph
@@ -117,6 +121,10 @@ Phases, each printing its wall time:
              the kernels against the plain attention with the kernel
              run's expert choices replayed (tokens equal, logits within
              1e-3 of scale);
+9c. serve_large  chatglm3-6b (GQA 16:1) and gemma-7b (d = 256) served at
+             full width and depth (28 layers each) the way of phase
+             serve, 16 greedy tokens (chatglm3's end to end gated in
+             float32, F32_END_TO_END);
 10. recsys   the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
              row table, random weights from --seed): the interaction kernel
              against its plain version at the reference's kernel-test
@@ -189,6 +197,15 @@ Phases, each printing its wall time:
              d = 256 backward held against its plain version on the
              step's captured inputs and timed beside SDPA's backward
              (and each SDPA backend forced, which names the one it picks);
+10b4. train_chatglm  chatglm3-6b at full width and train_depth's layers
+             at 1 x 4096 the same way, its d = 128 backward at GQA 16:1
+             (64 dK/dV CTAs) held and timed on the captured inputs;
+10b5. smoke  the reference's five smoke configs (float32; head dims 16
+             and 32): each served (tokens equal to the plain run's, the
+             captured attention inputs held to the plain versions), one
+             train step against the plain step (STEP_TOL["float32"]) and
+             8 steps on one batch whose loss falls; qwen3's and gemma's
+             cast to bf16, one step each against the plain step;
 10c. gnn    the four GNNs trained at full width and depth through
              launch/train.py's pieces (float32, TF32 off, deterministic
              algorithms on), each on the largest shape one card holds,
@@ -224,23 +241,26 @@ Phases, each printing its wall time:
              launches per plan); launch/train_lm.py --full (about 100M
              parameters, bf16, d = 64) for 40 steps at 8 x 128 (the loss
              falls, step p50, the bf16 forward and the d = 64 backward
-             launched), and SMALL (d = 32) raising the kernels' head-dim
-             error on the card; launch/gnn_relational.py, 120 steps (the
+             launched), and SMALL (float32, d = 32) the same way (the
+             3xTF32 forward and the float32 backward launched);
+             launch/gnn_relational.py, 120 steps (the
              loss falls; the first step's loss within 1e-6 relative of
              the launcher's on the CPU from the same parameters) and the
              sampler's subgraph;
 11. launches each kernel's launch count over the host-mode runs of
-             phases 5, 6, 9, 9b, 10, 10b, 10b1, 10b2, 10b3 and 10c (each
-             counted
-             from 0 just
-             before it), and apart the engine kernels' calls in phases 7 and 8,
+             phases 5, 6, 9, 9b, 9c, 10, 10b to 10b5 and 10c (each
+             counted from 0 just before it; 10b5's also by head dim,
+             "smoke_launches_by_head_dim"), and apart the engine kernels'
+             calls in phases 7 and 8,
              in phase durable (a kernel inside a captured graph once
              per capture, so a memo hit adds nothing) and in the sharded
              engines' runs of phase sharded (every shard's launches),
              and phase 10d's own ("tools_launches" in the kernels line;
              each tool counted from 0 just before it); a zero in any
              fails (in 10d, of the probe, the segment reduce, the bf16
-             forward or the d = 64 backward).
+             forward or the d = 64 backward; in 10b5, at head dim 16 or
+             32, of the decode, the float32 forward and backward or the
+             bf16 forward and d <= 128 backward).
 
 With ``--profile``, each of Reach, CC and SSSP in host and in device
 mode, the serve prefill, four decode steps, the float32 prefill,
@@ -1987,6 +2007,62 @@ def run_attention_checks(torch, seed, dev):
                         f"hkv=8 S=32768 kv_len {{1, 10923, 32767, 32768}}",
                         q, k, v, kv_len=kv_len)
         del q, k, v
+    return run_small_head_dims(torch, rnd, kv_len)
+
+
+# the shape at which each attention kernel's head dims 16 and 32 are
+# timed: q [8, 4, 2048, d] over 2 KV heads (causal), decode over an
+# [8, 2, 32768, d] cache at the ragged lengths above
+SMALL_D_SHAPE = (8, 4, 2, 2048)
+SMALL_DIMS = (16, 32)
+# the kernel line's names of the attention kernels, by (kind, dtype)
+SMALL_D_KERNELS = {("prefill", "bfloat16"): "flash_attention_wgmma",
+                   ("prefill", "float32"): "flash_attention",
+                   ("decode", "bfloat16"): "flash_decode",
+                   ("decode", "float32"): "flash_decode",
+                   ("backward", "bfloat16"): "flash_attention_bwd",
+                   ("backward", "float32"): "flash_attention_bwd_tf32"}
+
+
+def run_small_head_dims(torch, rnd, kv_len):
+    """Every attention kernel at head dims 16 and 32 (the reference's
+    smoke configs and train_lm's SMALL), in bf16 and float32, at
+    ``SMALL_D_SHAPE``: the prefill (``check_attention``), the decode over
+    ragged lengths, and the backward with the forward's lse
+    (``check_attention_bwd``: lse, pre, dK/dV and dQ), each held to its
+    plain version under the unchanged tolerances and timed beside its
+    bound and SDPA. Returns {kernel line name: {"head_dim_<d>"
+    (+ "_<dtype>" for the decode, which serves both): numbers}}."""
+    b, hq, hkv, s = SMALL_D_SHAPE
+    S = 32768
+    out = {}
+
+    def keep(kind, dtype, d, numbers):
+        name = SMALL_D_KERNELS[(kind, dtype)]
+        key = f"head_dim_{d}" + (f"_{dtype}" if kind == "decode" else "")
+        out.setdefault(name, {})[key] = numbers
+
+    for d in SMALL_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            q = rnd((b, hq, s, d), dtype)
+            k, v = rnd((b, hkv, s, d), dtype), rnd((b, hkv, s, d), dtype)
+            keep("prefill", name, d, check_attention(
+                torch, f"flash_attention {name} d={d} b={b} hq={hq} "
+                f"hkv={hkv} sq=skv={s} causal", q, k, v))
+            do = rnd((b, hq, s, d), dtype)
+            keep("backward", name, d, check_attention_bwd(
+                torch, f"attention backward {name} d={d} b={b} hq={hq} "
+                f"hkv={hkv} s={s} causal", q, k, v, do, True, timed=True))
+            del q, k, v, do
+            q = rnd((b, hq, d), dtype)
+            k, v = rnd((b, hkv, S, d), dtype), rnd((b, hkv, S, d), dtype)
+            keep("decode", name, d, check_attention(
+                torch, f"flash_decode {name} d={d} b={b} hq={hq} hkv={hkv} "
+                f"S={S} kv_len {{1, 10923, 32767, 32768}}", q, k, v,
+                kv_len=kv_len))
+            del q, k, v
+    return out
 
 
 @contextlib.contextmanager
@@ -2254,7 +2330,8 @@ def moe_routing(torch, M, replay=None):
 
 
 def check_moe_float32(torch, model, prompts, tag):
-    """The float32 end to end of a MoE model: 2 x 96 prompt tokens and 2
+    """The float32 end to end of a MoE model (or of a dense one of
+    ``F32_END_TO_END``, which routes nothing): 2 x 96 prompt tokens and 2
     greedy steps through the kernels and again through the plain
     attention. In float32 and not bfloat16, because routing is discrete:
     a bfloat16 rounding difference (about 4e-3) between the kernels and
@@ -2393,7 +2470,8 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
     if cfg.moe is None:
         # a short run through the kernels against the same run through
         # the plain versions: the same greedy token, logits within 2e-2
-        # of scale
+        # of scale (F32_END_TO_END's configs: the same tokens here, and
+        # the logits gate in float32 below)
         short = prompts[:2, :96]
         a = serve.generate(model, short, 2)
         with attention_swapped(FA, FA.flash_attention_plain,
@@ -2404,7 +2482,8 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
         print(f"serve reference (2 x 96 tokens, 2 steps): tokens "
               f"{a.tokens.tolist()} vs plain {b.tokens.tolist()}, logits "
               f"max abs diff {diff} of scale {scale}", flush=True)
-        if not (np.array_equal(a.tokens, b.tokens) and diff <= 2e-2 * scale):
+        if not (np.array_equal(a.tokens, b.tokens) and (
+                diff <= 2e-2 * scale or arch in F32_END_TO_END)):
             raise AssertionError("serve: kernels and plain versions "
                                  "disagree")
         del a, b
@@ -2425,17 +2504,19 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
                 torch.cuda.synchronize()
         profile_run(torch, f"{tag} 4 decode steps", steps, moe)
         del cache
-    if cfg.moe is not None:
+    if cfg.moe is not None or arch in F32_END_TO_END:
         # the served weights again from the seed (serve.build's draw),
         # cast to float32
-        router = model.layers[0].moe_weights["router"].clone()
+        first = (model.layers[0].moe_weights["router"] if cfg.moe
+                 else model.embed).clone()
         del model
         torch.cuda.empty_cache()
         dev = torch.device(device)
         tree = T.tree_map(lambda w: w.float(), T.init_params(
             cfg, torch.Generator(dev).manual_seed(seed), dev))
-        if not torch.equal(tree["layers"]["moe"]["router"][0],
-                           router.float()):
+        again = (tree["layers"]["moe"]["router"][0] if cfg.moe
+                 else tree["embed"])
+        if not torch.equal(again, first.float()):
             raise AssertionError(f"{tag}: the float32 copy is not the "
                                  f"served weights")
         model = T.Transformer(dataclasses.replace(cfg, dtype="float32"),
@@ -2448,6 +2529,14 @@ def run_serve_phase(torch, seed, requests=8, prompt_len=2048,
 
 
 F32_LAYERS, F32_REQUESTS, F32_PROMPT_LEN, F32_GEN_TOKENS = 28, 8, 2048, 8
+# dense configs whose end to end is gated in float32 (``check_moe_float32``
+# with the served weights cast), as a MoE model's is: chatglm3-6b's bf16
+# runs through the kernels and through the plain versions give the same
+# tokens, but over 28 layers their logits drift by bf16 roundings to
+# 0.0959 of a scale of 4.6875 (2.05%), over the 2% that qwen3 and gemma
+# hold (PERF.md), while its kernels hold ATTN_TOL on the captured
+# inputs of layers 0 and 27
+F32_END_TO_END = ("chatglm3-6b",)
 
 
 def run_serve_f32(torch, seed, profile=False):
@@ -2831,14 +2920,16 @@ TRAIN_TIMED_STEPS = 6
 FM_TIMED_STEPS = 20
 TRAIN_DIR = ROOT / "build" / "train"     # the resume check's checkpoints
 # the adversarial shapes of the attention backward, run in bfloat16 and
-# in float32: (b, hq, hkv, s, d, causal): head dims 64, 128 and 256, GQA
+# in float32: (b, hq, hkv, s, d, causal): head dims 16 to 256, GQA
 # 1:1, 2:1, 8:1 and 16:1, causal and not, s of 77 (a ragged tile), 128,
 # 129, 300 and 4096
 BWD_SHAPES = [(1, 16, 8, 4096, 128, True), (2, 16, 16, 128, 128, False),
               (1, 32, 2, 77, 128, True), (2, 8, 8, 77, 64, False),
               (1, 16, 8, 4096, 64, True), (1, 16, 1, 128, 64, True),
               (1, 4, 2, 4096, 128, False), (2, 8, 4, 77, 256, False),
-              (1, 16, 2, 300, 256, True), (1, 4, 4, 129, 256, True)]
+              (1, 16, 2, 300, 256, True), (1, 4, 4, 129, 256, True),
+              (2, 4, 2, 77, 16, True), (1, 16, 1, 129, 16, False),
+              (2, 8, 4, 300, 32, False), (1, 8, 8, 4096, 32, True)]
 
 
 def dtype_name(t) -> str:
@@ -3133,9 +3224,11 @@ STEP_TOL = {"bfloat16": dict(loss=2e-3, gnorm=1e-2, grad=2e-2, nu=4e-2,
 
 def check_train_step_plain(torch, seed, device="cuda",
                            arch_name="qwen3-1.7b", seq=None,
-                           dtype="bfloat16"):
+                           dtype="bfloat16", smoke=False):
     """One train_4k step of an LM at full width and 2 layers, B = 1 (of
-    ``seq`` tokens, default 4096), its config in ``dtype``, through the
+    ``seq`` tokens, default 4096), or with ``smoke`` of its smoke config
+    (2 layers, head dim 16 or 32) at the smoke batch of 4 x 128, its
+    config in ``dtype``, through the
     kernels and through the plain versions (the same autograd Function on
     attention_lse_ref and attention_bwd_ref), from the same weights and
     batch, held to ``STEP_TOL`` of the dtype. bfloat16: loss and ce
@@ -3164,15 +3257,17 @@ def check_train_step_plain(torch, seed, device="cuda",
     from repro_torch.training.optim import (
         schedule, train_state_init, tree_leaves)
     arch = train.cut_layers(get_arch(arch_name), 2)
-    arch = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg,
-                                                             dtype=dtype))
+    which = "smoke_cfg" if smoke else "cfg"
+    arch = dataclasses.replace(arch, **{which: dataclasses.replace(
+        getattr(arch, which), dtype=dtype)})
     tol = STEP_TOL[dtype]
     dev = torch.device(device)
     out, recorded = {}, None
     for route in ("kernels", "plain"):
-        model = train.build_model(arch, False, dev, seed)
+        model = train.build_model(arch, smoke, dev, seed)
         state = train_state_init(model.param_tree())
-        batch = next(train.make_batches(arch, "train_4k", False, dev, 1))
+        batch = next(train.make_batches(arch, "train_4k", smoke, dev,
+                                        None if smoke else 1))
         if seq is not None:
             batch = {k: t[:, :seq].contiguous() for k, t in batch.items()}
         swap = (attention_swapped(FA, FA.attention_plain_autograd,
@@ -3181,7 +3276,8 @@ def check_train_step_plain(torch, seed, device="cuda",
         routing = (contextlib.nullcontext() if not arch.cfg.moe
                    else moe_routing(torch, M, replay=recorded))
         with train.deterministic(dev), swap, routing as log:
-            state, m = arch.step_fn("train_4k")(model, state, batch)
+            state, m = arch.step_fn("train_4k", smoke=smoke)(model, state,
+                                                             batch)
         if arch.cfg.moe and route == "kernels":
             recorded = log
         elif arch.cfg.moe:
@@ -3199,8 +3295,8 @@ def check_train_step_plain(torch, seed, device="cuda",
         torch.cuda.empty_cache()
     (mk, gk, pk, muk, nuk), (mp, gp, pp, mup, nup) = (out["kernels"],
                                                       out["plain"])
-    label = (f"{arch_name} {dtype} train step, 2 layers, kernels against "
-             f"plain")
+    label = (f"{arch_name}{' smoke' if smoke else ''} {dtype} train step, "
+             f"2 layers, kernels against plain")
     for k, rel in (("loss", tol["loss"]), ("ce", tol["loss"]),
                    ("gnorm", tol["gnorm"])):
         a, b = float(mk[k]), float(mp[k])
@@ -3661,6 +3757,177 @@ def run_gemma_train_phase(torch, seed, profile=False, device="cuda"):
     del run, q, k, v, o, do, lse
     torch.cuda.empty_cache()
     return counts, measured
+
+
+def run_chatglm_train_phase(torch, seed, profile=False, device="cuda"):
+    """chatglm3-6b trained on the card at full width (d_model 4096, 32
+    query heads over 2 KV heads of 128, SwiGLU of 13,696, vocab 65,024)
+    and the most layers whose step of one 4096-token sequence fits
+    (``train_depth``), through the wgmma forward and the d = 128 backward
+    (csrc/flash_attention_bwd.cu) at GQA 16:1: each dK/dV CTA walks 16
+    query heads, and b hkv s / 128 = 64 CTAs cover the 132 SMs. The
+    backward is held against its plain version on the step's captured
+    inputs and timed beside SDPA's. Returns (launch counts of the timed
+    steps, the backward's numbers with the run's)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    dev = torch.device(device)
+    arch = get_arch("chatglm3-6b")
+    seq = arch.input_sizes("train_4k")["tokens"][1]
+    layers = train_depth(torch, arch.cfg, seq)
+    print(f"chatglm3-6b: {layers} of its {arch.cfg.n_layers} layers fit one "
+          f"step of 1 x {seq} in 90% of the card", flush=True)
+    run = train_lm(torch, seed, train.cut_layers(arch, layers), dev,
+                   CHATGLM_TIMED_STEPS, profile)
+    need = ("flash_attention_wgmma", "flash_attention_bwd_pre",
+            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+    if not all(run["counts"][k] for k in need):
+        raise AssertionError(f"chatglm3-6b train steps launched "
+                             f"{run['counts']}")
+    measured = hold_captured_bwd(torch, "chatglm3-6b", run["captured"])
+    q, k, v, o, do, lse = run["captured"][0]
+    measured["library_backends"] = sdpa_backward_backends(torch, q, k, v,
+                                                          do, True)
+    measured.update(layers=layers, batch=run["batch"],
+                    step_p50_s=run["p50"], tokens_per_s=run["tokens_per_s"],
+                    peak_bytes=run["peak"])
+    counts = run["counts"]
+    del run, q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+    return counts, measured
+
+
+CHATGLM_TIMED_STEPS = 4
+# the full-depth bf16 serves of the configs the card had only trained or
+# checked (8 requests of 2048 tokens, as qwen3's serve), greedy tokens
+LARGE_SERVES = (("chatglm3-6b", 16), ("gemma-7b", 16))
+
+# -- phase smoke: the reference's smoke configs (head dims 16 and 32) -------
+
+SMOKE_ARCHS = ("qwen3-1.7b", "gemma-7b", "chatglm3-6b",
+               "granite-moe-1b-a400m", "granite-moe-3b-a800m")
+SMOKE_BF16 = ("qwen3-1.7b", "gemma-7b")     # also a bf16 step each
+SMOKE_REQUESTS, SMOKE_PROMPT_LEN, SMOKE_GEN_TOKENS = 4, 128, 8
+SMOKE_TRAIN_STEPS = 8
+
+
+def run_smoke_serve(torch, seed, arch, device="cuda"):
+    """``arch``'s smoke config (float32; head dim 16 or 32) served through
+    repro_torch.launch.serve: ``SMOKE_REQUESTS`` prompts of
+    ``SMOKE_PROMPT_LEN`` tokens, ``SMOKE_GEN_TOKENS`` greedy tokens. A
+    capturing run keeps the first and last layer's attention inputs at the
+    prefill and at the last decode step, held to the plain versions
+    (``check_captured``); the counted run launches the prefill kernel once
+    a layer and the decode kernels once a layer and step; the same run
+    through the plain versions must give the same tokens. Returns (launch
+    counts of the counted run, the head dim)."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    model, cfg = serve.build(arch, True, device, seed)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(SMOKE_REQUESTS, SMOKE_PROMPT_LEN))
+    L, n = cfg.n_layers, SMOKE_GEN_TOKENS
+    tag = f"{cfg.name} (head dim {cfg.hd}, {cfg.dtype})"
+    with attention_captured(FA, L, n) as captured:
+        serve.generate(model, prompts, n)
+    check_captured(torch, captured, tag)
+    captured.clear()
+    reset_launch_counts()
+    g = serve.generate(model, prompts, n)
+    counts = launch_counts()
+    prefill = ("flash_attention_wgmma" if cfg.dtype == "bfloat16"
+               else "flash_attention_tf32")
+    want = {prefill: L, "flash_decode": L * n, "flash_decode_combine": L * n}
+    got = {k: counts[k] for k in want}
+    if got != want and device == "cuda":
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+    with attention_swapped(FA, FA.flash_attention_plain,
+                           FA.flash_decode_plain):
+        p = serve.generate(model, prompts, n)
+    diff = float((g.logits.float() - p.logits.float()).abs().max())
+    scale = float(p.logits.float().abs().max())
+    print(f"{tag} served {SMOKE_REQUESTS} x {SMOKE_PROMPT_LEN} tokens, "
+          f"{n} greedy: tokens {g.tokens.tolist()}; the plain run's "
+          f"{'equal' if np.array_equal(g.tokens, p.tokens) else 'DIFFER'}; "
+          f"logits max abs diff {diff} of scale {scale}; launches {got}",
+          flush=True)
+    if not (np.array_equal(g.tokens, p.tokens)
+            and bool(torch.isfinite(g.logits.float()).all())):
+        raise AssertionError(f"{tag}: the kernels' tokens are not the "
+                             f"plain run's")
+    del model, g, p
+    return counts, cfg.hd
+
+
+def run_smoke_steps(torch, seed, arch_name, device="cuda",
+                    steps=SMOKE_TRAIN_STEPS):
+    """``steps`` train_4k steps of ``arch_name``'s smoke config (float32)
+    through the kernels on one step-seeded smoke batch (4 x 128), taken
+    again each step, so that the loss must fall; every float32 attention
+    kernel (the 3xTF32 forward with its lse, the backward's three) and
+    none of the bf16 ones launches. Returns (launch counts, losses)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.training.optim import train_state_init
+    dev = torch.device(device)
+    arch = get_arch(arch_name)
+    model = train.build_model(arch, True, dev, seed)
+    state = train_state_init(model.param_tree())
+    batch = next(train.make_batches(arch, "train_4k", True, dev))
+    step = arch.step_fn("train_4k", smoke=True)
+    losses = []
+    reset_launch_counts()
+    with train.deterministic(dev):
+        for _ in range(steps):
+            state, m = step(model, state, batch)
+            losses.append(float(m["loss"]))
+    counts = launch_counts()
+    print(f"{arch.smoke_cfg.name} (head dim {arch.smoke_cfg.hd}) {steps} "
+          f"steps on one smoke batch: loss {losses[0]} -> {losses[-1]} "
+          f"({losses})", flush=True)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch_name} smoke: losses {losses}")
+    if dev.type == "cuda":
+        hold_f32_launches(f"{arch_name} smoke train steps", counts)
+    del model, state
+    return counts, losses
+
+
+def run_smoke_phase(torch, seed, device="cuda"):
+    """The reference's five smoke configs on the card, as the port's
+    configs give them (float32; qwen3-1.7b at head dim 16, gemma-7b at 32,
+    chatglm3-6b at 16 with rotary on half of d, both granites at 16):
+    each served (``run_smoke_serve``), one float32 train step held to the
+    plain step (``check_train_step_plain``, ``STEP_TOL["float32"]``), and
+    ``SMOKE_TRAIN_STEPS`` steps whose loss falls (``run_smoke_steps``);
+    qwen3's and gemma's configs cast to bf16 take one step against the
+    plain step too. Returns (launch counts of the counted runs, the same
+    by head dim)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    totals, by_dim = {}, {}
+    for arch in SMOKE_ARCHS:
+        counts, hd = run_smoke_serve(torch, seed, arch, device)
+        add_counts(totals, counts)
+        add_counts(by_dim.setdefault(hd, {}), counts)
+        check_train_step_plain(torch, seed, device, arch, dtype="float32",
+                               smoke=True)
+        counts, _ = run_smoke_steps(torch, seed, arch, device)
+        add_counts(totals, counts)
+        add_counts(by_dim[hd], counts)
+    for arch in SMOKE_BF16:
+        reset_launch_counts()   # the kernel route's step; the plain one
+        check_train_step_plain(torch, seed, device, arch,   # launches none
+                               dtype="bfloat16", smoke=True)
+        counts = launch_counts()
+        add_counts(totals, counts)
+        add_counts(by_dim[get_arch(arch).smoke_cfg.hd], counts)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return totals, by_dim
 
 
 def fm_step_bounds(torch, model, ids) -> dict:
@@ -4318,38 +4585,37 @@ def run_tools_andersen(torch, dev, totals, n_vars):
 
 
 def run_tools_train_lm(torch, dev, totals, steps):
-    """``launch/train_lm.py --full`` (bf16, d = 64) for ``steps`` steps
-    at 8 x 128: the loss falls, step p50; SMALL (d = 32) must raise the
-    kernels' head-dim error on the card."""
+    """``launch/train_lm.py``: ``--full`` (bf16, d = 64) and the default
+    SMALL (float32, d = 32: the 3xTF32 forward with its lse and the
+    float32 backward at head dim 32), each ``steps`` steps at 8 x 128:
+    the loss falls; step p50; SMALL's d = 32 launches."""
     import numpy as np
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train_lm as TL
-    times = []
-    reset_launch_counts()
-    losses = TL.train(TL.FULL_100M, steps, 8, 128, dev,
-                      on_step=step_clock(torch, dev, times))
-    counts = launch_counts()
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        raise AssertionError(f"train_lm --full: losses {losses}")
-    print(f"train_lm --full ({TL.FULL_100M.param_count()} parameters, bf16, "
-          f"8 x 128): loss {losses[0]} -> {losses[-1]} over {steps} steps; "
-          f"step p50 {float(np.median(times[1:])) * 1e3:.4f} ms (first step "
-          f"{times[0] * 1e3:.1f} ms with the model's build)", flush=True)
-    tools_counts(totals, "train_lm --full", counts)
-    if dev.type == "cuda":
-        need = ("flash_attention_wgmma", "flash_attention_bwd_pre",
-                "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
-        if not all(counts.get(k) for k in need):
-            raise AssertionError(f"train_lm --full launched {counts}")
-        try:
-            TL.main(["--steps", "1"])
-        except ValueError as e:
-            if "head dim 32" not in str(e):
-                raise
-            print(f"train_lm SMALL on the card raises, as it must: {e}",
-                  flush=True)
-        else:
-            raise AssertionError("train_lm SMALL (d = 32) ran on the card")
+    need = {"full": ("flash_attention_wgmma", "flash_attention_bwd_pre",
+                     "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"),
+            "small": F32_TRAIN_KERNELS}
+    for which, cfg in (("full", TL.FULL_100M), ("small", TL.SMALL)):
+        label = "train_lm --full" if which == "full" else "train_lm SMALL"
+        times = []
+        reset_launch_counts()
+        losses = TL.train(cfg, steps, 8, 128, dev,
+                          on_step=step_clock(torch, dev, times))
+        counts = launch_counts()
+        if not all(math.isfinite(x) for x in losses) or (
+                losses[-1] >= losses[0]):
+            raise AssertionError(f"{label}: losses {losses}")
+        print(f"{label} ({cfg.param_count()} parameters, {cfg.dtype}, head "
+              f"dim {cfg.hd}, 8 x 128): loss {losses[0]} -> {losses[-1]} "
+              f"over {steps} steps; step p50 "
+              f"{float(np.median(times[1:])) * 1e3:.4f} ms (first step "
+              f"{times[0] * 1e3:.1f} ms with the model's build); launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        tools_counts(totals, label, counts)
+        if dev.type == "cuda" and not all(counts.get(k) for k in need[which]):
+            raise AssertionError(f"{label} launched {counts}")
+        if dev.type == "cuda" and which == "small":
+            hold_f32_launches(label, counts)
 
 
 def run_tools_gnn(torch, dev, totals, steps):
@@ -4526,7 +4792,8 @@ def main(argv=None) -> int:
         measured = run_kernel_checks(torch, args.seed, torch.device("cuda"))
         torch.cuda.empty_cache()
     with phase("attention"):
-        run_attention_checks(torch, args.seed, torch.device("cuda"))
+        small_d = run_attention_checks(torch, args.seed,
+                                       torch.device("cuda"))
         torch.cuda.empty_cache()
     totals, captured, durable, sharded = run_engine_phases(
         torch, args.seed, args.scale, args.profile)
@@ -4548,6 +4815,13 @@ def main(argv=None) -> int:
                 torch, args.seed, gen_tokens=gen_tokens, arch=arch,
                 profile=args.profile and arch == MOE_SERVES[0][0])
             for name, numbers in moe_measured.items():
+                measured[name][arch] = numbers
+            add_counts(totals, counts)
+    with phase("serve_large"):
+        for arch, gen_tokens in LARGE_SERVES:
+            counts, large_measured = run_serve_phase(
+                torch, args.seed, gen_tokens=gen_tokens, arch=arch)
+            for name, numbers in large_measured.items():
                 measured[name][arch] = numbers
             add_counts(totals, counts)
     with phase("recsys"):
@@ -4574,6 +4848,13 @@ def main(argv=None) -> int:
         counts, measured["flash_attention_bwd256"] = run_gemma_train_phase(
             torch, args.seed, args.profile)
         add_counts(totals, counts)
+    with phase("train_chatglm"):
+        counts, measured["flash_attention_bwd"]["chatglm3-6b"] = (
+            run_chatglm_train_phase(torch, args.seed, args.profile))
+        add_counts(totals, counts)
+    with phase("smoke"):
+        counts, smoke_by_dim = run_smoke_phase(torch, args.seed)
+        add_counts(totals, counts)
     with phase("gnn"):
         gnn_counts, measured["segment_reduce_gnn"] = run_gnn_phase(
             torch, args.seed, args.profile)
@@ -4589,6 +4870,12 @@ def main(argv=None) -> int:
         print("kernels of the sharded engines " + json.dumps(
             {k: sharded.get(k, 0) for k in ENGINE_KERNELS}), flush=True)
         print("kernels of phase tools " + json.dumps(tools), flush=True)
+        print("kernels of phase smoke by head dim " + json.dumps(
+            smoke_by_dim), flush=True)
+        small_missing = [f"{k} (smoke, head dim {d})" for d in SMALL_DIMS
+                         for k in ("flash_decode", "flash_decode_combine")
+                         + F32_TRAIN_KERNELS + BF16_ATTENTION_KERNELS[:4]
+                         if not smoke_by_dim.get(d, {}).get(k)]
         missing = [k for k, v in totals.items() if v == 0]
         missing += [f"{k} (device mode)" for k in ENGINE_KERNELS
                     if not captured.get(k)]
@@ -4596,6 +4883,7 @@ def main(argv=None) -> int:
                     if not durable.get(k)]
         missing += [f"{k} (sharded)" for k in ENGINE_KERNELS
                     if not sharded.get(k)]
+        missing += small_missing
         if missing or set(totals) != set(launch_counts()):
             raise AssertionError(f"kernels never launched on the main "
                                  f"path: {missing}")
@@ -4609,6 +4897,10 @@ def main(argv=None) -> int:
             e["durable_launches"] = durable.get(count_key, 0)
             e["sharded_launches"] = sharded.get(count_key, 0)
         e.update(measured[name])
+        e.update(small_d.get(name, {}))
+        if any(smoke_by_dim[d].get(count_key) for d in SMALL_DIMS):
+            e["smoke_launches_by_head_dim"] = {
+                d: smoke_by_dim[d].get(count_key, 0) for d in SMALL_DIMS}
         if also:
             e["also_replaces"] = also
         if name == "flash_decode":

@@ -4,9 +4,10 @@
 // (float32), both on the tensor cores.
 //
 // flash_decode_split + flash_decode_combine replace `_decode_kernel` of
-// src/repro/kernels/flash_attention.py (via flash_decode_pallas): one query token per sequence against a
-// [b, hkv, S, d] cache whose positions >= kv_len[b] are masked
-// (kv_len = 0 gives 0).
+// src/repro/kernels/flash_attention.py (via flash_decode_pallas): one
+// query token per sequence against a [b, hkv, S, d] cache (d in {16, 32,
+// 64, 128, 256}) whose positions >= kv_len[b] are masked (kv_len = 0
+// gives 0).
 //
 // Bound on the H100: bytes, the valid K and V rows read once. The
 // design streams those bytes and keeps the SM's load path busy:
@@ -23,7 +24,10 @@
 //   valid rows; the consumers free a stage on an `empty` mbarrier. Two
 //   CTAs fit on an SM: 192 KB of K/V in flight per SM.
 // - Four consumer warps read each row from shared memory 16 bytes per
-//   lane (a 128-wide bf16 row is 16 lanes, so a warp covers two rows),
+//   lane (a 128-wide bf16 row is 16 lanes, so a warp covers two rows; at
+//   the smoke configs' head dims 16 and 32 a row is 2 or 4 lanes in bf16,
+//   4 or 8 in float32, so a warp step covers 4 to 16 rows and a stage
+//   holds 128 to 512 rows: the same code, other constants of `Dec`),
 //   dot it with q held in registers in f32 and sum over the row's lanes
 //   with xor-shuffles. Each group of lanes runs its own online softmax
 //   (exp2 form) over its rows and accumulates P.V into registers.
@@ -404,6 +408,14 @@ cudaError_t decode_by_dim(int d, const void* q, const void* k, const void* v,
                           int n_splits, int split_len, float scale_log2,
                           cudaStream_t s) {
   switch (d) {
+    case 16:
+      return decode_by_group<T, 16>(q, k, v, kv_len, pm, pl, pacc, b, hq,
+                                    hkv, S, n_splits, split_len, scale_log2,
+                                    s);
+    case 32:
+      return decode_by_group<T, 32>(q, k, v, kv_len, pm, pl, pacc, b, hq,
+                                    hkv, S, n_splits, split_len, scale_log2,
+                                    s);
     case 64:
       return decode_by_group<T, 64>(q, k, v, kv_len, pm, pl, pacc, b, hq,
                                     hkv, S, n_splits, split_len, scale_log2,
@@ -423,9 +435,10 @@ cudaError_t decode_by_dim(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q [b, hq, d], k and v [b, hkv, S, d], kv_len [b] int32; splits of
-// split_len positions; part_m, part_l [b, hq, n_splits] and part_acc
-// [b, hq, n_splits, d] f32 scratch. Returns cudaGetLastError().
+// q [b, hq, d], k and v [b, hkv, S, d] with d in {16, 32, 64, 128, 256},
+// kv_len [b] int32; splits of split_len positions; part_m, part_l [b, hq,
+// n_splits] and part_acc [b, hq, n_splits, d] f32 scratch. Returns
+// cudaGetLastError().
 extern "C" int flash_decode_split(const void* q, const void* k,
                                   const void* v, const void* kv_len,
                                   void* part_m, void* part_l,

@@ -1,5 +1,5 @@
 // Backward of the bfloat16 prefill attention on Hopper's tensor cores
-// (sm_90a), for training: dq, dk and dv of
+// (sm_90a) at head dims 16, 32, 64 and 128, for training: dq, dk and dv of
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, h / group, j] * scale)
 //                  . v[b, h / group, j]
 // over keys j <= i when causal (sq == skv), over all j otherwise.
@@ -15,7 +15,10 @@
 // causal, at 989 TFLOP/s dense bf16; q, k, v, o, dO, lse in and dq, dk, dv
 // out cross HBM once. The kernels issue ten: the dK/dV kernel six (S^T,
 // dP^T, and dV and dK as hi + lo parts), the dQ kernel four (S and dP
-// again, dQ as hi + lo).
+// again, dQ as hi + lo). At d = 16 and 32 the hi + lo products run at N =
+// 64 over zero columns (below), 64 / d times a product's work each.
+// kernels/flash_attention.py's BWD_PRODUCTS["bfloat16"] mirrors this line:
+// products (dK/dV, dQ) by d: 16: 18, 10; 32: 10, 6; 64: 6, 4; 128: 6, 4
 //
 // Design (warp-specialised, TMA-fed, wgmma for every product, as the
 // forward; the PTX wrappers and tensor maps are in wgmma.cuh, the helpers
@@ -68,6 +71,15 @@
 //   plain version's up to its final bf16 rounding. Rounding P and dS once
 //   to bf16 puts dq, dk and dv outside the tolerance the plain version is
 //   held to (tests/test_torch_bwd_split.py emulates both).
+// - Head dims 16 and 32 (the reference's smoke configs; route (a) of the
+//   small dims: these kernels at D = 16 and 32): every tile is one TMA box
+//   of 64 columns, wider than the tensor's d, and TMA zero-fills the
+//   columns past d in shared memory (HBM is read for d columns only; the
+//   transaction bytes count the whole box, as expect_tx arms them). S^T,
+//   dP^T, S and dP run over d's k-steps only (1 or 2 of 16); dV, dK and dQ
+//   accumulate at N = 64 over the zero columns of dO, Q and K (`padded`),
+//   and only d columns are written. The swizzle and the descriptors are
+//   d = 64's, so the layouts need no other case.
 // - No atomics, no split reductions: each output element is summed by one
 //   thread in a fixed order, so every launch gives the same bits (a resumed
 //   training run must reproduce its state byte for byte). dQ therefore has
@@ -90,9 +102,10 @@ constexpr int BKQ = 128;       // keys a dQ stage
 
 template <int D>
 struct Geo {
-  static constexpr int NSUB = D / SUB;            // sub-tiles per row
-  static constexpr int BIG = BM * D * 2;          // a 128-row tile
-  static constexpr int ROWS = BN * D * 2;         // a dK/dV stage's Q or dO
+  static constexpr int DP = padded(D);            // columns a tile holds
+  static constexpr int NSUB = DP / SUB;           // sub-tiles per row
+  static constexpr int BIG = BM * DP * 2;         // a 128-row tile
+  static constexpr int ROWS = BN * DP * 2;        // a dK/dV stage's Q or dO
   // K, V, the Q and dO stages, lse and D of each stage, the mbarriers;
   // +1024 to align to the swizzle's period
   static constexpr int KV_SMEM =
@@ -141,7 +154,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                 bf16* __restrict__ dv, int hq, int hkv, int s, int causal,
                 float scale_log2, float scale) {
   using G = Geo<D>;
-  constexpr int NSUB = G::NSUB;
+  constexpr int NSUB = G::NSUB, DP = G::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = align1024(smem_raw);           // [NSUB][BM][64]
   uint8_t* sV = sK + G::BIG;                   // [NSUB][BM][64]
@@ -239,9 +252,9 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int ka = kw + warp * 16 + lane / 4, kb = ka + 8;
     const uint32_t k_addr = smem_u32(sK) + cons * 64 * SUB_BYTES_PER_ROW;
     const uint32_t v_addr = k_addr + G::BIG;
-    float dv_acc[D / 2], dk_acc[D / 2];
+    float dv_acc[DP / 2], dk_acc[DP / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dv_acc[j] = dk_acc[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) dv_acc[j] = dk_acc[j] = 0.f;
     mbar_wait(kv_full, 0);
 
     Ring<STAGES> ring;
@@ -300,8 +313,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // dV += P^T dO, dK += dS^T Q: the reduction runs over the 64 queries
       wgmma_fence();
-      rs_split<D, BN>(dv_acc, ph, pl, do_addr);
-      rs_split<D, BN>(dk_acc, sh, sl, q_addr);
+      rs_split<DP, BN>(dv_acc, ph, pl, do_addr);
+      rs_split<DP, BN>(dk_acc, sh, sl, q_addr);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(dv_acc);
@@ -339,7 +352,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
 
 bool bad_shape(int b, int hq, int hkv, int s, int d) {
   return b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
-         (d != 64 && d != 128);
+         (d != 16 && d != 32 && d != 64 && d != 128);
 }
 
 }  // namespace
@@ -360,7 +373,8 @@ extern "C" int flash_attention_bwd_pre(const void* o, const void* dout,
 }
 
 // q, dout [b, hq, s, d], k, v, dk, dv [b, hkv, s, d], all contiguous
-// bfloat16, 16-byte aligned; lse, delta [b, hq, s] float32; d in {64, 128};
+// bfloat16, 16-byte aligned; lse, delta [b, hq, s] float32; d in {16, 32,
+// 64, 128};
 // hq % hkv == 0. dk and dv are summed over each KV head's group of query
 // heads. scale_log2 = softmax scale * log2(e). Returns cudaGetLastError()
 // after the launch (cudaErrorNotSupported if the driver has no tensor maps).
@@ -373,11 +387,20 @@ extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k,
                                         void* stream) {
   if (bad_shape(b, hq, hkv, s, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return (int)launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, b, hq,
-                                hkv, s, causal, scale_log2, scale, st);
-  return (int)launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, b, hq, hkv,
-                               s, causal, scale_log2, scale, st);
+  switch (d) {
+    case 16:
+      return (int)launch_dkdv<16>(q, k, v, dout, lse, delta, dk, dv, b, hq,
+                                  hkv, s, causal, scale_log2, scale, st);
+    case 32:
+      return (int)launch_dkdv<32>(q, k, v, dout, lse, delta, dk, dv, b, hq,
+                                  hkv, s, causal, scale_log2, scale, st);
+    case 64:
+      return (int)launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, b, hq,
+                                  hkv, s, causal, scale_log2, scale, st);
+    default:
+      return (int)launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, b, hq,
+                                   hkv, s, causal, scale_log2, scale, st);
+  }
 }
 
 // dq [b, hq, s, d] bfloat16; the other arguments as for the dk/dv entry.
@@ -390,9 +413,18 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* stream) {
   if (bad_shape(b, hq, hkv, s, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return (int)launch_dq<64, BKQ>(q, k, v, dout, lse, delta, dq, b, hq, hkv, s,
-                              causal, scale_log2, scale, st);
-  return (int)launch_dq<128, BKQ>(q, k, v, dout, lse, delta, dq, b, hq, hkv, s,
-                             causal, scale_log2, scale, st);
+  switch (d) {
+    case 16:
+      return (int)launch_dq<16, BKQ>(q, k, v, dout, lse, delta, dq, b, hq,
+                                     hkv, s, causal, scale_log2, scale, st);
+    case 32:
+      return (int)launch_dq<32, BKQ>(q, k, v, dout, lse, delta, dq, b, hq,
+                                     hkv, s, causal, scale_log2, scale, st);
+    case 64:
+      return (int)launch_dq<64, BKQ>(q, k, v, dout, lse, delta, dq, b, hq,
+                                     hkv, s, causal, scale_log2, scale, st);
+    default:
+      return (int)launch_dq<128, BKQ>(q, k, v, dout, lse, delta, dq, b, hq,
+                                      hkv, s, causal, scale_log2, scale, st);
+  }
 }

@@ -5,7 +5,9 @@
 // same at every d but for its stage of BKQ keys) and, on the host, a
 // launch's four tensor maps and the dQ launch. Tiles and descriptors are
 // wgmma.cuh's; the dQ kernel's design is described in
-// flash_attention_bwd.cu.
+// flash_attention_bwd.cu. At d = 16 and 32 a tile holds `padded(d)` = 64
+// columns, those past d zero-filled by TMA (flash_attention_bwd.cu's
+// header), and the products that write d's columns run at N = 64.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -25,6 +27,10 @@ constexpr int BM = 128;        // query rows a dQ CTA (keys a d 64 / 128
 constexpr int STAGES = 2;      // the ring of streamed tiles
 
 typedef __nv_bfloat16 bf16;
+
+// the columns a shared-memory tile holds at head dim d: one 64-column box
+// at d < 64, its columns past d zero-filled by TMA; d otherwise
+constexpr int padded(int d) { return d < SUB ? SUB : d; }
 
 // lse in log2 units; a row with lse = -inf (no visible key) takes +inf,
 // so its P is 0
@@ -95,12 +101,14 @@ __device__ __forceinline__ void rs_split(float (&acc)[D / 2],
 }
 
 // rows ra and rb = ra + 8 of a [64 x D] accumulator (entry 4 j + e: row
-// ra, column 8 j + 2 (lane % 4) + e; 4 j + 2 + e: row rb) times `mul` in
-// bf16 to a [s][D] head; rows past s not written
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* head, const float (&acc)[D / 2],
+// ra, column 8 j + 2 (lane % 4) + e; 4 j + 2 + e: row rb; A / 2 columns
+// held, D of them written) times `mul` in bf16 to a [s][D] head; rows
+// past s not written
+template <int D, int A>
+__device__ __forceinline__ void store_rows(bf16* head, const float (&acc)[A],
                                            int ra, int s, int lane,
                                            float mul) {
+  static_assert(2 * A >= D, "the accumulator holds d's columns");
   const int rb = ra + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -121,9 +129,10 @@ __device__ __forceinline__ void store_rows(bf16* head, const float (&acc)[D / 2]
 // to the swizzle's period)
 template <int D, int BKQ>
 struct DqGeo {
-  static constexpr int NSUB = D / SUB;            // sub-tiles per row
-  static constexpr int BIG = BM * D * 2;          // a 128-row tile
-  static constexpr int KEYS = BKQ * D * 2;        // a stage's K or V
+  static constexpr int DP = padded(D);            // columns a tile holds
+  static constexpr int NSUB = DP / SUB;           // sub-tiles per row
+  static constexpr int BIG = BM * DP * 2;         // a 128-row tile
+  static constexpr int KEYS = BKQ * DP * 2;       // a stage's K or V
   static constexpr int SMEM = 2 * BIG + STAGES * 2 * KEYS + 64 + 1024;
 };
 
@@ -137,7 +146,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
               bf16* __restrict__ dq, int hq, int hkv, int s, int causal,
               float scale_log2, float scale) {
   using G = DqGeo<D, BKQ>;
-  constexpr int NSUB = G::NSUB;
+  constexpr int NSUB = G::NSUB, DP = G::DP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align1024(smem_raw);           // [NSUB][BM][64]
   uint8_t* sdO = sQ + G::BIG;                  // [NSUB][BM][64]
@@ -208,9 +217,9 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float db = rb < s ? dp_[rb] : 0.f;
     const uint32_t q_addr = smem_u32(sQ) + cons * 64 * SUB_BYTES_PER_ROW;
     const uint32_t do_addr = q_addr + G::BIG;
-    float dq_acc[D / 2];
+    float dq_acc[DP / 2];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) dq_acc[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) dq_acc[j] = 0.f;
     mbar_wait(q_full, 0);
 
     for (int it = 0; it < n_iter; ++it) {
@@ -262,7 +271,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // dQ += dS K: the reduction runs over the BKQ keys
       wgmma_fence();
-      rs_split<D, BKQ>(dq_acc, hi, lo, k_addr);
+      rs_split<DP, BKQ>(dq_acc, hi, lo, k_addr);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(dq_acc);

@@ -5,7 +5,8 @@
 // over keys j <= i when causal (sq == skv), over all j otherwise, in
 // error-compensated TF32 (3xTF32), as the forward
 // (flash_attention_tf32.cu) computes it, on wgmma: one CTA a tile at d =
-// 64 and 128, a cluster of two CTAs that split d at d = 256.
+// 64 and 128, a cluster of two CTAs that split d at d = 256; at d = 16 and
+// 32 on mma.sync (bwd_dkdv_mma, bwd_dq_mma; "head dims 16 and 32" below).
 //
 // Replaces no TPU kernel: the reference trains through its XLA attention
 // (autograd of src/repro/kernels/ref.py attention_ref) and has no Pallas
@@ -23,7 +24,8 @@
 // four (S^T, dP^T, P^T dO, dS^T Q) and the dQ kernel three (S and dP
 // again, dS K); at d = 256 each CTA of a pair issues half of each over its
 // half of d. kernels/flash_attention.py's BWD_PRODUCTS mirrors this line:
-// products (dK/dV, dQ) by d: 64: 4, 3; 128: 4, 3; 256: 4, 3
+// products (dK/dV, dQ) by d: 16: 4, 3; 32: 4, 3; 64: 4, 3; 128: 4, 3;
+// 256: 4, 3
 //
 // Precision (tests/test_torch_tf32_bwd_split.py emulates it, with the
 // geometry of tests/tf32_emulation.py's BWD_GEOMETRY): every operand, P
@@ -1002,6 +1004,437 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_k,
   if constexpr (PAIR) cluster_sync();
 }
 
+// ---- head dims 16 and 32: the mma.sync route ------------------------------
+
+// At d = 16 and 32 (the reference's smoke configs) the kernels above do not
+// fit: a 32-float TMA box is d = 32's whole row and twice d = 16's, the
+// stage of R = 2048 / C rows grows to 64 or 128, and the second products'
+// N = 64 blocks exceed d. A (query, key) pair's tensor-core work shrinks
+// with d while its CUDA-core work (exp2, the mask, the splits of P and
+// dS) does not, so at these dims wgmma's rate would not set the pace, and
+// they take the source's first design, on mma.sync.m16n8k8, the one that
+// the wgmma kernels replaced at d >= 64 (route (b) of the small dims): no
+// TMA, no swizzle, cp.async rings of f32 rows D + 4 floats apart, each
+// operand split into hi = rna(x) and lo = x - hi at each use on the CUDA
+// cores (A operands too: "rna" in tests/tf32_emulation.py's
+// BWD_GEOMETRY), the same products (four in dK/dV, three in dQ) and
+// fresh fragments: every KG d steps of S^T, dP^T, S and dP, and each
+// stage's P^T dO, dS^T Q and dS K.
+// - bwd_dkdv_mma: a CTA of NW warps owns 16 NW keys of one (b, kv head),
+//   K and V staged once, each warp 16 keys over all of d. Q, dO, lse (in
+//   log2 units) and D tiles of KV_ROWS query rows stream through a
+//   two-stage cp.async ring (rows past s zero-filled, lse = +inf, D = 0,
+//   so their P and dS are 0), over each query head of the group in turn
+//   and, under causal, from the tile of the CTA's first key. Per stage a
+//   warp forms S^T = K Q^T and dP^T = V dO^T, P^T = exp2(S^T scale log2 e
+//   - lse log2 e) and dS^T = P^T (dP^T - D) in registers (the S^T
+//   accumulator's fragment is P^T's A fragment with its query order
+//   permuted: queries 2t and 2t + 1 of each 8 as k indices t and t + 4),
+//   then dV += P^T dO and dK += dS^T Q (B rows 2t and 2t + 1).
+// - bwd_dq_mma: a CTA owns 16 NW query rows of one (b, q head), Q and dO
+//   staged once; K and V tiles of Q_KEYS keys stream through the ring,
+//   under causal up to the CTA's last row, the longest q tiles first. Per
+//   tile S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K.
+// - Rows D + 4 floats apart make both reads conflict-free: a row-major
+//   fragment at (row g, column t), g * 20 or g * 36 + t, and an MN-major
+//   one at (row 2t, column g), 2t * 20 or 2t * 36 + g, each covering 32
+//   banks.
+// - Shared memory (S = D + 4 floats a row): dK/dV K and V (2 x 64 S) and
+//   two stages of Q, dO (2 x 2 x 32 S) and lse, D (2 x 2 x 32): 20,992 B
+//   at d = 16, 37,376 B at d = 32; dQ Q and dO (2 x 64 S) and two stages
+//   of K and V (2 x 2 x 32 S): 20,480 and 36,864 B.
+template <int D>
+struct MmaCfg;
+template <>
+struct MmaCfg<16> {
+  static constexpr int NW = 4, KV_ROWS = 32, Q_KEYS = 32;
+};
+template <>
+struct MmaCfg<32> {
+  static constexpr int NW = 4, KV_ROWS = 32, Q_KEYS = 32;
+};
+
+template <int D>
+struct MmaGeo {
+  static_assert(D % 16 == 0 && D <= 32, "the mma.sync route's head dims");
+  static constexpr int NW = MmaCfg<D>::NW, THREADS = 32 * NW;
+  static constexpr int BQ = MmaCfg<D>::KV_ROWS, BKQ = MmaCfg<D>::Q_KEYS;
+  static constexpr int BLK = 16 * NW;        // keys (dK/dV), rows (dQ) a CTA
+  static constexpr int S = D + 4;            // row stride (floats)
+  static constexpr int FIXED = BLK * S;      // K or V (dK/dV), Q or dO (dQ)
+  static constexpr int KV_STAGE = 2 * BQ * S + 2 * BQ;  // Q, dO, lse, D
+  static constexpr int Q_STAGE = 2 * BKQ * S;           // K, V
+  static constexpr int KV_SMEM =
+      (int)sizeof(float) * (2 * FIXED + STAGES * KV_STAGE);
+  static constexpr int Q_SMEM =
+      (int)sizeof(float) * (2 * FIXED + STAGES * Q_STAGE);
+  static constexpr int NG = D / 8 < 4 ? D / 8 : 4;  // d steps a fresh group
+  static_assert(KV_SMEM <= 48 * 1024 && Q_SMEM <= 48 * 1024,
+                "under the default dynamic shared memory: no opt-in");
+};
+
+// the A fragment at a (row g, column t of a row-major f32 tile) of one
+// d step: rows g and g + 8, columns t and t + 4, split into hi and lo
+template <int S>
+__device__ __forceinline__ void a_frag(const float* a, uint32_t (&h)[4],
+                                       uint32_t (&l)[4]) {
+  split(a[0], h[0], l[0]);
+  split(a[8 * S], h[1], l[1]);
+  split(a[4], h[2], l[2]);
+  split(a[8 * S + 4], h[3], l[3]);
+}
+
+// one mma3 of A (h, l) and the B fragment of two f32 values at x[0] and
+// x[step]
+__device__ __forceinline__ void mma3_at(float (&d)[4], const uint32_t (&h)[4],
+                                        const uint32_t (&l)[4],
+                                        const float* x, int step,
+                                        bool fresh) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(x[0], bh0, bl0);
+  split(x[step], bh1, bl1);
+  mma3(d, h, l, bh0, bh1, bl0, bl1, fresh);
+}
+
+// an accumulator fragment's four values (x[e]: row g + 8 (e >> 1), column
+// 2 t + (e & 1)) as the A fragment of the next product, hi and lo: its
+// columns 2 t and 2 t + 1 become k indices t and t + 4
+__device__ __forceinline__ void a_of_acc(const float (&x)[4],
+                                         uint32_t (&h)[4], uint32_t (&l)[4]) {
+  split(x[0], h[0], l[0]);
+  split(x[2], h[1], l[1]);
+  split(x[1], h[2], l[2]);
+  split(x[3], h[3], l[3]);
+}
+
+// rows ra and ra + 8 of NN accumulator fragments (d step n: columns
+// 8 n + 2 t, + 1) times mul to a row-major [s][D] tile at p; rows past s
+// not written
+template <int D, int NN>
+__device__ __forceinline__ void store_rows(float* p,
+                                           const float (&acc)[NN][4], int ra,
+                                           int s, int t, float mul) {
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    const int col = 8 * n + 2 * t;
+    if (ra < s)
+      *reinterpret_cast<float2*>(p + (int64_t)ra * D + col) =
+          make_float2(acc[n][0] * mul, acc[n][1] * mul);
+    if (ra + 8 < s)
+      *reinterpret_cast<float2*>(p + (int64_t)(ra + 8) * D + col) =
+          make_float2(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
+// KG d steps from d step k0 of A0 B0^T and A1 B1^T into fresh fragments
+// f0 and f1 (the two products interleaved): A's rows g and g + 8 at a
+// (column t), B's row 8 j + g at b (column t), NJ 16 x 8 fragments. The k
+// index t (t + 4) of d step kk is column 8 kk + t (+ 4).
+template <int NJ, int S>
+__device__ __forceinline__ void d_steps(float (&f0)[NJ][4], const float* a0,
+                                        const float* b0, float (&f1)[NJ][4],
+                                        const float* a1, const float* b1,
+                                        int k0) {
+#pragma unroll
+  for (int kk = k0; kk < k0 + KG; ++kk) {
+    uint32_t h0[4], l0[4], h1[4], l1[4];
+    a_frag<S>(a0 + 8 * kk, h0, l0);
+    a_frag<S>(a1 + 8 * kk, h1, l1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      mma3_at(f0[j], h0, l0, b0 + 8 * (j * S + kk), 4, kk == k0);
+      mma3_at(f1[j], h1, l1, b1 + 8 * (j * S + kk), 4, kk == k0);
+    }
+  }
+}
+
+// acc0 = A0 B0^T and acc1 = A1 B1^T over the D columns: the first KG d
+// steps straight into acc, then each KG steps in fresh fragments added in
+// f32
+template <int D, int NJ, int S>
+__device__ __forceinline__ void over_d2(float (&acc0)[NJ][4],
+                                        const float* a0, const float* b0,
+                                        float (&acc1)[NJ][4],
+                                        const float* a1, const float* b1) {
+  d_steps<NJ, S>(acc0, a0, b0, acc1, a1, b1, 0);
+#pragma unroll
+  for (int k0 = KG; k0 < D / 8; k0 += KG) {
+    float f0[NJ][4], f1[NJ][4];
+    d_steps<NJ, S>(f0, a0, b0, f1, a1, b1, k0);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc0[j][e] += f0[j][e];
+        acc1[j][e] += f1[j][e];
+      }
+  }
+}
+
+// acc[n] += A B over a stage: A the stage's NJ hi and lo A fragments (k
+// indices t and t + 4 of step j: rows 8 j + 2 t and 8 j + 2 t + 1 of B),
+// B a row-major f32 tile read MN-major at b (row 2 t, column g): d step n
+// is B's columns 8 n + g. The stage's products go into fresh fragments,
+// NG d steps at a time, added to acc in f32. With a second (acc1, hi1,
+// lo1, b1), two such products interleaved.
+template <int NN, int NJ, int S, int NG, bool TWO>
+__device__ __forceinline__ void over_stage(
+    float (&acc0)[NN][4], const uint32_t (&hi0)[NJ][4],
+    const uint32_t (&lo0)[NJ][4], const float* b0, float (&acc1)[NN][4],
+    const uint32_t (&hi1)[NJ][4], const uint32_t (&lo1)[NJ][4],
+    const float* b1) {
+#pragma unroll
+  for (int n0 = 0; n0 < NN; n0 += NG) {
+    float f0[NG][4], f1[NG][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int nn = 0; nn < NG; ++nn) {
+        const int at = 8 * (j * S + n0 + nn);
+        mma3_at(f0[nn], hi0[j], lo0[j], b0 + at, S, j == 0);
+        if constexpr (TWO)
+          mma3_at(f1[nn], hi1[j], lo1[j], b1 + at, S, j == 0);
+      }
+#pragma unroll
+    for (int nn = 0; nn < NG; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc0[n0 + nn][e] += f0[nn][e];
+        if constexpr (TWO) acc1[n0 + nn][e] += f1[nn][e];
+      }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MmaGeo<D>::THREADS)
+bwd_dkdv_mma(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dk, float* __restrict__ dv, int hq, int hkv,
+             int s, int causal, float scale_log2, float scale) {
+  using G = MmaGeo<D>;
+  constexpr int BQ = G::BQ, BK = G::BLK, S = G::S, NT = G::THREADS;
+  constexpr int NJ = BQ / 8;   // query steps of 8 in a stage
+  constexpr int NN = D / 8;    // d steps of dK and dV
+  constexpr int CPR = D / 4;   // 16-byte copies a row
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                  // [BK][S]
+  float* Vs = Ks + G::FIXED;         // [BK][S]
+  float* ring = Vs + G::FIXED;       // [STAGES]: Q, dO [BQ][S], lse2, D [BQ]
+
+  const int hk = blockIdx.x, bi = blockIdx.y;
+  const int k0 = blockIdx.z * BK;  // under causal the first tiles are the
+  const int group = hq / hkv;      // longest: they start first
+  const int64_t kv_off = ((int64_t)bi * hkv + hk) * s * D;
+  const int64_t bh0 = (int64_t)bi * hq + hk * group;  // the group's 1st head
+  // the walk: each query head of the group, over query tiles qt_begin ..
+  // qt_end - 1 (under causal from the tile of the CTA's first key)
+  const int qt_begin = causal ? k0 / BQ : 0, qt_end = (s + BQ - 1) / BQ;
+  const int n_qt = qt_end - qt_begin, n_iter = group * n_qt;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = k0 + 16 * warp;   // the warp's first key
+
+  // K and V (rows past s zero-filled) with stage 0: one copy group
+  for (int c = tid; c < BK * CPR; c += NT) {
+    const int r = c / CPR, col = (c - r * CPR) * 4;
+    const bool in = k0 + r < s;
+    const int64_t go = kv_off + (in ? (int64_t)(k0 + r) * D + col : 0);
+    cp_async16(smem_addr(Ks + r * S + col), k + go, in ? 16 : 0);
+    cp_async16(smem_addr(Vs + r * S + col), v + go, in ? 16 : 0);
+  }
+  auto load_stage = [&](int it) {
+    float* qs = ring + (it % STAGES) * G::KV_STAGE;
+    float* ds = qs + BQ * S;
+    float* ls = ds + BQ * S;
+    float* es = ls + BQ;
+    const int hh = it / n_qt;
+    const int q0 = (qt_begin + it - hh * n_qt) * BQ;
+    const int64_t bh = bh0 + hh;
+    for (int c = tid; c < BQ * CPR; c += NT) {
+      const int r = c / CPR, col = (c - r * CPR) * 4;
+      const bool in = q0 + r < s;
+      const int64_t go = bh * s * D + (in ? (int64_t)(q0 + r) * D + col : 0);
+      cp_async16(smem_addr(qs + r * S + col), q + go, in ? 16 : 0);
+      cp_async16(smem_addr(ds + r * S + col), dout + go, in ? 16 : 0);
+    }
+    for (int r = tid; r < BQ; r += NT) {
+      const int row = q0 + r;
+      ls[r] = row < s ? lse2_of(lse[bh * s + row]) : CUDART_INF_F;
+      es[r] = row < s ? delta[bh * s + row] : 0.f;
+    }
+  };
+  if (n_iter > 0) load_stage(0);
+  cp_async_commit();
+
+  float dva[NN][4], dka[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[n][e] = dka[n][e] = 0.f;
+  const float* ka = Ks + (16 * warp + g) * S + t;  // A rows g, g + 8
+  const float* va = Vs + (16 * warp + g) * S + t;
+
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<0>();  // this thread's copies of stage it
+    __syncthreads();     // everyone's, and stage it - 1 is done
+    if (it + 1 < n_iter) load_stage(it + 1);
+    cp_async_commit();
+    const int q0 = (qt_begin + it % n_qt) * BQ;
+    if (kw >= s || (causal && q0 + BQ - 1 < kw)) continue;  // nothing seen
+    const float* qs = ring + (it % STAGES) * G::KV_STAGE;
+    const float* ds = qs + BQ * S;
+    const float* ls = ds + BQ * S;
+    const float* es = ls + BQ;
+
+    // S^T = K Q^T, dP^T = V dO^T (16 keys x BQ queries)
+    float st[NJ][4], dpt[NJ][4];
+    over_d2<D, NJ, S>(st, ka, qs + g * S + t, dpt, va, ds + g * S + t);
+
+    // P^T and dS^T as A fragments, hi and lo; st[j][e] is (key kw + g +
+    // (e < 2 ? 0 : 8), query q0 + 8 j + 2 t + (e & 1))
+    const bool mask = causal && q0 < kw + 15;  // a query before a key
+    uint32_t ph[NJ][4], pl[NJ][4], sh[NJ][4], sl[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(es + 8 * j + 2 * t);
+      float p[4], x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(fmaf(st[j][e], scale_log2, -(e & 1 ? l2.y : l2.x)));
+        if (mask) {
+          const int key = kw + g + (e < 2 ? 0 : 8);
+          if (key > q0 + 8 * j + 2 * t + (e & 1)) p[e] = 0.f;
+        }
+        x[e] = p[e] * (dpt[j][e] - (e & 1 ? d2.y : d2.x));
+      }
+      a_of_acc(p, ph[j], pl[j]);
+      a_of_acc(x, sh[j], sl[j]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q (B: rows 8 j + 2 t and 8 j + 2 t + 1,
+    // column 8 n + g)
+    over_stage<NN, NJ, S, G::NG, true>(dva, ph, pl, ds + 2 * t * S + g, dka,
+                                       sh, sl, qs + 2 * t * S + g);
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA
+
+  // rows kw + g and kw + g + 8; dK times the scale
+  store_rows<D>(dv + kv_off, dva, kw + g, s, t, 1.f);
+  store_rows<D>(dk + kv_off, dka, kw + g, s, t, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MmaGeo<D>::THREADS)
+bwd_dq_mma(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dq, int hq, int hkv, int s, int causal,
+           float scale_log2, float scale) {
+  using G = MmaGeo<D>;
+  constexpr int BQ = G::BLK, BKQ = G::BKQ, S = G::S, NT = G::THREADS;
+  constexpr int NJ = BKQ / 8;   // key steps of 8 in a stage
+  constexpr int NK = D / 8;     // d steps of dQ
+  constexpr int CPR = D / 4;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                  // [BQ][S]
+  float* Ds = Qs + G::FIXED;         // [BQ][S] (dO)
+  float* ring = Ds + G::FIXED;       // [STAGES]: K, V [BKQ][S]
+
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest tiles first
+  const int64_t bh = (int64_t)bi * hq + h;
+  const int64_t kv_off = ((int64_t)bi * hkv + h / (hq / hkv)) * s * D;
+  const int kv_end = causal ? min(s, q0 + BQ) : s;
+  const int n_tiles = (kv_end + BKQ - 1) / BKQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  auto load_tile = [&](int i) {
+    float* ks = ring + (i % STAGES) * G::Q_STAGE;
+    float* vs = ks + BKQ * S;
+    const int kv0 = i * BKQ;
+    for (int c = tid; c < BKQ * CPR; c += NT) {
+      const int r = c / CPR, col = (c - r * CPR) * 4;
+      const bool in = kv0 + r < s;
+      const int64_t go = kv_off + (in ? (int64_t)(kv0 + r) * D + col : 0);
+      cp_async16(smem_addr(ks + r * S + col), k + go, in ? 16 : 0);
+      cp_async16(smem_addr(vs + r * S + col), v + go, in ? 16 : 0);
+    }
+  };
+  // Q and dO with tile 0: one copy group
+  for (int c = tid; c < BQ * CPR; c += NT) {
+    const int r = c / CPR, col = (c - r * CPR) * 4;
+    const bool in = q0 + r < s;
+    const int64_t go = bh * s * D + (in ? (int64_t)(q0 + r) * D + col : 0);
+    cp_async16(smem_addr(Qs + r * S + col), q + go, in ? 16 : 0);
+    cp_async16(smem_addr(Ds + r * S + col), dout + go, in ? 16 : 0);
+  }
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+
+  // this warp's rows: ra (fragment entries 0, 1) and rb = ra + 8 (2, 3)
+  const int w0 = q0 + 16 * warp;
+  const int ra = w0 + g, rb = ra + 8;
+  const bool live = w0 < s;
+  const int w_last = causal ? min(w0 + 15, s - 1) : s - 1;
+  const float la = ra < s ? lse2_of(lse[bh * s + ra]) : CUDART_INF_F;
+  const float lb = rb < s ? lse2_of(lse[bh * s + rb]) : CUDART_INF_F;
+  const float da = ra < s ? delta[bh * s + ra] : 0.f;
+  const float db = rb < s ? delta[bh * s + rb] : 0.f;
+  const float* qa = Qs + (16 * warp + g) * S + t;   // A rows g, g + 8
+  const float* oa = Ds + (16 * warp + g) * S + t;
+
+  float dqa[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();  // this thread's copies of tile i
+    __syncthreads();     // everyone's, and tile i - 1 is done
+    if (i + 1 < n_tiles) load_tile(i + 1);
+    cp_async_commit();
+    const int kb0 = i * BKQ;
+    if (!live || kb0 > w_last) continue;  // no row of the warp sees a key
+    const float* ks = ring + (i % STAGES) * G::Q_STAGE;
+    const float* vs = ks + BKQ * S;
+
+    // S = Q K^T, dP = dO V^T (16 rows x BKQ keys)
+    float sc[NJ][4], dp[NJ][4];
+    over_d2<D, NJ, S>(sc, qa, ks + g * S + t, dp, oa, vs + g * S + t);
+
+    // dS as A fragments, hi and lo; sc[j][e] is (row e < 2 ? ra : rb, key
+    // kb0 + 8 j + 2 t + (e & 1))
+    const bool mask = kb0 + BKQ > s || (causal && kb0 + BKQ - 1 > w0);
+    uint32_t hi[NJ][4], lo[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(sc[j][e], scale_log2, -(e < 2 ? la : lb)));
+        if (mask) {
+          const int key = kb0 + 8 * j + 2 * t + (e & 1);
+          if (key >= s || (causal && key > (e < 2 ? ra : rb))) p = 0.f;
+        }
+        x[e] = p * (dp[j][e] - (e < 2 ? da : db));
+      }
+      a_of_acc(x, hi[j], lo[j]);
+    }
+
+    // dQ += dS K (B: K rows 8 j + 2 t and 8 j + 2 t + 1, column 8 n + g)
+    over_stage<NK, NJ, S, G::NG, false>(dqa, hi, lo, ks + 2 * t * S + g, dqa,
+                                        hi, lo, nullptr);
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA
+
+  store_rows<D>(dq + bh * s * D, dqa, ra, s, t, scale);
+}
+
 // ---- host side ------------------------------------------------------------
 
 // columns of d a CTA holds at head dim D
@@ -1099,9 +1532,37 @@ cudaError_t launch_dq_wgmma(const float* q, const float* k, const float* v,
   }
 }
 
+template <int D>
+cudaError_t launch_dkdv_mma(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* delta, float* dk, float* dv, int b,
+                            int hq, int hkv, int s, int causal,
+                            float scale_log2, float scale,
+                            cudaStream_t stream) {
+  using G = MmaGeo<D>;
+  const dim3 grid(hkv, b, (s + G::BLK - 1) / G::BLK);
+  bwd_dkdv_mma<D><<<grid, G::THREADS, G::KV_SMEM, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, hq, hkv, s, causal, scale_log2,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const float* q, const float* k, const float* v,
+                          const float* dout, const float* lse,
+                          const float* delta, float* dq, int b, int hq,
+                          int hkv, int s, int causal, float scale_log2,
+                          float scale, cudaStream_t stream) {
+  using G = MmaGeo<D>;
+  const dim3 grid(hq, b, (s + G::BLK - 1) / G::BLK);
+  bwd_dq_mma<D><<<grid, G::THREADS, G::Q_SMEM, stream>>>(
+      q, k, v, dout, lse, delta, dq, hq, hkv, s, causal, scale_log2, scale);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int b, int hq, int hkv, int s, int d) {
   return b <= 0 || s <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
-         (d != 64 && d != 128 && d != 256);
+         (d != 16 && d != 32 && d != 64 && d != 128 && d != 256);
 }
 
 }  // namespace
@@ -1122,9 +1583,9 @@ extern "C" int flash_attention_bwd_tf32_pre(const void* o, const void* dout,
 }
 
 // q, dout [b, hq, s, d], k, v, dk, dv [b, hkv, s, d], all contiguous
-// float32, 16-byte aligned; lse, delta [b, hq, s] float32; d in {64, 128,
-// 256}; hq % hkv == 0. dk and dv are summed over each KV head's group of
-// query heads. scale_log2 = softmax scale * log2(e). Returns
+// float32, 16-byte aligned; lse, delta [b, hq, s] float32; d in {16, 32,
+// 64, 128, 256}; hq % hkv == 0. dk and dv are summed over each KV head's
+// group of query heads. scale_log2 = softmax scale * log2(e). Returns
 // cudaGetLastError() after the launch (cudaErrorNotSupported without
 // cuTensorMapEncodeTiled).
 extern "C" int flash_attention_bwd_tf32_dkdv(
@@ -1140,6 +1601,14 @@ extern "C" int flash_attention_bwd_tf32_dkdv(
   const float* of = static_cast<const float*>(dout);
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
+  if (d == 16)
+    return (int)launch_dkdv_mma<16>(qf, kf, vf, of, lse, delta, dkf, dvf, b,
+                                    hq, hkv, s, causal, scale_log2, scale,
+                                    st);
+  if (d == 32)
+    return (int)launch_dkdv_mma<32>(qf, kf, vf, of, lse, delta, dkf, dvf, b,
+                                    hq, hkv, s, causal, scale_log2, scale,
+                                    st);
   if (d == 64)
     return (int)launch_dkdv_wgmma<64>(qf, kf, vf, of, lse, delta, dkf, dvf,
                                       b, hq, hkv, s, causal, scale_log2,
@@ -1165,6 +1634,12 @@ extern "C" int flash_attention_bwd_tf32_dq(
   const float* vf = static_cast<const float*>(v);
   const float* of = static_cast<const float*>(dout);
   float* dqf = static_cast<float*>(dq);
+  if (d == 16)
+    return (int)launch_dq_mma<16>(qf, kf, vf, of, lse, delta, dqf, b, hq,
+                                  hkv, s, causal, scale_log2, scale, st);
+  if (d == 32)
+    return (int)launch_dq_mma<32>(qf, kf, vf, of, lse, delta, dqf, b, hq,
+                                  hkv, s, causal, scale_log2, scale, st);
   if (d == 64)
     return (int)launch_dq_wgmma<64>(qf, kf, vf, of, lse, delta, dqf, b, hq,
                                     hkv, s, causal, scale_log2, scale, st);

@@ -2,7 +2,8 @@
 // v: error-compensated TF32 (3xTF32) with mma.sync for both products.
 //
 // Replaces `_attn_kernel` of src/repro/kernels/flash_attention.py (via
-// flash_attention_pallas) for float32 inputs at head dims 64, 128 and 256:
+// flash_attention_pallas) for float32 inputs at head dims 16, 32, 64, 128
+// and 256:
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, h / group, j] * scale)
 //                  . v[b, h / group, j]
 // over keys j <= i + (skv - sq) when causal (the mask is aligned to the
@@ -81,9 +82,23 @@ constexpr int STAGES = 2;
 // holds (launch bound; MINB_LSE for the instantiation that writes the
 // lse, which spilled 12 bytes at d = 64 under 4): d = 64 and 128 fit
 // several CTAs per SM in shared memory; d = 256 takes one CTA of 8 warps
-// with 16-key tiles.
+// with 16-key tiles. d = 16 and 32 (the reference's smoke configs): rows
+// this short leave registers and shared memory to spare, so d = 16 takes
+// 64-key tiles (its S needs no fresh fragment: NK = KG) and both fit 4
+// CTAs an SM. The row strides D + 8 and D + 4 stay conflict-free there:
+// at D + 8 = 24 or 40 floats the 8-byte loads of a half warp's 4 rows
+// start 0, 24, 16, 8 (or 0, 8, 16, 24) banks apart, and at D + 4 = 20 or
+// 36 the 4-byte loads of rows 2t start 0, 8, 16, 24 banks apart.
 template <int D>
 struct Cfg;
+template <>
+struct Cfg<16> {
+  static constexpr int NW = 4, BK = 64, MINB = 4, MINB_LSE = 4;
+};
+template <>
+struct Cfg<32> {
+  static constexpr int NW = 4, BK = 32, MINB = 4, MINB_LSE = 4;
+};
 template <>
 struct Cfg<64> {
   static constexpr int NW = 4, BK = 32, MINB = 4, MINB_LSE = 3;
@@ -122,7 +137,7 @@ attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NJ = BK / 8;  // key steps of 8 in a tile
   constexpr int NK = D / 8;   // d steps of 8
   constexpr int KG = 2;       // d steps of Q K^T a fragment
-  constexpr int NG = 4;       // d steps of O merged together in P V
+  constexpr int NG = NK < 4 ? NK : 4;  // d steps of O merged together
   constexpr int CPR = D / 4;  // 16-byte copies per row
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                   // [BQ][QS]
@@ -371,12 +386,13 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 }  // namespace
 
 // q [b, hq, sq, d], k and v [b, hkv, skv, d], out [b, hq, sq, d], all
-// contiguous float32, 16-byte aligned; d in {64, 128, 256}; hq % hkv ==
-// 0. scale_log2 = softmax scale * log2(e). lse: null (serving: nothing
-// more is written), or [b, hq, sq] float32 contiguous for each row's
-// natural log-sum-exp of its visible scaled scores, (m + log2 l) * ln 2
-// with m the row's largest score in log2 units (scale_log2 folded in), -inf
-// where the row sees no key. Returns cudaGetLastError() after the launch.
+// contiguous float32, 16-byte aligned; d in {16, 32, 64, 128, 256};
+// hq % hkv == 0. scale_log2 = softmax scale * log2(e). lse: null
+// (serving: nothing more is written), or [b, hq, sq] float32 contiguous
+// for each row's natural log-sum-exp of its visible scaled scores, (m +
+// log2 l) * ln 2 with m the row's largest score in log2 units (scale_log2
+// folded in), -inf where the row sees no key. Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_tf32_lse(const void* q, const void* k,
                                         const void* v, void* out, float* lse,
                                         int b, int hq, int hkv, int sq,
@@ -394,6 +410,12 @@ extern "C" int flash_attention_tf32_lse(const void* q, const void* k,
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   switch (d) {
+    case 16:
+      return (int)launch<16>(qf, kf, vf, of, lse, b, hq, hkv, sq, skv,
+                             causal, scale_log2, s);
+    case 32:
+      return (int)launch<32>(qf, kf, vf, of, lse, b, hq, hkv, sq, skv,
+                             causal, scale_log2, s);
     case 64:
       return (int)launch<64>(qf, kf, vf, of, lse, b, hq, hkv, sq, skv,
                              causal, scale_log2, s);

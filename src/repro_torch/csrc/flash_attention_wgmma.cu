@@ -2,7 +2,8 @@
 // and v: warp-specialised, TMA-fed, wgmma for both products.
 //
 // Replaces `_attn_kernel` of src/repro/kernels/flash_attention.py (via
-// flash_attention_pallas) for bf16 inputs at head dims 64, 128 and 256:
+// flash_attention_pallas) for bf16 inputs at head dims 16, 32, 64, 128 and
+// 256:
 //   out[b, h, i] = softmax_j(q[b, h, i] . k[b, h / group, j] * scale)
 //                  . v[b, h / group, j]
 // over keys j <= i + (skv - sq) when causal (the mask is aligned to the
@@ -39,6 +40,13 @@
 //   visible key, masks only the tiles that cross the diagonal or the end
 //   of the keys, and the grid runs the longest q tiles first (the q-tile
 //   index is the grid's slowest dimension, reversed).
+// - Head dims 16 and 32 (the reference's smoke configs; route (a) of the
+//   small dims: the same kernel): a tile is one box of SUB = 64 columns,
+//   wider than the tensor's d, and TMA zero-fills the columns past d in
+//   shared memory (HBM is read for d columns only; the transaction bytes
+//   count the whole box). S runs over d's k-steps only (1 or 2 of 16),
+//   P V at N = 64 over the zero columns of V, and only d columns of O are
+//   written. The 128-byte swizzle and the descriptors are d = 64's.
 // - Epilogue: O / l (0 where l = 0) in bf16 straight from registers; rows
 //   past sq are not written. With an lse pointer (the training forward),
 //   each row's natural log-sum-exp of its visible scaled scores,
@@ -63,9 +71,10 @@ constexpr int STAGES = 2;
 template <int D>
 struct Cfg {
   static constexpr int BK = D >= 256 ? 64 : 128;       // keys per tile
-  static constexpr int NSUB = D / SUB;                 // sub-tiles per row
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;          // one K or V tile
+  static constexpr int DP = D < SUB ? SUB : D;         // columns a tile holds
+  static constexpr int NSUB = DP / SUB;                // sub-tiles per row
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;         // one K or V tile
   // Q, then K stages, then V stages, then the mbarriers; +1024 to align
   static constexpr int SMEM =
       Q_BYTES + 2 * STAGES * KV_BYTES + 64 + 1024;
@@ -82,7 +91,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                   int hq, int hkv, int sq, int skv, int causal,
                   float scale_log2) {
   using C = Cfg<D>;
-  constexpr int BK = C::BK, NSUB = C::NSUB;
+  constexpr int BK = C::BK, NSUB = C::NSUB, DP = C::DP;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -153,9 +162,9 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // this thread's rows of S and O: ra and rb = ra + 8
     const int ra = row0 + warp * 16 + lane / 4;
     const int rb = ra + 8;
-    float o[D / 2];
+    float o[DP / 2];  // DP - D columns of zeros at d < 64
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
     float m_a = -CUDART_INF_F, m_b = -CUDART_INF_F, l_a = 0.f, l_b = 0.f;
     const uint32_t q_addr = smem_u32(sQ) + cons * 64 * SUB_BYTES_PER_ROW;
     mbar_wait(q_full, 0);
@@ -235,7 +244,7 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       m_a = mn_a;
       m_b = mn_b;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         o[4 * j] *= alpha_a;
         o[4 * j + 1] *= alpha_a;
         o[4 * j + 2] *= alpha_b;
@@ -264,8 +273,8 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t db = desc(v_addr + kk * 16 * SUB_BYTES_PER_ROW,
                                  BK * SUB_BYTES_PER_ROW, 1024);
-        MMA<D>::rs(o, hi[kk], db);
-        MMA<D>::rs(o, lo[kk], db);
+        MMA<DP>::rs(o, hi[kk], db);
+        MMA<DP>::rs(o, lo[kk], db);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -333,9 +342,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q [b, hq, sq, d], k and v [b, hkv, skv, d], out [b, hq, sq, d], all
-// contiguous bfloat16, 16-byte aligned; d in {64, 128, 256}; hq % hkv ==
-// 0. scale_log2 = softmax scale * log2(e). lse: null, or [b, hq, sq]
-// float32 contiguous for each row's log-sum-exp. Returns
+// contiguous bfloat16, 16-byte aligned; d in {16, 32, 64, 128, 256};
+// hq % hkv == 0. scale_log2 = softmax scale * log2(e). lse: null, or
+// [b, hq, sq] float32 contiguous for each row's log-sum-exp. Returns
 // cudaGetLastError() after the launch (cudaErrorNotSupported if the
 // driver has no tensor maps).
 extern "C" int flash_attention_wgmma_lse(const void* q, const void* k,
@@ -351,6 +360,12 @@ extern "C" int flash_attention_wgmma_lse(const void* q, const void* k,
     return (int)cudaMemsetAsync(out, 0, (size_t)b * hq * sq * d * 2, s);
   }
   switch (d) {
+    case 16:
+      return (int)launch<16>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal,
+                             scale_log2, s);
+    case 32:
+      return (int)launch<32>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal,
+                             scale_log2, s);
     case 64:
       return (int)launch<64>(q, k, v, out, lse, b, hq, hkv, sq, skv, causal,
                              scale_log2, s);

@@ -12,6 +12,10 @@
 // 16 columns within a sub-tile; MN-major (the reduction runs down the
 // rows, B of P V-like products) with LBO the sub-tiles' distance and SBO
 // 1024, the address stepping 16 rows per k-step.
+// At head dims 16 and 32 the bf16 kernels map [heads, s, d] with the same
+// boxes of 64 columns, wider than d: TMA zero-fills the columns past d in
+// shared memory and counts them in the transaction bytes, so every tile,
+// swizzle and descriptor is d = 64's.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>

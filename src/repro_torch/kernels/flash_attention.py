@@ -18,13 +18,14 @@ forward is the prefill kernel of its dtype with its log-sum-exp output
 from the saved log-sum-exp, without atomics, so a backward gives the
 same bits every time: the pre pass D = rowsum(dO * O), then dK/dV and
 dQ. Their launch keys are ``<stem>_dkdv`` and ``<stem>_dq`` with the
-stem of ``bwd_stem``: bfloat16 at d in {64, 128}
+stem of ``bwd_stem``: bfloat16 at d in {16, 32, 64, 128}
 ``flash_attention_bwd`` (wgmma and TMA, pre pass
-``flash_attention_bwd_pre``), bfloat16 at d = 256
+``flash_attention_bwd_pre``; at d 16 and 32 the d = 64 tiles, TMA
+zero-filling the columns past d), bfloat16 at d = 256
 ``flash_attention_bwd256`` (wgmma and TMA; the same pre pass), float32
-at every d ``flash_attention_bwd_tf32`` (3xTF32 on wgmma: one CTA a tile
-at d 64 and 128, a cluster of two CTAs that split d at d 256; pre pass
-``flash_attention_bwd_tf32_pre``).
+at every d ``flash_attention_bwd_tf32`` (3xTF32: on mma.sync at d 16 and
+32, on wgmma with one CTA a tile at d 64 and 128, a cluster of two CTAs
+that split d at d 256; pre pass ``flash_attention_bwd_tf32_pre``).
 On the CPU the same Function runs ``attention_lse_ref`` and
 ``attention_bwd_ref``. The reference has no
 Pallas backward (it trains through its XLA attention); the kernels
@@ -48,8 +49,12 @@ Contract (the shapes of ``repro.kernels.ops.flash_attention`` and
 - ``flash_decode(q, k, v, kv_len)``: q [b, hq, d], k and v
   [b, hkv, S, d], kv_len an int or [b] int32; positions >= kv_len are
   masked, and kv_len = 0 gives 0.
-The kernels take d in {64, 128, 256} and 16-byte aligned inputs (TMA
-loads, cp.async and bulk copies, 16-byte vector reads).
+The kernels take d in {16, 32, 64, 128, 256} (``HEAD_DIMS``; 16 and 32
+are the reference's smoke configs and ``launch/train_lm.py``'s SMALL)
+and 16-byte aligned inputs (TMA loads, cp.async and bulk copies, 16-byte
+vector reads); on a CUDA tensor another d raises. No wrapper pads q, k or
+v: at d 16 and 32 the bf16 kernels' TMA boxes are 64 columns wide and
+zero-filled past d in shared memory, the float32 kernels read d columns.
 """
 from __future__ import annotations
 
@@ -68,14 +73,16 @@ LAUNCHES = {"flash_attention_tf32": 0, "flash_attention_wgmma": 0,
             "flash_attention_bwd_tf32_pre": 0,
             "flash_attention_bwd_tf32_dkdv": 0,
             "flash_attention_bwd_tf32_dq": 0}
-HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the products the backward's (dK/dV, dQ) kernels issue, in units of one
 # of the five its bound counts, by dtype and head dim, as their sources'
-# headers give them: bf16 P and dS enter as hi + lo parts; float32 is
-# 3xTF32 (counted in the bound)
-BWD_PRODUCTS = {"bfloat16": {64: (6, 4), 128: (6, 4), 256: (6, 4)},
-                "float32": {64: (4, 3), 128: (4, 3), 256: (4, 3)}}
+# headers give them: bf16 P and dS enter as hi + lo parts (at d 16 and 32
+# at N = 64 over zero columns); float32 is 3xTF32 (counted in the bound)
+BWD_PRODUCTS = {"bfloat16": {16: (18, 10), 32: (10, 6), 64: (6, 4),
+                             128: (6, 4), 256: (6, 4)},
+                "float32": {16: (4, 3), 32: (4, 3), 64: (4, 3), 128: (4, 3),
+                            256: (4, 3)}}
 SM_COUNT = 132             # the H100's streaming multiprocessors
 DECODE_CTAS_PER_SM = 2     # split CTAs resident per SM (96 KB rings)
 
@@ -221,7 +228,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward gave it) with output gradient ``do`` and the forward's
     log-sum-exp ``lse`` [b, hq, s] float32: three launches
     (``bwd_launches``). q, k, v, o, do all float32 or all bfloat16; d in
-    {64, 128, 256}; sq == skv; dk and dv summed over each KV head's
+    ``BWD_HEAD_DIMS``; sq == skv; dk and dv summed over each KV head's
     group. On CPU tensors, ``attention_bwd_ref``."""
     if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
         return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal)

@@ -7,12 +7,11 @@ with the production loop (step-seeded data, AdamW, async checkpoints).
     PYTHONPATH=src python -m repro_torch.launch.train_lm --full --steps 40
 
 The configs are the reference example's: ``SMALL`` (about 2M parameters,
-float32, d = 32 per head) and ``--full`` (about 100M, bf16, d = 64). The
-card's attention kernels take head dims 64, 128 and 256, so ``SMALL``
-runs on the CPU only: on the card its first forward raises the kernels'
-head-dim ``ValueError`` (no fallback). ``--full`` trains on the card
-through the bf16 prefill kernel with its log-sum-exp and the d = 64
-backward. Weights are drawn from seed 0 on the device.
+float32, d = 32 per head) and ``--full`` (about 100M, bf16, d = 64).
+``SMALL`` trains on the card through the 3xTF32 prefill kernel with its
+log-sum-exp and the float32 backward at head dim 32 (its mma.sync
+route); ``--full`` through the bf16 prefill kernel with its log-sum-exp
+and the d = 64 backward. Weights are drawn from seed 0 on the device.
 
 Runs on the card; ``--device cpu`` runs the plain torch path (the tests).
 """

@@ -38,6 +38,7 @@ def _close(got, want, tol):
     (2, 8, 2, 128, 128, 64),        # GQA 4:1
     (1, 4, 1, 64, 256, 64),         # MQA, sq < skv (chunked prefill)
     (1, 16, 8, 256, 256, 32),       # GQA 2:1
+    (1, 4, 2, 128, 128, 16),        # the smoke configs' head dim 16
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -82,6 +83,7 @@ def test_flash_attention_rows_without_keys_give_zero():
 
 @pytest.mark.parametrize("b,hq,hkv,S,d", [
     (2, 4, 4, 512, 64), (1, 8, 2, 1024, 64), (3, 16, 8, 256, 128),
+    (2, 4, 2, 256, 16), (1, 8, 2, 256, 32),   # the smoke head dims
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_plain_matches_jax(b, hq, hkv, S, d, dtype):

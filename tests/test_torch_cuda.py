@@ -421,7 +421,7 @@ def _normal(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (16, 1)])
 @pytest.mark.parametrize("sq,skv", [(128, 128), (77, 77), (33, 200),
@@ -473,7 +473,7 @@ def test_flash_attention_granite_heads(cuda, dtype, hq, hkv, sq, skv):
                                atol=atol)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("case", ["scores_60", "long_rows", "gqa_16"])
 def test_flash_attention_f32_where_the_split_matters(cuda, d, case):
     """float32 on the 3xTF32 kernel, a second call giving the same bits:
@@ -514,7 +514,7 @@ def test_flash_attention_f32_where_the_split_matters(cuda, d, case):
                                    atol=atol)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 4), (16, 1)])
 @pytest.mark.parametrize("S", [1, 100, 2112, 5000])
@@ -547,7 +547,7 @@ def test_flash_decode_kernel_matches_plain(cuda, d, dtype, hq, hkv, S):
         FA.flash_decode_plain(q, k, v, S).float(), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv", [(32, 2), (16, 16), (6, 2)])
 def test_flash_decode_ragged_stages_and_deterministic(cuda, d, dtype, hq,
@@ -576,7 +576,7 @@ def test_flash_decode_ragged_stages_and_deterministic(cuda, d, dtype, hq,
 
 def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
     from repro_torch.kernels import flash_attention as FA
-    q = torch.zeros((1, 4, 8, 32), device=cuda)       # head dim 32
+    q = torch.zeros((1, 4, 8, 48), device=cuda)       # head dim 48
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="head dim"):
@@ -610,9 +610,9 @@ def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_transformer_on_card_matches_cpu(cuda, dtype):
-    """A qwen3-shaped model with head dim 64 (the smoke config's 16 is
-    not a kernel width): prefill + 3 greedy steps on the card against
-    the same weights on the CPU."""
+    """A qwen3-shaped model with head dim 64 (the smoke configs
+    themselves: ``test_smoke_config_on_card_matches_cpu``): prefill + 3
+    greedy steps on the card against the same weights on the CPU."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -641,6 +641,34 @@ def test_transformer_on_card_matches_cpu(cuda, dtype):
     else:   # cuBLAS and the CPU round bf16 products at other places
         assert float((got - want).abs().max()) <= 2e-2 * float(
             want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma-7b", "chatglm3-6b"])
+def test_smoke_config_on_card_matches_cpu(cuda, arch):
+    """The reference's dense smoke configs as the port gives them
+    (float32; head dim 16, 32 and 16, chatglm3's rotary on half of d):
+    prefill + 3 greedy steps on the card, through the 3xTF32 prefill and
+    the decode kernel at that head dim, against the same weights on the
+    CPU: the same tokens, logits within 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_arch(arch).smoke_cfg
+    assert cfg.hd in (16, 32) and cfg.dtype == "float32"
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(3, 37))
+    cpu = serve.generate(T.Transformer(cfg, params, device="cpu"),
+                         prompts, 3)
+    reset_launch_counts()
+    gpu = serve.generate(T.Transformer(cfg, params, device=cuda), prompts,
+                         3)
+    counts = launch_counts()
+    assert counts["flash_attention_tf32"] == cfg.n_layers
+    assert counts["flash_decode"] == 3 * cfg.n_layers
+    np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
+    torch.testing.assert_close(gpu.logits.float().cpu(), cpu.logits.float(),
+                               rtol=1e-3, atol=1e-3)
 
 
 def _chip_smoke():
@@ -948,7 +976,7 @@ def _bwd_case(cuda, b, d, hq, hkv, s, causal, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bfloat16", "float32"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (16, 1)])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 77, 128, 129, 257, 300])
 @pytest.mark.parametrize("causal", [True, False])

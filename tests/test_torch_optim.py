@@ -148,3 +148,33 @@ def test_train_state_layout():
     assert [tuple(t.shape) for t in got] == [w.shape for w in want]
     assert [str(t.dtype).split(".")[-1] for t in got] == [
         str(w.dtype) for w in want]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_in_slices_gives_the_whole_leaf_bits(dtype, monkeypatch):
+    """adamw_update takes a large leaf in slices of its first axis (CHUNK
+    elements), which bounds its float32 temporaries: the arithmetic is
+    elementwise, so three steps give the same parameters and moments,
+    bit for bit, as with each leaf whole."""
+    def run(chunk):
+        monkeypatch.setattr(O, "CHUNK", chunk)
+        gen = torch.Generator().manual_seed(0)
+        params = {"w": torch.randn((5, 30, 7), generator=gen).to(dtype),
+                  "b": torch.randn(9, generator=gen).to(dtype)}
+        state = O.train_state_init(params)
+        for i in range(3):
+            g = torch.Generator().manual_seed(i + 1)
+            grads = {k: torch.randn(v.shape, generator=g).to(dtype)
+                     for k, v in params.items()}
+            state, _ = O.adamw_update(state, grads, O.AdamWConfig(
+                warmup_steps=0))
+        return state
+
+    whole, sliced = run(1 << 26), run(2 * 30 * 7)
+    assert len(O._slices(*[whole.params["w"]] * 4)) == 3   # 2 + 2 + 1 rows
+    monkeypatch.setattr(O, "CHUNK", 1 << 26)
+    assert len(O._slices(*[whole.params["w"]] * 4)) == 1
+    for part in ("params", "mu", "nu"):
+        for a, b in zip(O.tree_leaves(getattr(whole, part)),
+                        O.tree_leaves(getattr(sliced, part))):
+            assert torch.equal(a, b)

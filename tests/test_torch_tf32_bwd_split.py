@@ -216,7 +216,8 @@ def worst(got, want):
 
 
 SHAPES = [(d, hq, hkv, s, causal)
-          for d in (64, 128, 256) for hq, hkv in GROUPS for s in (77, 300)
+          for d in (16, 32, 64, 128, 256) for hq, hkv in GROUPS
+          for s in (77, 300)
           for causal in (True, False)]
 
 
@@ -228,7 +229,7 @@ def test_three_passes_hold_the_f32_tolerance_with_margin(d, hq, hkv, s,
     assert worst(emulate(q, k, v, o, do, lse, causal), want) <= 0.5
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_one_tf32_pass_misses_the_f32_tolerance(d):
     q, k, v, do, o, lse = inputs(d, 4, 2, 77, True)
     want = want_of(q, k, v, do, o, lse, True)
@@ -236,7 +237,7 @@ def test_one_tf32_pass_misses_the_f32_tolerance(d):
     assert worst(emulate(q, k, v, o, do, lse, True, passes=1), want) > 10.0
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_float32_plain_version_meets_the_f32_tolerance(d):
     """attention_bwd_ref itself in float32, the yardstick's arithmetic
     in the working type, holds the tolerance it sets."""
@@ -282,11 +283,23 @@ def source_geometry(d: int) -> dict:
     constants: the columns of d a CTA holds (d up to MAX_CTA_COLS, then a
     cluster splits d), KG, R = 2048 / C rows a stage, the N of a fresh
     fragment of dV and dK (64) and of dQ (C / 2), and whether split_a
-    passes the raw value as hi."""
+    passes the raw value as hi. A d the entries send to the mma.sync
+    route (``launch_dkdv_mma<d>``) reads that route's ``MmaCfg<d>``: its
+    stages, fresh groups of NG d steps, and A fragments split by rna."""
     src = SOURCE.read_text()
 
     def const(pattern):
         return int(re.search(pattern, src).group(1))
+
+    if f"launch_dkdv_mma<{d}>" in src:
+        _, rows, keys = (int(x) for x in re.search(
+            rf"struct MmaCfg<{d}> {{\n  static constexpr int NW = (\d+), "
+            rf"KV_ROWS = (\d+), Q_KEYS = (\d+);", src).groups())
+        ng = min(d // 8, const(r"int NG = D / 8 < (\d+) \?"))
+        rna = "split(a[0], h[0], l[0]);" in src
+        return {"cta_cols": d, "kg": const(r"constexpr int KG = (\d+);"),
+                "kv_rows": rows, "q_keys": keys, "kv_cols": 8 * ng,
+                "q_cols": 8 * ng, "a_split": "rna" if rna else "trunc"}
 
     cols = min(d, const(r"constexpr int MAX_CTA_COLS = (\d+);"))
     rows = const(r"static constexpr int R = (\d+) / C;") // cols
@@ -300,7 +313,7 @@ def source_geometry(d: int) -> dict:
             "a_split": "trunc" if raw_hi else "rna"}
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_emulated_geometry_is_the_kernels(d):
     """BWD_GEOMETRY, which the emulation above runs, is what the kernel
     source sets."""
@@ -311,8 +324,8 @@ def test_products_table_is_the_sources():
     """flash_attention.BWD_PRODUCTS["float32"], which chip_smoke.py's
     timed check reads, is the products line of the kernel's header."""
     from repro_torch.kernels import flash_attention as FA
-    line = re.search(r"products \(dK/dV, dQ\) by d: (.*)",
-                     SOURCE.read_text()).group(1)
+    line = re.search(r"products \(dK/dV, dQ\) by d: (.*(?:\n// \d.*)*)",
+                     SOURCE.read_text()).group(1).replace("\n// ", " ")
     got = {int(d): tuple(int(x) for x in pair.split(","))
            for d, pair in (part.split(":") for part in line.split(";"))}
     assert FA.BWD_PRODUCTS["float32"] == got

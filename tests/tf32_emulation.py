@@ -26,8 +26,14 @@ import torch
 # operands (K, V, Q, dO in the first products; P^T, dS^T, dS in the
 # second) are split: "rna" as ``split``, "trunc" as ``split_trunc`` (the
 # kernels pass the raw value as hi). The B operands are always split by
-# ``split``.
+# ``split``. At d = 16 and 32 the kernels are the mma.sync route
+# (bwd_dkdv_mma, bwd_dq_mma): stages of KV_ROWS query rows and Q_KEYS
+# keys, fresh fragments of up to 4 d steps, every operand split by rna.
 BWD_GEOMETRY = {
+    16: {"cta_cols": 16, "kg": 2, "kv_rows": 32, "q_keys": 32,
+         "kv_cols": 16, "q_cols": 16, "a_split": "rna"},
+    32: {"cta_cols": 32, "kg": 2, "kv_rows": 32, "q_keys": 32,
+         "kv_cols": 32, "q_cols": 32, "a_split": "rna"},
     64: {"cta_cols": 64, "kg": 2, "kv_rows": 32, "q_keys": 32,
          "kv_cols": 64, "q_cols": 32, "a_split": "trunc"},
     128: {"cta_cols": 128, "kg": 2, "kv_rows": 16, "q_keys": 16,
