@@ -125,6 +125,26 @@ Phases, each printing its wall time:
              full width and depth (28 layers each) the way of phase
              serve, 16 greedy tokens (chatglm3's end to end gated in
              float32, F32_END_TO_END);
+9d. long_context  the published long-context LM shapes: the dry run
+             (launch/dryrun.py --arch all --shape all, in this process,
+             on the meta device; one line a cell: state, inputs,
+             reckoned bytes, FLOPs, dominant); qwen3-1.7b at prefill_32k
+             through its arch's step_fn (bf16, random weights from
+             --seed, 32768 tokens a row, the largest batch of the
+             published 32 that its reckoning fits in 90% of the card),
+             the prefill kernel held against the blockwise plain version
+             on row 0 of layers 0 and 27 and timed at the run's batch;
+             qwen3-1.7b at decode_32k (b 16 of 128) and long_500k (b 1)
+             and chatglm3-6b at long_500k: the cache filled from a seeded
+             generator to capacity - 8, one step through the plain
+             versions (decode per KV head), then 8 counted, timed greedy
+             steps through the kernels (p50 / p99 beside the byte bound
+             of parameters and cache), the first step's logits and token
+             against the plain step's (chatglm3's logits in float32), the
+             decode kernel held against its plain version on the last
+             step's first and last layer and timed, the combine timed
+             alone, and the measured peak within 0 to +15% of the dry
+             run's state + inputs;
 10. recsys   the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
              row table, random weights from --seed): the interaction kernel
              against its plain version at the reference's kernel-test
@@ -248,7 +268,7 @@ Phases, each printing its wall time:
              the launcher's on the CPU from the same parameters) and the
              sampler's subgraph;
 11. launches each kernel's launch count over the host-mode runs of
-             phases 5, 6, 9, 9b, 9c, 10, 10b to 10b5 and 10c (each
+             phases 5, 6, 9, 9b, 9c, 9d, 10, 10b to 10b5 and 10c (each
              counted from 0 just before it; 10b5's also by head dim,
              "smoke_launches_by_head_dim"), and apart the engine kernels'
              calls in phases 7 and 8,
@@ -263,7 +283,8 @@ Phases, each printing its wall time:
              bf16 forward and d <= 128 backward).
 
 With ``--profile``, each of Reach, CC and SSSP in host and in device
-mode, the serve prefill, four decode steps, the float32 prefill,
+mode, the serve prefill, four decode steps, the float32 prefill, the
+long-context prefill's attention kernel at [b, 16, 32768, 128],
 granite-moe-3b-a800m's prefill, four decode steps and one MoE layer at
 decode (with a "moe dispatch" family), one serve_bulk batch, one
 qwen3-1.7b train step (with the cross-entropy and the AdamW update also
@@ -3802,6 +3823,430 @@ CHATGLM_TIMED_STEPS = 4
 # checked (8 requests of 2048 tokens, as qwen3's serve), greedy tokens
 LARGE_SERVES = (("chatglm3-6b", 16), ("gemma-7b", 16))
 
+# -- phase long_context: the published long-context LM shapes --------------
+
+# (arch, shape, batch) of the decode runs: decode_32k at 16 of its 128
+# requests (the cache of 128 is 481 GB), long_500k at its published 1
+LONG_DECODES = (("qwen3-1.7b", "decode_32k", 16),
+                ("qwen3-1.7b", "long_500k", 1),
+                ("chatglm3-6b", "long_500k", 1))
+LONG_PREFILL = ("qwen3-1.7b", "prefill_32k")
+LONG_DECODE_STEPS = 8
+CARD_SHARE = 0.9        # of the card's memory a run is sized to
+PEAK_OVER = 0.15        # a decode's measured peak over the dry run's reckoning
+LONG_DIR = ROOT / "build" / "dryrun"
+
+
+def run_long_dryrun(torch):
+    """``launch/dryrun.py --arch all --shape all`` in this process (its
+    cells on the meta device; its own lines kept out of the log): one line
+    a cell. Raises if a cell failed. Returns {tag: result}."""
+    from repro_torch.launch import dryrun
+    shutil.rmtree(LONG_DIR, ignore_errors=True)
+    try:
+        results, _ = captured_stdout(dryrun.main, [
+            "--arch", "all", "--shape", "all", "--out", str(LONG_DIR)])
+    except SystemExit:
+        failed = [f.name for f in LONG_DIR.glob("*.json")
+                  if not json.loads(f.read_text())["ok"]]
+        raise AssertionError(f"dry run: cells failed: {failed}")
+    for tag, r in results.items():
+        m, c, roof = r["memory"], r["cost_per_device"], r["roofline"]
+        print(f"dryrun {tag}: ok {r['ok']}, trace {r['trace_s']} s, state "
+              f"{m['state_bytes_per_device']} B, inputs "
+              f"{m['io_bytes_per_device']} B, reckoned "
+              f"{m['traffic_bytes_per_device']} B a step, flops "
+              f"{c['flops']:.6e}, dominant {roof['dominant']}, bound "
+              f"{roof['step_s_lower_bound']:.6e} s, fits "
+              f"{m['fits_80gb_hbm']} (with inputs "
+              f"{m['resident_fits_80gb_hbm']})", flush=True)
+    return results
+
+
+@contextlib.contextmanager
+def prefill_captured(FA, keep):
+    """The model's prefill attention through the kernel, the inputs of
+    batch row 0 at the layers in ``keep`` cloned: yields {layer: (q, k,
+    v)}."""
+    captured, calls = {}, [0]
+    kernel_fa = FA.flash_attention
+
+    def fa(q, k, v, causal=True):
+        layer = calls[0]
+        calls[0] += 1
+        if layer in keep:
+            captured[layer] = (q[:1].clone(), k[:1].clone(), v[:1].clone())
+        return kernel_fa(q, k, v, causal=causal)
+
+    with attention_swapped(FA, fa, FA.flash_decode):
+        yield captured
+
+
+def run_long_prefill(torch, seed, profile=False, device="cuda"):
+    """qwen3-1.7b at prefill_32k through ``arch.step_fn``: bf16 random
+    weights from ``seed``; one row first, whose peak above the parameters
+    and its cache gives a row's transients, then the largest batch of at
+    most the published 32 whose parameters, cache, transients and
+    captures the reckoning fits in ``CARD_SHARE`` of the card, counted
+    and timed, capturing row 0 of the first and last layer's attention
+    inputs; the kernel held against ``flash_attention_plain`` (blockwise
+    at these lengths) on both, then timed at [b, 16, 32768, 128] (layer
+    0's row repeated b times; the kernel's time does not depend on the
+    values) beside its bound and SDPA. Returns (launches, the kernel's
+    numbers, the batch)."""
+    import numpy as np
+    from repro_torch.configs import base as B
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    name, shape = LONG_PREFILL
+    arch = get_arch(name)
+    cfg, S = arch.cfg, arch.shapes[shape].sizes["seq_len"]
+    published = arch.shapes[shape].sizes["global_batch"]
+    step = arch.step_fn(shape)
+    model = T.Transformer(cfg, device=device,
+                          generator=torch.Generator(device).manual_seed(seed))
+    params = B._tree_bytes(arch.state_specs(shape))
+    base = torch.cuda.memory_allocated()
+    L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    cache_row = 2 * L * hkv * S * hd * 2             # K and V in bf16
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(published, S)), dtype=torch.int32, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    step(model, {"tokens": tokens[:1]})
+    torch.cuda.synchronize()
+    row = torch.cuda.max_memory_allocated() - base - cache_row
+    keep = (0, L - 1)
+    capture = len(keep) * (cfg.n_heads + 2 * hkv) * S * hd * 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    room = CARD_SHARE * total - base - capture
+    b = max(1, min(published, int(room // (cache_row + row))))
+    print(f"prefill_32k reckoning: parameters {params} B, a row's cache "
+          f"{cache_row} B and transients {row} B (the one-row run's peak "
+          f"above both), captures {capture} B, {CARD_SHARE} of "
+          f"{total} B: batch {b}; reduced: batch {b} of {published}",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with prefill_captured(FA, keep) as captured:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, length = step(model, {"tokens": tokens[:b]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    model_flops = arch.model_flops(shape, global_batch=b)
+    print(f"prefill_32k: {L} layers, {b} x {S} tokens through "
+          f"step_fn({shape!r}): {prefill_s} s, {b * S / prefill_s} tokens/s, "
+          f"model-FLOP share {model_flops / prefill_s / BF16_FLOPS_PER_S}, "
+          f"peak {peak} B ({peak / total:.4f} of the card), launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts["flash_attention_wgmma"] != L:
+        raise AssertionError(f"prefill_32k: {counts['flash_attention_wgmma']}"
+                             f" prefill launches, expected {L}")
+    if not (bool(torch.isfinite(logits.float()).all())
+            and logits.shape == (b, cfg.vocab_padded)
+            and length.tolist() == [S] * b):
+        raise AssertionError("prefill_32k: logits or lengths wrong")
+    del logits, length, tokens
+    torch.cuda.empty_cache()
+    for layer in keep:
+        q, k, v = captured[layer]
+        r = check_attention(torch, f"prefill_32k layer {layer} row 0: "
+                            f"{list(q.shape)} over {list(k.shape)}", q, k, v,
+                            timed=False)
+    q, k, v = (t.expand(b, *t.shape[1:]).contiguous() for t in captured[0])
+    captured.clear()
+    numbers = check_attention(torch, f"prefill_32k layer 0, row 0 repeated: "
+                              f"{list(q.shape)} over {list(k.shape)}",
+                              q, k, v)
+    numbers["max_abs_err"] = max(numbers["max_abs_err"], r["max_abs_err"])
+    numbers.update(batch=b, prefill_s=prefill_s, peak_bytes=peak,
+                   launches=counts["flash_attention_wgmma"])
+    if profile:
+        profile_run(torch, "prefill_32k, layer 0's attention",
+                    lambda: FA.flash_attention(q, k, v, True))
+    del q, k, v, model
+    torch.cuda.empty_cache()
+    return counts, numbers, b
+
+
+def decode_plain_by_kv_head(q, k, v, kv_len):
+    """``flash_decode_plain`` one KV head (and its query group) at a time:
+    the function is separable over KV heads, and the plain version's
+    float32 copy of K and V repeated over the group then takes one head's
+    room."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    hkv, group = k.shape[1], q.shape[1] // k.shape[1]
+    return torch.cat([FA.flash_decode_plain(
+        q[:, h * group:(h + 1) * group], k[:, h:h + 1], v[:, h:h + 1], kv_len)
+        for h in range(hkv)], dim=1)
+
+
+@contextlib.contextmanager
+def decode_captured(FA, layers, keep, last_call):
+    """The model's decode attention through the kernel; at call number
+    ``last_call`` (of the run's steps x layers) and later, the inputs of
+    the layers in ``keep``: q and kv_len cloned, k and v the cache's own
+    layer views (the run writes nothing after its last step). Yields
+    {layer: (q, k, v, kv_len)}."""
+    captured, calls = {}, [0]
+    kernel_fd = FA.flash_decode
+
+    def fd(q, k, v, kv_len):
+        n = calls[0]
+        calls[0] += 1
+        if n >= last_call and n % layers in keep:
+            captured[n % layers] = (q.clone(), k, v, kv_len.clone())
+        return kernel_fd(q, k, v, kv_len)
+
+    with attention_swapped(FA, FA.flash_attention, fd):
+        yield captured
+
+
+def filled_cache(torch, cfg, batch, S, filled, seed, dtype, device):
+    """A zeroed [L, b, hkv, S, hd] cache whose first ``filled`` positions
+    are N(0, 1) draws from a generator seeded with ``seed``, one layer at
+    a time into the buffer (no whole-cache temporary)."""
+    from repro_torch.models import transformer as T
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, S, cfg.hd)
+    k = torch.zeros(shape, dtype=dtype, device=device)
+    v = torch.zeros_like(k)
+    gen = torch.Generator(device).manual_seed(seed)
+    for i in range(cfg.n_layers):
+        k[i, :, :, :filled].normal_(generator=gen)
+        v[i, :, :, :filled].normal_(generator=gen)
+    return T.KVCache(k, v, torch.full((batch,), filled, dtype=torch.int32,
+                                      device=device))
+
+
+def decode_first_step(torch, FA, step, model, token, cache):
+    """(logits of one step through the plain versions, decode per KV
+    head), then the cache as it was: the step's K and V at the length
+    zeroed (the step adds them, as the reference's one-hot add)."""
+    with attention_swapped(FA, FA.flash_attention_plain,
+                           decode_plain_by_kv_head):
+        logits, _ = step(model, {"token": token, "cache": cache})
+    pos = int(cache.length[0])
+    cache.k[:, :, :, pos].zero_()
+    cache.v[:, :, :, pos].zero_()
+    return logits
+
+
+def time_decode_combine(torch, b, hq, d, n_splits, dtype):
+    """The decode's combine kernel alone on random partials of the
+    split count ``decode_splits`` chose (launched through the library,
+    not counted): ms."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    lib = FA._lib()
+    part_m = torch.randn((b, hq, n_splits), device="cuda")
+    part_l = torch.rand((b, hq, n_splits), device="cuda") + 1.0
+    part_acc = torch.randn((b, hq, n_splits, d), device="cuda")
+    out = torch.empty((b, hq, d), dtype=dtype, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def combine():
+        _build.check(lib.flash_decode_combine(
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            out.data_ptr(), int(dtype == torch.bfloat16), b * hq, d,
+            n_splits, stream), "flash_decode_combine")
+    return cuda_ms(torch, combine)
+
+
+def check_decode_float32(torch, FA, arch, shape, batch, seed, device):
+    """The decode step of a config of ``F32_END_TO_END`` in float32: the
+    served weights drawn again from ``seed`` and cast, a float32 cache
+    filled the same way, one step through the kernels against one through
+    the plain versions (decode per KV head): the same greedy tokens,
+    logits within 1e-3 of their scale."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(arch.cfg, dtype="float32")
+    S = arch.shapes[shape].sizes["seq_len"]
+    dev = torch.device(device)
+    tree = T.tree_map(lambda w: w.float(), T.init_params(
+        arch.cfg, torch.Generator(dev).manual_seed(seed), dev))
+    model = T.Transformer(cfg, tree, device=dev)
+    del tree
+    cache = filled_cache(torch, cfg, batch, S, S - LONG_DECODE_STEPS,
+                         seed + 1, torch.float32, dev)
+    token = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(batch, 1)), dtype=torch.int32, device=dev)
+
+    def step(m, inputs):       # arch.step_fn's, made for the bf16 config
+        return m.decode_step(inputs["token"], inputs["cache"])
+
+    plain = decode_first_step(torch, FA, step, model, token, cache)
+    got, _ = step(model, {"token": token, "cache": cache})
+    vocab = cfg.vocab
+    diff = float((got - plain)[:, :vocab].abs().max())
+    scale = float(plain[:, :vocab].abs().max())
+    same = torch.equal(got.argmax(-1), plain.argmax(-1))
+    print(f"{arch.name} {shape} float32 (b {batch}, one step): tokens "
+          f"equal {same}, logits max abs diff {diff} of scale {scale}",
+          flush=True)
+    del model, cache
+    torch.cuda.empty_cache()
+    if not (same and diff <= 1e-3 * scale):
+        raise AssertionError(f"{arch.name} {shape} float32: kernels and "
+                             f"plain versions disagree")
+
+
+def run_long_decode(torch, seed, name, shape, batch, dry, device="cuda"):
+    """``name`` at ``shape`` through ``arch.step_fn`` at ``batch``: bf16
+    random weights from ``seed``, the cache filled to capacity - 8 by
+    ``filled_cache``; one step through the plain versions (decode per KV
+    head), the cache restored; then 8 counted, timed greedy steps through
+    the kernels, the first's logits and tokens against the plain step's
+    (qwen3 in bf16, tokens equal and logits within 2% of scale;
+    ``F32_END_TO_END``'s tokens equal in bf16 and logits in float32,
+    ``check_decode_float32``); the peak above what was allocated before
+    the run held to the dry run's reckoning of state and inputs (``dry``:
+    its state bytes, the inputs' at this batch): not under it, and at
+    most ``PEAK_OVER`` over; the decode kernel held against its plain
+    version on the last step's first and last layer, layer 0 timed beside
+    its bound and SDPA, the combine timed alone. Returns (launches,
+    numbers)."""
+    import numpy as np
+    from repro_torch.configs import base as B
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    arch = get_arch(name)
+    cfg = arch.cfg
+    S = arch.shapes[shape].sizes["seq_len"]
+    published = arch.shapes[shape].sizes["global_batch"]
+    L, steps = cfg.n_layers, LONG_DECODE_STEPS
+    tag = f"{name} {shape}"
+    step = arch.step_fn(shape)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, device=device,
+                          generator=torch.Generator(device).manual_seed(seed))
+    cache = filled_cache(torch, cfg, batch, S, S - steps, seed + 1,
+                         cfg.compute_dtype, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state = dry["memory"]["state_bytes_per_device"]
+    io = B._tree_bytes(arch.input_specs(shape, batch=batch))
+    if state != B._tree_bytes(model.param_tree()):
+        raise AssertionError(f"{tag}: the dry run's state is not the "
+                             f"model's parameters")
+    reckoned = state + io
+    token = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(batch, 1)), dtype=torch.int32, device=device)
+    plain = decode_first_step(torch, FA, step, model, token, cache)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times = []
+    keep = (0, L - 1)
+    with decode_captured(FA, L, keep, (steps - 1) * L) as captured:
+        tok, c = token, cache
+        for i in range(steps):
+            t1 = time.perf_counter()
+            logits, c = step(model, {"token": tok, "cache": c})
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            if i == 0:
+                first = logits.clone()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    p50, p99 = (float(np.percentile(times, q)) for q in (50, 99))
+    step_bound = (state + 2 * cfg.n_layers * batch * cfg.n_kv_heads * S
+                  * cfg.hd * 2) / HBM_BYTES_PER_S
+    n_splits, split_len = FA.decode_splits(batch, cfg.n_kv_heads, S)
+    print(f"{tag} (b {batch} of {published}, cache {S} filled to "
+          f"{S - steps}; reduced: batch {batch} of {published}): built and "
+          f"filled in {build_s:.3f} s; {steps} steps p50 {p50 * 1e3} ms, p99 "
+          f"{p99 * 1e3} ms against the byte bound of parameters and cache "
+          f"{step_bound * 1e3} ms ({step_bound / p50:.4f} of it); decode "
+          f"splits {n_splits} of {split_len}; peak {peak} B against the dry "
+          f"run's state + inputs {reckoned} B ({peak / reckoned:.6f}); "
+          f"launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    want = {"flash_decode": L * steps, "flash_decode_combine": L * steps,
+            "flash_attention_wgmma": 0, "flash_attention_tf32": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    if not reckoned <= peak <= (1 + PEAK_OVER) * reckoned:
+        raise AssertionError(f"{tag}: measured peak {peak} B outside 0 to "
+                             f"+{PEAK_OVER:.0%} of the dry run's {reckoned} B")
+    if not (bool(torch.isfinite(logits.float()).all())
+            and c.length.tolist() == [S] * batch):
+        raise AssertionError(f"{tag}: logits or lengths wrong")
+    vocab = cfg.vocab
+    diff = float((first.float() - plain.float())[:, :vocab].abs().max())
+    scale = float(plain.float()[:, :vocab].abs().max())
+    same = torch.equal(first.argmax(-1), plain.argmax(-1))
+    print(f"{tag} first step against the plain step: tokens equal {same}, "
+          f"logits max abs diff {diff} of scale {scale}", flush=True)
+    if not (same and (diff <= 2e-2 * scale or name in F32_END_TO_END)):
+        raise AssertionError(f"{tag}: kernels and plain versions disagree")
+    del first, plain, logits
+    numbers = {}
+    for layer in keep:
+        q, k, v, kv_len = captured[layer]
+        r = check_attention(torch, f"{tag} decode layer {layer}: "
+                            f"{list(q.shape)} over {list(k.shape)}, kv_len "
+                            f"{kv_len.tolist()}", q, k, v, kv_len=kv_len,
+                            timed=layer == 0)
+        if layer == 0:
+            numbers = r
+        else:
+            numbers["max_abs_err"] = max(numbers["max_abs_err"],
+                                         r["max_abs_err"])
+    captured.clear()
+    combine_ms = time_decode_combine(torch, batch, cfg.n_heads, cfg.hd,
+                                     n_splits, cfg.compute_dtype)
+    print(f"{tag}: decode kernel {numbers['ms']:.4f} ms ("
+          f"{numbers['ms'] / (p50 * 1e3):.4f} of the step's p50), the "
+          f"combine alone over {n_splits} splits {combine_ms:.4f} ms",
+          flush=True)
+    numbers.update(batch=batch, step_p50_ms=p50 * 1e3, step_p99_ms=p99 * 1e3,
+                   step_bound_ms=step_bound * 1e3, n_splits=n_splits,
+                   split_len=split_len, combine_ms=combine_ms,
+                   peak_bytes=peak, reckoned_bytes=reckoned,
+                   launches=counts["flash_decode"])
+    del model, cache, c, q, k, v
+    torch.cuda.empty_cache()
+    if name in F32_END_TO_END:
+        check_decode_float32(torch, FA, arch, shape, batch, seed, device)
+    return counts, numbers
+
+
+def run_long_context_phase(torch, seed, profile=False, device="cuda"):
+    """Phase long_context: the dry run of every arch and shape, qwen3-1.7b
+    at prefill_32k, decode_32k and long_500k and chatglm3-6b at long_500k
+    (``run_long_prefill``, ``run_long_decode``), on ``device`` (the CPU
+    only to rehearse it at small configs, the CUDA calls stubbed).
+    Returns (launches of the counted runs, {kernel line name: {run:
+    numbers}})."""
+    dry = run_long_dryrun(torch)
+    gc.collect()                # the runs size themselves to the card
+    torch.cuda.empty_cache()
+    totals, measured = {}, {}
+    counts, numbers, _ = run_long_prefill(torch, seed, profile, device)
+    add_counts(totals, counts)
+    measured["flash_attention_wgmma"] = {"prefill_32k": numbers}
+    for name, shape, batch in LONG_DECODES:
+        counts, numbers = run_long_decode(
+            torch, seed, name, shape, batch, dry[f"{name}__{shape}__1xH100"],
+            device)
+        add_counts(totals, counts)
+        measured.setdefault("flash_decode", {})[f"{name} {shape}"] = numbers
+    return totals, measured
+
+
 # -- phase smoke: the reference's smoke configs (head dims 16 and 32) -------
 
 SMOKE_ARCHS = ("qwen3-1.7b", "gemma-7b", "chatglm3-6b",
@@ -4824,6 +5269,12 @@ def main(argv=None) -> int:
             for name, numbers in large_measured.items():
                 measured[name][arch] = numbers
             add_counts(totals, counts)
+    with phase("long_context"):
+        counts, long_measured = run_long_context_phase(torch, args.seed,
+                                                       args.profile)
+        for name, numbers in long_measured.items():
+            measured[name]["long_context"] = numbers
+        add_counts(totals, counts)
     with phase("recsys"):
         counts, measured["fm_interaction"] = run_recsys_phase(
             torch, args.seed, profile=args.profile)

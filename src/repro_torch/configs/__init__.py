@@ -28,3 +28,8 @@ def get_arch(name: str):
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name]).ARCH
+
+
+def all_archs() -> dict:
+    """Every registered name -> its ArchSpec."""
+    return {name: get_arch(name) for name in _ARCH_MODULES}

@@ -1,13 +1,17 @@
 """ArchSpecs for the LM, GNN and recsys families, after
-``repro.configs.base``.
+``repro.configs.base``: the contract between the configs, the launchers
+and the dry run (``launch/dryrun.py``).
 
-The reference's ArchSpec also serves the dry-run, the sharding specs
-and the roofline harness (abstract inputs, mesh shardings, FLOP
-counts); none of that is ported. What remains: the full and smoke
-configs, the named input shapes and their sizes, ``init_smoke``, the
-optimizer config, and the step functions: the train steps of the three
-families, and the recsys serve and retrieval steps (the LM serves
-through ``launch.serve``).
+Per named input shape an arch gives ``input_specs`` (every input of the
+step as a tensor on ``torch.device("meta")``, the port's
+``jax.ShapeDtypeStruct``: a shape and a dtype, no memory),
+``state_specs`` (the parameters, or a ``TrainState`` of parameters,
+float32 moments and a step, the same way), ``step_fn`` (the step:
+train, LM prefill and decode, recsys serve and retrieval),
+``model_flops`` and ``init_smoke``; the traffic models at the end reckon
+a step's HBM bytes on one device. The reference's mesh shardings
+(``shardings``, ``param_pspecs``, ``fsdp_pspecs``, ``data_axes``) have no
+counterpart on one card.
 
 A train step is ``train_step(model, state, batch) -> (state, metrics)``:
 the model (built with ``train=True``) holds the parameters, ``state`` is
@@ -15,7 +19,9 @@ a ``TrainState`` whose params are the model's ``param_tree()``, and the
 step runs the loss with gradients into the model's ``grad_tree()``, then
 ``adamw_update``, which writes the parameters (so the model) and the
 moments in place. Metrics stay on the device: {"loss", "ce", "gnorm"}
-(LM), {"loss", "gnorm"} (GNN, recsys), as the reference's.
+(LM), {"loss", "gnorm"} (GNN, recsys), as the reference's. A serve step
+is ``step(model, batch)``; every step checks that the model is of the
+config it was made for.
 """
 from __future__ import annotations
 
@@ -29,7 +35,22 @@ from repro_torch.models.common import cross_entropy_loss
 from repro_torch.models.gnn import dimenet, nequip
 from repro_torch.models.gnn.common import Graph
 from repro_torch.models.recsys import fm as FM
-from repro_torch.training.optim import AdamWConfig, TrainState, adamw_update
+from repro_torch.training.optim import (
+    AdamWConfig, TrainState, adamw_update, train_state_init, tree_leaves,
+)
+
+META = torch.device("meta")
+
+
+def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A shape and a dtype, no memory: the port's ShapeDtypeStruct."""
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+def _sizes(specs: dict) -> dict:
+    """Input name -> shape of the tensors among ``specs``."""
+    return {k: tuple(v.shape) for k, v in specs.items()
+            if isinstance(v, torch.Tensor)}
 
 
 @dataclass(frozen=True)
@@ -84,20 +105,46 @@ class LMArch:
     def shapes(self):
         return LM_SHAPES
 
-    def input_sizes(self, shape_name: str, smoke: bool = False) -> dict:
-        """Input name -> shape (int32) of a step, as the reference's
-        ``input_specs``: train {tokens, labels} [b, seq], prefill
-        {tokens}, decode {token} [b, 1] (its cache aside); smoke cuts the
-        sequence to 128 and the batch to 4."""
+    def input_specs(self, shape_name: str, smoke: bool = False,
+                    batch: Optional[int] = None) -> dict:
+        """The step's inputs as meta tensors, as the reference's: train
+        {tokens, labels} [b, seq] int32, prefill {tokens}, decode {token
+        [b, 1] int32, cache: a ``KVCache`` of capacity seq, k and v [L,
+        b, hkv, seq, hd] in the compute dtype, length [b] int32}. Smoke
+        cuts the sequence to 128 and the batch to 4; ``batch`` replaces
+        the batch (a run on one card takes a cut of it)."""
+        cfg = self.smoke_cfg if smoke else self.cfg
         sh = self.shapes[shape_name]
         seq, b = sh.sizes["seq_len"], sh.sizes["global_batch"]
         if smoke:
             seq, b = min(seq, 128), min(b, 4)
+        if batch is not None:
+            b = batch
+        i32 = torch.int32
         if sh.kind == "train":
-            return dict(tokens=(b, seq), labels=(b, seq))
+            return dict(tokens=_spec((b, seq), i32),
+                        labels=_spec((b, seq), i32))
         if sh.kind == "prefill":
-            return dict(tokens=(b, seq))
-        return dict(token=(b, 1))
+            return dict(tokens=_spec((b, seq), i32))
+        kv = (cfg.n_layers, b, cfg.n_kv_heads, seq, cfg.hd)
+        return dict(token=_spec((b, 1), i32), cache=T.KVCache(
+            k=_spec(kv, cfg.compute_dtype), v=_spec(kv, cfg.compute_dtype),
+            length=_spec((b,), i32)))
+
+    def input_sizes(self, shape_name: str, smoke: bool = False) -> dict:
+        """Input name -> shape of the tensor inputs of ``input_specs``
+        (the decode's cache aside)."""
+        return _sizes(self.input_specs(shape_name, smoke))
+
+    def state_specs(self, shape_name: str, smoke: bool = False):
+        """The step's state as meta tensors: the parameter tree of
+        ``init_params``, and for a train shape a ``TrainState`` of it,
+        float32 moments and an int32 step."""
+        cfg = self.smoke_cfg if smoke else self.cfg
+        params = T.init_params(cfg, torch.Generator(), device=META)
+        if self.shapes[shape_name].kind == "train":
+            return train_state_init(params)
+        return params
 
     def init_smoke(self, generator: torch.Generator) -> dict:
         """Parameters of the smoke config, drawn from ``generator`` on
@@ -119,16 +166,29 @@ class LMArch:
             "seq_len"] * b
 
     def step_fn(self, shape_name: str, smoke: bool = False) -> Callable:
-        """``train_step(model, state, batch)`` for a train shape; the model
-        must be a ``Transformer`` of the config that ``smoke`` picks,
-        built with ``train=True``: a dense or an MoE FFN (whose loss adds
-        0.01 times its load-balancing loss)."""
+        """The step of a shape; the model must be a ``Transformer`` of the
+        config that ``smoke`` picks. A train shape gives
+        ``train_step(model, state, batch)`` (the model built with
+        ``train=True``; a dense or an MoE FFN, whose loss adds 0.01 times
+        its load-balancing loss); prefill ``serve_prefill(model, batch)
+        -> (last-position logits [b, V], cache.length)``; decode
+        ``serve_decode(model, batch) -> (logits [b, V], cache)``, which
+        writes the token's K and V into ``batch["cache"]`` in place, as
+        the reference's ``serve_prefill`` and ``serve_decode``."""
         cfg = self.smoke_cfg if smoke else self.cfg
-        if self.shapes[shape_name].kind != "train":
-            raise NotImplementedError(
-                f"{self.name} {shape_name}: the LM serves through "
-                f"repro_torch.launch.serve")
+        kind = self.shapes[shape_name].kind
         opt = self.opt
+        if kind == "prefill":
+            def serve_prefill(model, batch):
+                _check_model(model, cfg, shape_name)
+                logits, cache = model.prefill(batch["tokens"])
+                return logits, cache.length
+            return serve_prefill
+        if kind == "decode":
+            def serve_decode(model, batch):
+                _check_model(model, cfg, shape_name)
+                return model.decode_step(batch["token"], batch["cache"])
+            return serve_decode
 
         def train_step(model, state: TrainState, batch):
             _check_model(model, cfg, shape_name)
@@ -222,25 +282,38 @@ class GNNArch:
             cfg = cfg._replace(**{depth: self.layers})
         return cfg
 
-    def input_sizes(self, shape_name: str, smoke: bool = False) -> dict:
-        """Input name -> shape of a step, as the reference's
-        ``input_specs``: senders, receivers [E] int32; feature archs
-        node_feat [N, d_feat], edge_feat [E, 1] float32 and labels [N]
-        int32; geometric archs positions [N, 3] float32, species [N]
-        int32, energy_labels [N] float32, and for DimeNet t_kj, t_ji [E
-        triplet_mult] int32."""
+    def input_specs(self, shape_name: str, smoke: bool = False) -> dict:
+        """The step's inputs as meta tensors, as the reference's:
+        senders, receivers [E] int32; feature archs node_feat [N, d_feat],
+        edge_feat [E, 1] float32 and labels [N] int32; geometric archs
+        positions [N, 3] float32, species [N] int32, energy_labels [N]
+        float32, and for DimeNet t_kj, t_ji [E triplet_mult] int32."""
         s = self._dims(shape_name, smoke)
         N, E = s["n_nodes"], s["n_edges"]
-        sizes = dict(senders=(E,), receivers=(E,))
+        i32, f32 = torch.int32, torch.float32
+        specs = dict(senders=_spec((E,), i32), receivers=_spec((E,), i32))
         if self.kind == "feature":
-            sizes.update(node_feat=(N, s["d_feat"]), edge_feat=(E, 1),
-                         labels=(N,))
+            specs.update(node_feat=_spec((N, s["d_feat"]), f32),
+                         edge_feat=_spec((E, 1), f32),
+                         labels=_spec((N,), i32))
         else:
-            sizes.update(positions=(N, 3), species=(N,), energy_labels=(N,))
+            specs.update(positions=_spec((N, 3), f32),
+                         species=_spec((N,), i32),
+                         energy_labels=_spec((N,), f32))
             if self.name == "dimenet":
                 T_ = E * s.get("triplet_mult", 4)
-                sizes.update(t_kj=(T_,), t_ji=(T_,))
-        return sizes
+                specs.update(t_kj=_spec((T_,), i32), t_ji=_spec((T_,), i32))
+        return specs
+
+    def input_sizes(self, shape_name: str, smoke: bool = False) -> dict:
+        """Input name -> shape of ``input_specs``."""
+        return _sizes(self.input_specs(shape_name, smoke))
+
+    def state_specs(self, shape_name: str, smoke: bool = False):
+        """The train state as meta tensors: a ``TrainState`` of the
+        config's parameter tree, float32 moments and an int32 step."""
+        return train_state_init(self.init_fn(
+            self.config(shape_name, smoke), torch.Generator(), device=META))
 
     def init_smoke(self, generator: torch.Generator,
                    shape_name: str = "full_graph_sm"):
@@ -325,10 +398,11 @@ class RecsysArch:
     def shapes(self):
         return RECSYS_SHAPES
 
-    def input_sizes(self, shape_name: str, smoke: bool = False) -> dict:
-        """Input name -> shape (all int32 ids, int32 labels) of a step,
-        as the reference's ``input_specs``; smoke cuts the batch to 32
-        rows and the candidates to 1024."""
+    def input_specs(self, shape_name: str, smoke: bool = False) -> dict:
+        """The step's inputs as meta tensors (int32 ids and labels), as
+        the reference's: retrieval {context_ids [n_fields], candidate_ids
+        [C]}, serve {ids [B, n_fields]}, train also {labels [B]}; smoke
+        cuts the batch to 32 rows and the candidates to 1024."""
         cfg = self.smoke_cfg if smoke else self.cfg
         sh = self.shapes[shape_name]
         s = dict(sh.sizes)
@@ -336,13 +410,39 @@ class RecsysArch:
             s["batch"] = min(s["batch"], 32)
             if "n_candidates" in s:
                 s["n_candidates"] = min(s["n_candidates"], 1024)
+        i32 = torch.int32
         if sh.kind == "recsys_retrieval":
-            return dict(context_ids=(cfg.n_fields,),
-                        candidate_ids=(s["n_candidates"],))
-        sizes = dict(ids=(s["batch"], cfg.n_fields))
+            return dict(context_ids=_spec((cfg.n_fields,), i32),
+                        candidate_ids=_spec((s["n_candidates"],), i32))
+        specs = dict(ids=_spec((s["batch"], cfg.n_fields), i32))
         if sh.kind == "recsys_train":
-            sizes["labels"] = (s["batch"],)
-        return sizes
+            specs["labels"] = _spec((s["batch"],), i32)
+        return specs
+
+    def input_sizes(self, shape_name: str, smoke: bool = False) -> dict:
+        """Input name -> shape of ``input_specs``."""
+        return _sizes(self.input_specs(shape_name, smoke))
+
+    def state_specs(self, shape_name: str, smoke: bool = False):
+        """The step's state as meta tensors: the FM parameters, and for
+        train_batch a ``TrainState`` of them, float32 moments and an int32
+        step."""
+        cfg = self.smoke_cfg if smoke else self.cfg
+        params = FM.init_params(cfg, torch.Generator(), device=META)
+        if self.shapes[shape_name].kind == "recsys_train":
+            return train_state_init(params)
+        return params
+
+    def model_flops(self, shape_name: str) -> float:
+        """The reference's count: 4 n_fields k a row by the sum-square
+        trick (times 3 to train), 2 C k for retrieval over C
+        candidates."""
+        cfg = self.cfg
+        sh = self.shapes[shape_name]
+        if sh.kind == "recsys_retrieval":
+            return 2.0 * sh.sizes["n_candidates"] * cfg.embed_dim
+        mult = 3.0 if sh.kind == "recsys_train" else 1.0
+        return 4.0 * cfg.n_fields * cfg.embed_dim * sh.sizes["batch"] * mult
 
     def init_smoke(self, generator: torch.Generator) -> dict:
         """Parameters of the smoke config, drawn from ``generator`` on
@@ -384,3 +484,76 @@ class RecsysArch:
             return model.retrieval_scores(batch["context_ids"],
                                           batch["candidate_ids"])
         return retrieve
+
+
+# -- traffic models: a step's HBM bytes on one device --------------------------
+# The reference's formulas (its EXPERIMENTS.md, Roofline) at a 1 x 1 mesh,
+# where every tree is whole on the one device: the dry run's memory time
+# and its "fits the card" test read them.
+
+def _tree_bytes(spec_tree) -> int:
+    """Bytes of every tensor of a tree (specs or real tensors)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(spec_tree))
+
+
+def lm_traffic_model(arch: LMArch, shape_name: str,
+                     batch: Optional[int] = None) -> dict:
+    """{"bytes", "state_bytes", "act_bytes"} of one step: train reads
+    the parameters three times and writes them (bf16, taken as 2/10 of
+    the state), reads and writes the gradients and the float32 moments,
+    and moves 3 L b s d_model bf16 activations; prefill reads the
+    parameters and moves L b s d_model activations; decode reads the
+    parameters and reads and writes the cache (its inputs). Plus the
+    inputs once. ``batch`` replaces the shape's batch."""
+    sh = arch.shapes[shape_name]
+    b = sh.sizes["global_batch"] if batch is None else batch
+    state = _tree_bytes(arch.state_specs(shape_name))
+    io = _tree_bytes(arch.input_specs(shape_name, batch=batch))
+    cfg = arch.cfg
+    if sh.kind == "train":
+        params = state * 2 // 10
+        weights = 5 * params + 8 * (state - params) // 2
+        acts = 3 * cfg.n_layers * b * sh.sizes["seq_len"] * cfg.d_model * 2
+        return dict(bytes=weights + acts + io, state_bytes=state,
+                    act_bytes=acts)
+    if sh.kind == "prefill":
+        acts = cfg.n_layers * b * sh.sizes["seq_len"] * cfg.d_model * 2
+        return dict(bytes=state + acts + io, state_bytes=state,
+                    act_bytes=acts)
+    return dict(bytes=state + 2 * io, state_bytes=state, act_bytes=0)
+
+
+def gnn_traffic_model(arch: GNNArch, shape_name: str) -> dict:
+    """{"bytes", "state_bytes", "act_bytes"} of one train step: the state
+    read and written (5 times its bytes), a layer's edge traffic (gather
+    the senders' features, write the messages, read them into the
+    segment sum: 3 L E d 16 B with the backward) and node traffic (3 L N
+    d 8 B), and the inputs once. A graph shape has no batch to cut."""
+    s = arch.shapes[shape_name].sizes
+    state = _tree_bytes(arch.state_specs(shape_name))
+    io = _tree_bytes(arch.input_specs(shape_name))
+    cfg = arch.config(shape_name)
+    d = getattr(cfg, "d_hidden", getattr(cfg, "channels", 64))
+    L = getattr(cfg, "n_layers", getattr(cfg, "n_blocks", 2))
+    edges = 3 * L * max(s["n_edges"], 1) * d * 4 * 4
+    nodes = 3 * L * s["n_nodes"] * d * 4 * 2
+    return dict(bytes=5 * state + edges + nodes + io, state_bytes=state,
+                act_bytes=edges)
+
+
+def recsys_traffic_model(arch: RecsysArch, shape_name: str,
+                         batch: Optional[int] = None) -> dict:
+    """{"bytes", "state_bytes", "act_bytes"} of one step: the table rows
+    it touches (k + 1 float32 a field and row; retrieval one a
+    candidate), six times over to train (AdamW reads and writes them).
+    ``batch`` replaces the shape's batch."""
+    sh = arch.shapes[shape_name]
+    cfg = arch.cfg
+    state = _tree_bytes(arch.state_specs(shape_name))
+    if sh.kind == "recsys_retrieval":
+        return dict(bytes=sh.sizes["n_candidates"] * (cfg.embed_dim + 1) * 4,
+                    state_bytes=state, act_bytes=0)
+    b = sh.sizes["batch"] if batch is None else batch
+    touched = b * cfg.n_fields * (cfg.embed_dim + 1) * 4
+    mult = 6 if sh.kind == "recsys_train" else 1
+    return dict(bytes=touched * mult, state_bytes=state, act_bytes=0)

@@ -2,9 +2,10 @@
 the FM recsys path and of training (the attention and FM backwards), and
 their plain versions.
 
-Each wrapper runs its plain torch version on CPU tensors and launches
-its CUDA kernel on CUDA tensors, counting launches in its module's
-``LAUNCHES``."""
+Each wrapper runs its plain torch version on CPU tensors (and on meta
+tensors, where a dry run computes shapes only; ``_build.runs_plain``)
+and launches its CUDA kernel on CUDA tensors, counting launches in its
+module's ``LAUNCHES``."""
 from repro_torch.kernels import (
     flash_attention, fm_interaction, merge_probe, segment_reduce,
 )

@@ -114,6 +114,14 @@ def count_launch(launches: dict, name: str) -> None:
         launches[name] += 1
 
 
+def runs_plain(*tensors) -> bool:
+    """Whether a wrapper runs its plain version on these tensors: all on
+    the CPU, or all on the meta device (a dry run, which computes shapes
+    and dtypes only). A CUDA tensor launches the kernel or raises."""
+    kinds = {t.device.type for t in tensors}
+    return kinds == {"cpu"} or kinds == {"meta"}
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:

@@ -5,9 +5,11 @@ The wrappers of ``csrc/flash_attention_wgmma.cu``,
 ``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd256.cu`` and
 ``csrc/flash_attention_bwd_tf32.cu``: ``flash_attention`` replaces
 ``_attn_kernel`` and ``flash_decode`` replaces ``_decode_kernel`` of
-``repro.kernels.flash_attention``. On CPU tensors they run the plain
-torch versions (``kernels/ref.py``); on CUDA tensors they launch a
-kernel or raise.
+``repro.kernels.flash_attention``. On CPU tensors (and meta tensors, in
+a dry run) they run the plain torch versions (``kernels/ref.py``; the
+prefill's is ``flash_attention_plain``, blockwise from
+``BLOCKWISE_THRESHOLD`` keys on); on CUDA tensors they launch a kernel
+or raise.
 
 Training: when an input requires grad (and grad mode is on),
 ``flash_attention`` runs through a ``torch.autograd.Function`` whose
@@ -86,8 +88,21 @@ BWD_PRODUCTS = {"bfloat16": {16: (18, 10), 32: (10, 6), 64: (6, 4),
 SM_COUNT = 132             # the H100's streaming multiprocessors
 DECODE_CTAS_PER_SM = 2     # split CTAs resident per SM (96 KB rings)
 
-flash_attention_plain = ref.attention_ref
+# from this many keys on, the plain prefill is blockwise (never an
+# [sq, skv] score matrix), as the reference's ops.flash_attention switches
+# at its XLA_BLOCKWISE_THRESHOLD
+BLOCKWISE_THRESHOLD = 4096
+
 flash_decode_plain = ref.decode_attention_ref
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """The prefill's plain version: ``blockwise_attention`` at
+    ``BLOCKWISE_THRESHOLD`` keys and more, ``attention_ref`` below."""
+    if k.shape[2] >= BLOCKWISE_THRESHOLD:
+        return ref.blockwise_attention(q, k, v, causal=causal)
+    return ref.attention_ref(q, k, v, causal=causal)
 
 
 def _check(name: str, tensors, d: int, hq: int, hkv: int) -> None:
@@ -138,8 +153,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, causal, False)
-    if q.device.type == "cpu" and k.device.type == "cpu" and (
-            v.device.type == "cpu"):
+    if _build.runs_plain(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal)
     return _prefill(q, k, v, causal, None)
 
@@ -157,11 +171,15 @@ def attention_plain_autograd(q: torch.Tensor, k: torch.Tensor,
 class _Attention(torch.autograd.Function):
     """Attention whose forward saves q, k, v, the output and the
     log-sum-exp, and whose backward is ``flash_attention_bwd`` on the
-    card (``attention_bwd_ref`` on the CPU or when ``plain``)."""
+    card (``attention_bwd_ref`` on the CPU or when ``plain``). Its plain
+    forward is ``attention_lse_ref`` at every length, not the blockwise
+    one: ``attention_bwd_ref`` recomputes the whole probability matrix
+    from the saved log-sum-exp, so training's plain route is quadratic in
+    memory either way."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, plain):
-        if plain or q.device.type == "cpu":
+        if plain or _build.runs_plain(q, k, v):
             out, lse = ref.attention_lse_ref(q, k, v, causal=causal)
         else:
             _check_bwd("flash_attention", q, k, v)
@@ -230,7 +248,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``bwd_launches``). q, k, v, o, do all float32 or all bfloat16; d in
     ``BWD_HEAD_DIMS``; sq == skv; dk and dv summed over each KV head's
     group. On CPU tensors, ``attention_bwd_ref``."""
-    if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
+    if _build.runs_plain(q, k, v, o, do, lse):
         return ref.attention_bwd_ref(q, k, v, o, do, lse, causal=causal)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -316,8 +334,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len) -> torch.Tensor:
     """[b, hq, d] attention of one query token per sequence over the
     first kv_len positions of a [b, hkv, S, d] cache."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and (
-            v.device.type == "cpu"):
+    if _build.runs_plain(q, k, v):
         return flash_decode_plain(q, k, v, kv_len)
     b, hq, d = q.shape
     hkv, S = k.shape[1], k.shape[2]

@@ -212,7 +212,7 @@ class _FMInteraction(torch.autograd.Function):
 
 
 def _forward(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu" and v.device.type == "cpu":
+    if _build.runs_plain(x, v):
         return fm_interaction_plain(x, v)
     sv_b = _check(x, v)
     b, f = x.shape
@@ -236,7 +236,7 @@ def fm_interaction_bwd(x: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
     output gradient g [b] (x's dtype, contiguous): one launch of the
     kernel's backward entry; ``fm_interaction_bwd_ref`` on CPU
     tensors."""
-    if all(t.device.type == "cpu" for t in (x, v, g)):
+    if _build.runs_plain(x, v, g):
         dx, dv = ref.fm_interaction_bwd_ref(x, v, g)
         return (dx if need_dx else None), dv
     if v.dim() == 2 and v.dtype != torch.float32:

@@ -74,7 +74,7 @@ def merge_probe(build_keys: torch.Tensor, probe_keys: torch.Tensor,
     """int32 ranks of ``probe_keys`` in sorted ``build_keys``: (lo, hi),
     or lo alone when ``upper`` is False. Keys are [rows] int64 or
     [rows, W] int64 words under word-wise lexicographic order."""
-    if build_keys.device.type == "cpu" and probe_keys.device.type == "cpu":
+    if _build.runs_plain(build_keys, probe_keys):
         lo, hi = merge_probe_plain(build_keys, probe_keys)
         return (lo, hi) if upper else lo
     w = _check(build_keys, probe_keys)

@@ -21,15 +21,21 @@ def _identity(op: str, dtype: torch.dtype):
 def segment_reduce_ref(values: torch.Tensor, seg_ids: torch.Tensor,
                        num_segments: int, op: str = "sum") -> torch.Tensor:
     """values: [n] or [n, d] int32/float32; seg_ids: [n] int32 sorted
-    ascending (out of range = dropped). int32 sums wrap."""
+    ascending (out of range = dropped). int32 sums wrap. A dropped row
+    enters as the op's identity at a clamped id, so that no step depends
+    on the values' count (the meta device of a dry run runs it too)."""
     if op not in ("sum", "min", "max"):
         raise ValueError(op)
+    identity = _identity(op, values.dtype)
+    out = torch.full((num_segments,) + tuple(values.shape[1:]), identity,
+                     dtype=values.dtype, device=values.device)
+    if num_segments == 0:
+        return out
     keep = (seg_ids >= 0) & (seg_ids < num_segments)
-    idx = seg_ids[keep].to(torch.int64)
-    src = values[keep]
-    out = torch.full((num_segments,) + tuple(values.shape[1:]),
-                     _identity(op, values.dtype), dtype=values.dtype,
-                     device=values.device)
+    idx = seg_ids.clamp(0, num_segments - 1).to(torch.int64)
+    src = torch.where(keep.reshape((-1,) + (1,) * (values.dim() - 1)),
+                      values, torch.tensor(identity, dtype=values.dtype,
+                                           device=values.device))
     if op == "sum":
         return out.index_add_(0, idx, src)
     if values.dim() == 2:
@@ -176,6 +182,67 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits, visible = _attn_logits(q, k, causal, scale)
     return _attn_out(_softmax_or_zero(logits, visible), v, q.shape[1],
                      q.dtype)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, q_chunk: int = 2048,
+                        kv_chunk: int = 2048) -> torch.Tensor:
+    """``attention_ref`` computed over q x kv blocks of at most
+    ``q_chunk`` x ``kv_chunk`` with an online softmax in float32 (float64
+    for float64 inputs), so that no [sq, skv] score matrix is built: the
+    plain version at long sequences, after the reference's
+    ``blockwise_attention``. Its causal alignment (query row i sees keys
+    j <= i + skv - sq) and its skipping of blocks that the mask hides
+    whole are kept. Unlike the reference's, which covers only the
+    multiples of its chunk counts and drops the rest, the last block of
+    each axis takes the remainder, so every row and key counts; a row
+    that sees no key gives 0, as ``attention_ref`` does.
+
+    A query block's GQA group shares each KV head's block as the rows of
+    one batched product (no repeat of K and V), and each step updates its
+    scores, running max, sum and accumulator in place."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    ct = _compute_dtype(q)
+    scale = (_attn_scale(d) if ct == torch.float32
+             else 1.0 / torch.sqrt(torch.tensor(float(d), dtype=ct)))
+    scale = scale.to(q.device)
+    offset = skv - sq
+    bh = b * hkv
+    outs = []
+    for qs in range(0, sq, q_chunk):
+        qn = min(q_chunk, sq - qs)
+        qb = q[:, :, qs:qs + qn].to(ct).reshape(bh, group * qn, d)
+        m = torch.full((bh, group * qn), float("-inf"), dtype=ct,
+                       device=q.device)
+        l = torch.zeros((bh, group * qn), dtype=ct, device=q.device)
+        acc = torch.zeros((bh, group * qn, d), dtype=ct, device=q.device)
+        for ks in range(0, skv, kv_chunk):
+            if causal and ks > qs + offset + qn - 1:
+                break                     # this block and the rest hidden
+            kn = min(kv_chunk, skv - ks)
+            kb = k[:, :, ks:ks + kn].to(ct).reshape(bh, kn, d)
+            vb = v[:, :, ks:ks + kn].to(ct).reshape(bh, kn, d)
+            s = torch.bmm(qb, kb.transpose(1, 2)).mul_(scale)
+            if causal and ks + kn - 1 > qs + offset:   # on the diagonal
+                qpos = torch.arange(qs + offset, qs + offset + qn,
+                                    device=q.device)
+                kpos = torch.arange(ks, ks + kn, device=q.device)
+                s.view(bh, group, qn, kn).masked_fill_(
+                    kpos[None, :] > qpos[:, None], float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # rows that have seen no key yet keep m = -inf: shift by 0
+            shift = torch.nan_to_num(m_new, neginf=0.0)
+            p = s.sub_(shift[..., None]).exp_()
+            alpha = m.sub_(shift).exp_()
+            l.mul_(alpha).add_(p.sum(dim=-1))
+            acc.mul_(alpha[..., None]).add_(torch.bmm(p, vb))
+            m = m_new
+        acc /= torch.where(l == 0, torch.ones((), dtype=ct, device=q.device),
+                           l)[..., None]
+        outs.append(acc.reshape(b, hq, qn, d).to(q.dtype))
+    return torch.cat(outs, dim=2) if outs else torch.empty_like(q)
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

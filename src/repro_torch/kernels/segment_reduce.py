@@ -4,9 +4,9 @@ The wrapper of ``csrc/segment_reduce.cu`` (a row-parallel pass: an
 identity fill, a tiled segmented scan, and a combine of the runs that
 cross tiles), which replaces both TPU kernels of
 ``repro.kernels.segment_reduce`` (``_resident_kernel`` and
-``_tiled_kernel``). On CPU tensors it runs the
-plain torch version (``kernels/ref.py``); on CUDA tensors it launches
-the kernel or raises.
+``_tiled_kernel``). On CPU tensors (and meta tensors, in a dry run) it
+runs the plain torch version (``kernels/ref.py``); on CUDA tensors it
+launches the kernel or raises.
 
 Contract: ``values`` [n] or [n, d] int32/float32, ``seg_ids`` [n] int32
 sorted ascending; ids outside [0, num_segments) are dropped; int32 sums
@@ -72,7 +72,7 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor,
 
 def _reduce(values: torch.Tensor, seg_ids: torch.Tensor,
             num_segments: int, op: str) -> torch.Tensor:
-    if values.device.type == "cpu" and seg_ids.device.type == "cpu":
+    if _build.runs_plain(values, seg_ids):
         return segment_reduce_plain(values, seg_ids, num_segments, op)
     _check(values, seg_ids, op)
     n = values.shape[0]

@@ -9,9 +9,10 @@ on one card (or on the CPU) are the counterpart of the reference's
 forced host devices, and the same code runs over distinct devices where
 a machine has them.
 
-The reference's model-sharding meshes (the production pod meshes,
-``use_mesh``, ``make_local_mesh``) and its TPU roofline table are not
-part of the engine and have no counterpart here.
+``HARDWARE`` holds the roofline figures of the one card the port runs
+on, which the dry run (``launch/dryrun.py``) divides by; the reference's
+table holds a TPU's. The reference's model-sharding meshes (the
+production pod meshes, ``use_mesh``, ``make_local_mesh``) are not ported.
 """
 from __future__ import annotations
 
@@ -58,3 +59,14 @@ def make_shard_mesh(num_shards: int, devices=None) -> ShardMesh:
     if len({d.type for d in devices}) != 1:
         raise ValueError(f"shard devices of mixed types: {devices}")
     return ShardMesh(devices)
+
+
+HARDWARE = {
+    # NVIDIA H100 SXM, from its data sheet: dense bf16 tensor-core peak,
+    # HBM3 rate and capacity. One card has no collectives, so no
+    # interconnect entry.
+    "name": "NVIDIA H100 SXM",
+    "peak_flops_bf16": 989e12,
+    "hbm_bw": 3.35e12,
+    "hbm_bytes": 80e9,
+}

@@ -132,10 +132,11 @@ def test_decode_splits_cover_the_cache():
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
     """These checks run before any build, so they hold without a card:
-    a tensor on the meta device stands in for a non-CPU one."""
-    meta = dict(device="meta")
-    q = torch.empty((1, 4, 8, 64), **meta)
-    k = torch.empty((1, 2, 8, 64), **meta)
+    inputs split between the meta device and the CPU stand in for inputs
+    that are not on one CUDA device (all on the CPU, or all on meta as in
+    a dry run, they take the plain version)."""
+    q = torch.empty((1, 4, 8, 64), device="meta")
+    k = torch.empty((1, 2, 8, 64))
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="CUDA"):

@@ -574,6 +574,65 @@ def test_flash_decode_ragged_stages_and_deterministic(cuda, d, dtype, hq,
                                atol=atol)
 
 
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (32, 2)])
+@pytest.mark.parametrize("sq", [8192, 1000])
+def test_flash_attention_bf16_against_the_blockwise_plain(cuda, hq, hkv, sq):
+    """The bf16 prefill kernel at 8192 keys (qwen3's and chatglm3's heads,
+    d = 128), where the plain version is blockwise_attention: the whole
+    causal square and a chunk of 1000 queries at its end."""
+    from repro_torch.kernels import flash_attention as FA, ref
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(hq + sq)
+    skv = 8192
+    q = _normal(gen, (1, hq, sq, 128), torch.bfloat16, cuda)
+    k = _normal(gen, (1, hkv, skv, 128), torch.bfloat16, cuda)
+    v = _normal(gen, (1, hkv, skv, 128), torch.bfloat16, cuda)
+    calls = []
+    blockwise = ref.blockwise_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return blockwise(*args, **kw)
+
+    ref.blockwise_attention = counted
+    try:
+        want = FA.flash_attention_plain(q, k, v, causal=True)
+    finally:
+        ref.blockwise_attention = blockwise
+    out = FA.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert calls == [1]
+    rtol, atol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (32, 2)])
+def test_flash_decode_over_131072_positions(cuda, dtype, hq, hkv):
+    """The decode kernel over a 131,072-position cache (64 splits of
+    2048; qwen3's and chatglm3's heads, d = 128) at full, ragged and
+    short lengths, against decode_attention_ref; a second call gives the
+    same bits."""
+    from repro_torch.kernels import flash_attention as FA, ref
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(hq)
+    S = 131072
+    q = _normal(gen, (3, hq, 128), dtype, cuda)
+    k = _normal(gen, (3, hkv, S, 128), dtype, cuda)
+    v = _normal(gen, (3, hkv, S, 128), dtype, cuda)
+    lens = torch.tensor([S, S - 4097, 33], dtype=torch.int32, device=cuda)
+    out = FA.flash_decode(q, k, v, lens)
+    again = FA.flash_decode(q, k, v, lens)
+    want = ref.decode_attention_ref(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert FA.decode_splits(3, hkv, S)[1] == 2048
+    assert torch.equal(out, again)
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 def test_attention_wrappers_refuse_what_no_kernel_takes(cuda):
     from repro_torch.kernels import flash_attention as FA
     q = torch.zeros((1, 4, 8, 48), device=cuda)       # head dim 48

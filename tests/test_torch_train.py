@@ -258,8 +258,11 @@ def test_train_step_refusals():
     with pytest.raises(ValueError, match="config"):
         pa.step_fn("train_4k")(model, train_state_init(model.param_tree()),
                                batch)
-    with pytest.raises(NotImplementedError, match="serve"):
-        pa.step_fn("prefill_32k", smoke=True)
+    # the serve shapes give serve steps, which check the model's config
+    assert pa.step_fn("prefill_32k", smoke=True).__name__ == "serve_prefill"
+    assert pa.step_fn("decode_32k", smoke=True).__name__ == "serve_decode"
+    with pytest.raises(ValueError, match="config"):
+        pa.step_fn("prefill_32k")(model, {"tokens": batch["tokens"]})
 
 
 # -- the FM train step -------------------------------------------------------
