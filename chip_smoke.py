@@ -45,7 +45,7 @@ Phases, each printing its wall time:
              not per replay;
 8. incremental
              Reach and CC maintained in device mode under a stream seeded
-             by --seed: 2 x 65,536 new random edges, 65,536 existing
+             by --seed: 65,536 new random edges, 65,536 existing
              edges deleted, then both at once, drawn from an edge set
              kept apart with numpy; after every step the engine's edge
              mirror equals that set and the state equals a batch run
@@ -56,7 +56,7 @@ Phases, each printing its wall time:
              reachability from the vertex of largest out-degree avoiding
              1% of the vertices, quarantined, and hop counts, a MIN
              monoid) served by DurableIncrementalEngine in device mode on
-             the same graph under 6 seeded batches of 65,536 new and
+             the same graph under 4 seeded batches of 65,536 new and
              65,536 deleted links, a snapshot every 2: once uninterrupted
              (the twin, its views kept on the host), each step held to a
              host-mode batch run over the edge set kept apart with numpy
@@ -145,7 +145,17 @@ Phases, each printing its wall time:
              step's first and last layer and timed, the combine timed
              alone, and the measured peak within 0 to +15% of the dry
              run's state + inputs;
-10. recsys   the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
+9e. mesh     model sharding: qwen3-1.7b at full width and depth (bf16,
+             8 x 2048, 16 greedy steps) through its arch's prefill and
+             decode steps, unmeshed, then under use_mesh(make_local_mesh())
+             (an NCCL group of world size 1, its parameters, prompts,
+             tokens and cache placed by shardings(mesh, ...)): tokens
+             equal, every step's logits bit-equal, the prefill and decode
+             kernels launched under the mesh (through local_map), the
+             group destroyed at the end; then the production-mesh dry run
+             (16 x 16 and 2 x 16 x 16 over the fake group) of the CPU
+             tests' five cells, a child process a cell, a line a cell;
+10. recsys  the FM recommender (config fm: 39 fields, k 10, a 4,000,000-
              row table, random weights from --seed): the interaction kernel
              against its plain version at the reference's kernel-test
              shapes and at the serve_bulk shape, in float32 and bfloat16,
@@ -1049,13 +1059,13 @@ def edge_rows(np, keys):
 
 
 INC_BATCH = 1 << 16
-INC_STEPS = (("insert", INC_BATCH, 0), ("insert", INC_BATCH, 0),
-             ("delete", 0, INC_BATCH), ("mixed", INC_BATCH, INC_BATCH))
+INC_STEPS = (("insert", INC_BATCH, 0), ("delete", 0, INC_BATCH),
+             ("mixed", INC_BATCH, INC_BATCH))
 
 
 def run_incremental(torch, seed, n, edge_cap, edges, edge_keys, source):
     """Reach and CC maintained in device mode under a stream seeded by
-    ``seed``: two batches of 65,536 new random edges, a batch of 65,536
+    ``seed``: a batch of 65,536 new random edges, a batch of 65,536
     existing edges deleted, and a batch of both. The edge set is kept
     apart from the engine, as sorted keys (``edge_keys``, the distinct
     ``edges``) updated with numpy, and the updates are drawn from it.
@@ -1162,8 +1172,8 @@ def run_incremental(torch, seed, n, edge_cap, edges, edge_keys, source):
 # -- phase durable: durable incremental serving -------------------------------
 
 DURABLE_BATCH = 1 << 16
-DURABLE_STEPS = 6
-LAUNCHER_SCALE = 20     # the launcher's card command in README.md
+DURABLE_STEPS = 4
+LAUNCHER_SCALE = 19     # a cut of the launcher's card command in README.md
 LAUNCHER_UPDATES = 12   # and a cut of its default stream of 30
 # crash sites outside any captured region
 DURABLE_SITES = ("wal.before_append", "resilience.after_log",
@@ -4247,6 +4257,211 @@ def run_long_context_phase(torch, seed, profile=False, device="cuda"):
     return totals, measured
 
 
+# -- phase mesh: model sharding over a device mesh -------------------------
+
+MESH_ARCH = "qwen3-1.7b"
+MESH_REQUESTS, MESH_PROMPT_LEN, MESH_GEN_TOKENS = 8, 2048, 16
+# the production-mesh dry run's cells of tests/test_torch_mesh.py, each on
+# 16 x 16 and 2 x 16 x 16, at full depth, one process a cell
+MESH_DRY_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "long_500k"),
+                  ("granite-moe-3b-a800m", "train_4k"),
+                  ("gatedgcn", "full_graph_sm"), ("fm", "serve_p99"))
+MESH_DIR = ROOT / "build" / "mesh_dryrun"
+
+
+def mesh_serve(torch, arch, model, prompts, mesh=None):
+    """``arch``'s serve steps (``step_fn("prefill_32k")`` then
+    ``MESH_GEN_TOKENS`` greedy ``step_fn("decode_32k")`` steps) on
+    ``model``; on ``mesh`` (under ``use_mesh``) the prompts, tokens and
+    cache laid out by ``arch.shardings(mesh, ...)``. The decode's cache of
+    capacity prompt + tokens comes from a second prefill (the prefill step
+    returns the reference's logits and cache lengths only). Returns
+    (tokens [b, n], each step's logits, prefill s, decode step s list,
+    peak device memory)."""
+    import numpy as np
+    from repro_torch.configs import base as B
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import placements
+    prefill, decode = arch.step_fn("prefill_32k"), arch.step_fn("decode_32k")
+    dev = model.device
+    tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    cap = prompts.shape[1] + MESH_GEN_TOKENS
+    whole = (lambda t: t.full_tensor()) if mesh is not None else (
+        lambda t: t)
+    with (use_mesh(mesh) if mesh is not None else contextlib.nullcontext()):
+        if mesh is not None:
+            (_, batch_sp), _ = arch.shardings(mesh, "prefill_32k")
+            (_, dec_sp), _ = arch.shardings(mesh, "decode_32k")
+            tokens = B.place({"tokens": tokens}, batch_sp, mesh)["tokens"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, length = prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if int(whole(length).min()) != prompts.shape[1]:
+            raise AssertionError(f"mesh: cache lengths {whole(length)}")
+        _, cache = model.prefill(tokens, capacity=cap)
+        if mesh is not None:
+            cache = T.KVCache(*(t.redistribute(mesh, placements(sp, mesh))
+                                for t, sp in zip(cache, dec_sp["cache"])))
+        out = [whole(logits)]
+        generated, steps = [], []
+        for _ in range(MESH_GEN_TOKENS):
+            tok = torch.argmax(out[-1], -1)[:, None].to(torch.int32)
+            generated.append(tok[:, 0])
+            if mesh is not None:
+                tok = B.place({"token": tok}, {"token": dec_sp["token"]},
+                              mesh)["token"]
+            t0 = time.perf_counter()
+            logits, cache = decode(model, {"token": tok, "cache": cache})
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            out.append(whole(logits))
+        peak = torch.cuda.max_memory_allocated()
+    return (torch.stack(generated, 1).cpu().numpy(), out, prefill_s, steps,
+            peak)
+
+
+def mesh_dryrun_start():
+    """The production-mesh dry run of ``MESH_DRY_CELLS`` (``--mesh both``),
+    one child process a cell, on the host's CPU (the cells are meta
+    tensors over the fake group; a child may open a context on the card,
+    nothing more). Returns the processes."""
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "both",
+         "--arch", arch, "--shape", shape, "--out", str(MESH_DIR)],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for arch, shape in MESH_DRY_CELLS]
+
+
+def mesh_dryrun_finish(procs, timeout=600):
+    """Waits for ``mesh_dryrun_start``'s processes (killing any left at
+    ``timeout`` s) and prints a line a cell: per-device state bytes,
+    whether they fit 80 GB, collective bytes and counts by kind, the
+    dominant term. Raises if a cell failed."""
+    deadline = time.perf_counter() + timeout
+    errors = []
+    for p, cell in zip(procs, MESH_DRY_CELLS):
+        try:
+            _, err = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+            errors.append(f"{cell}: over {timeout} s")
+            continue
+        if p.returncode:
+            errors.append(f"{cell}: exit {p.returncode}: {err[-2000:]}")
+    for arch, shape in MESH_DRY_CELLS:
+        for where in ("single", "multi"):
+            path = MESH_DIR / f"{arch}__{shape}__{where}.json"
+            if not path.exists():
+                errors.append(f"{path.name}: not written")
+                continue
+            r = json.loads(path.read_text())
+            if not r["ok"]:
+                errors.append(f"{path.name}: {r['error']}")
+                continue
+            m, c, roof = r["memory"], r["cost_per_device"], r["roofline"]
+            print(f"mesh dryrun {arch} {shape} {r['mesh']}: ok, trace "
+                  f"{r['trace_s']} s, state {m['state_bytes_per_device']} B "
+                  f"a device, fits {m['fits_80gb_hbm']}, collective bytes "
+                  f"{json.dumps(c['collective_bytes'])}, counts "
+                  f"{json.dumps(c['collective_counts'])}, collective_s "
+                  f"{roof['collective_s']:.6e}, dominant {roof['dominant']}",
+                  flush=True)
+    if errors:
+        raise AssertionError("mesh dry run: " + "; ".join(errors))
+
+
+def run_mesh_phase(torch, seed, device="cuda"):
+    """Phase mesh: ``MESH_ARCH`` at full width and depth (bf16, random
+    weights from ``seed``), ``MESH_REQUESTS`` prompts of
+    ``MESH_PROMPT_LEN`` tokens and ``MESH_GEN_TOKENS`` greedy steps
+    through the arch's serve steps (``mesh_serve``): first unmeshed, then
+    under ``use_mesh(make_local_mesh())``, its parameters placed by
+    ``shardings(mesh, "prefill_32k")``. Gates: the same tokens; every
+    step's logits bit-equal (each shard is whole on a (1, 1) mesh); the
+    prefill and decode kernels launched under the mesh (the attention
+    runs on each device's local heads through ``local_map``); the process
+    group destroyed at the end. Then the production-mesh dry run of
+    ``MESH_DRY_CELLS`` (``mesh_dryrun_start``). Returns the launches of
+    the meshed run."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import base as B, get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    arch = get_arch(MESH_ARCH)
+    cfg, dev = arch.cfg, torch.device(device)
+    tree = T.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(MESH_REQUESTS, MESH_PROMPT_LEN))
+    L = cfg.n_layers
+    print(f"mesh: {cfg.name}, {L} layers, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, {cfg.dtype}; {MESH_REQUESTS} x {MESH_PROMPT_LEN} tokens, "
+          f"{MESH_GEN_TOKENS} greedy steps", flush=True)
+    runs = {}
+    model = T.Transformer(cfg, tree, device=dev)
+    mesh_serve(torch, arch, model, prompts)             # warm-up
+    runs["plain"] = mesh_serve(torch, arch, model, prompts)
+    del model
+    mesh = M.make_local_mesh(device)
+    try:
+        print(f"mesh: {mesh}, backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}", flush=True)
+        (state_sp, _), _ = arch.shardings(mesh, "prefill_32k")
+        placed = B.place(tree, state_sp, mesh)      # copies of the leaves
+        del tree
+        model = T.Transformer(cfg, placed, device=dev)
+        del placed
+        if not model.meshed:
+            raise AssertionError("mesh: the parameters are not DTensors")
+        mesh_serve(torch, arch, model, prompts, mesh)   # warm-up
+        reset_launch_counts()
+        runs["mesh"] = mesh_serve(torch, arch, model, prompts, mesh)
+        counts = launch_counts()
+        del model
+    finally:
+        M.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("mesh: the process group outlived the phase")
+    for name, (_, _, prefill_s, steps, peak) in runs.items():
+        print(f"mesh {name} (unrounded): prefill_s {prefill_s}, decode step "
+              f"p50 {float(np.percentile(steps, 50)) * 1e3} ms, p99 "
+              f"{float(np.percentile(steps, 99)) * 1e3} ms, peak device "
+              f"memory {peak} B", flush=True)
+    (tok_a, log_a, *_), (tok_b, log_b, *_) = runs["plain"], runs["mesh"]
+    if not np.array_equal(tok_a, tok_b):
+        raise AssertionError(f"mesh: tokens {tok_b.tolist()} != unmeshed "
+                             f"{tok_a.tolist()}")
+    bit_equal = all(torch.equal(a, b) for a, b in zip(log_a, log_b))
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(log_a, log_b))
+    scale = max(float(a.float().abs().max()) for a in log_a)
+    print(f"mesh: tokens equal; logits of {len(log_a)} steps bit-equal "
+          f"{bit_equal} (max abs diff {diff} of scale {scale})", flush=True)
+    if not bit_equal and diff > 2e-2 * scale:
+        raise AssertionError("mesh: the meshed logits leave the serve gate")
+    want = {"flash_attention_wgmma": 2 * L,
+            "flash_decode": L * MESH_GEN_TOKENS,
+            "flash_decode_combine": L * MESH_GEN_TOKENS}
+    got = {k: counts.get(k, 0) for k in want}
+    print(f"mesh: launches under the mesh {json.dumps(got)}", flush=True)
+    if got != want:
+        raise AssertionError(f"mesh: launches {got}, expected {want}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_dryrun_finish(mesh_dryrun_start())
+    return counts
+
+
 # -- phase smoke: the reference's smoke configs (head dims 16 and 32) -------
 
 SMOKE_ARCHS = ("qwen3-1.7b", "gemma-7b", "chatglm3-6b",
@@ -5275,6 +5490,9 @@ def main(argv=None) -> int:
         for name, numbers in long_measured.items():
             measured[name]["long_context"] = numbers
         add_counts(totals, counts)
+    with phase("mesh"):
+        mesh_counts = run_mesh_phase(torch, args.seed)
+        add_counts(totals, mesh_counts)
     with phase("recsys"):
         counts, measured["fm_interaction"] = run_recsys_phase(
             torch, args.seed, profile=args.profile)
@@ -5354,8 +5572,11 @@ def main(argv=None) -> int:
                 d: smoke_by_dim[d].get(count_key, 0) for d in SMALL_DIMS}
         if also:
             e["also_replaces"] = also
+        if mesh_counts.get(count_key):
+            e["mesh_launches"] = mesh_counts[count_key]
         if name == "flash_decode":
             e["combine_launches"] = totals["flash_decode_combine"]
+            e["mesh_combine_launches"] = mesh_counts["flash_decode_combine"]
         if name == "flash_attention_bwd":
             e["pre_launches"] = totals["flash_attention_bwd_pre"]
             e["dq_launches"] = totals["flash_attention_bwd_dq"]

@@ -8,10 +8,14 @@ step as a tensor on ``torch.device("meta")``, the port's
 ``state_specs`` (the parameters, or a ``TrainState`` of parameters,
 float32 moments and a step, the same way), ``step_fn`` (the step:
 train, LM prefill and decode, recsys serve and retrieval),
-``model_flops`` and ``init_smoke``; the traffic models at the end reckon
-a step's HBM bytes on one device. The reference's mesh shardings
-(``shardings``, ``param_pspecs``, ``fsdp_pspecs``, ``data_axes``) have no
-counterpart on one card.
+``model_flops`` and ``init_smoke``; and ``shardings(mesh, shape)``, the
+reference's partition specs of the step's state, inputs and outputs on a
+mesh (``P`` trees: one entry a tensor dim, None or mesh axes; the LM's
+from ``param_pspecs``, or ``fsdp_pspecs`` for a train shape of an arch
+with ``fsdp_train``). ``place`` lays a tree of tensors out on a
+``DeviceMesh`` by its specs (``models.common.placements``). The traffic
+models at the end reckon a step's HBM bytes on one device of a mesh
+(``ONE_CARD``, the 1 x 1 mesh, for a run on one card).
 
 A train step is ``train_step(model, state, batch) -> (state, metrics)``:
 the model (built with ``train=True``) holds the parameters, ``state`` is
@@ -25,13 +29,17 @@ config it was made for.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Callable, ClassVar, Optional
 
 import torch
 
 from repro_torch.models import transformer as T
-from repro_torch.models.common import cross_entropy_loss
+from repro_torch.models.common import (
+    P, axes_of, cross_entropy_loss, mesh_axes, placements,
+)
 from repro_torch.models.gnn import dimenet, nequip
 from repro_torch.models.gnn.common import Graph
 from repro_torch.models.recsys import fm as FM
@@ -45,6 +53,88 @@ META = torch.device("meta")
 def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
     """A shape and a dtype, no memory: the port's ShapeDtypeStruct."""
     return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, without devices: what the specs and
+    the traffic models read of a mesh."""
+    axis_names: tuple
+    axis_sizes: tuple
+
+
+ONE_CARD = AbstractMesh(("data", "model"), (1, 1))
+
+
+def data_axes(mesh) -> tuple:
+    """Batch-parallel axes: ('pod', 'data') on the multi-pod mesh."""
+    names = tuple(mesh_axes(mesh))
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _dax(mesh):
+    d = data_axes(mesh)
+    return d if len(d) > 1 else (d[0] if d else None)
+
+
+def _n_devices(mesh) -> int:
+    return math.prod(mesh_axes(mesh).values())
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, P) or not isinstance(x, (dict, list, tuple))
+
+
+def spec_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and of ``rest``, trees of its
+    structure): a leaf is a spec (``P``), a tensor or None; dicts, lists,
+    tuples and NamedTuples (``TrainState``, ``KVCache``) keep their
+    structure."""
+    if _is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: spec_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    vals = [spec_map(fn, *xs) for xs in zip(tree, *rest)]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
+
+
+def spec_leaves(tree) -> list:
+    """The leaves of ``spec_map``'s trees, in its order."""
+    out = []
+    spec_map(out.append, tree)
+    return out
+
+
+def place(tree, spec_tree, mesh):
+    """A tree of tensors as DTensors on ``mesh`` by their specs
+    (``models.common.placements``): each tensor is the whole (global)
+    tensor, sharded by ``distribute_tensor`` (on the meta device, where
+    it holds no values, it is cut to the local shard's shape instead). A
+    dim that its mesh dims' product does not divide stays whole, as
+    ``maybe_shard`` keeps it."""
+    from torch.distributed.tensor import (
+        DTensor, Replicate, Shard, distribute_tensor,
+    )
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    def one(t, spec):
+        if t is None:
+            return None
+        where = placements(spec, mesh)
+        where = tuple(
+            Replicate() if isinstance(p, Shard) and t.shape[p.dim] % math.prod(
+                mesh.size(i) for i, q in enumerate(where) if q == p) else p
+            for p in where)
+        if t.device.type != "meta":
+            return distribute_tensor(t, mesh, where)
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, where)
+        return DTensor.from_local(
+            torch.empty(local, dtype=t.dtype, device=t.device), mesh, where,
+            run_check=False, shape=t.shape, stride=t.stride())
+    return spec_map(one, tree, spec_tree)
 
 
 def _sizes(specs: dict) -> dict:
@@ -76,8 +166,17 @@ LM_SHAPES = {
 }
 
 
+def _layout_free(cfg):
+    """An LM config without its mesh layout (``seq_parallel``,
+    ``batch_shard_all``), which changes no parameter and no value."""
+    if dataclasses.is_dataclass(cfg):
+        return dataclasses.replace(cfg, seq_parallel=False,
+                                   batch_shard_all=False)
+    return cfg
+
+
 def _check_model(model, cfg, shape_name: str) -> None:
-    if model.cfg != cfg:
+    if _layout_free(model.cfg) != _layout_free(cfg):
         raise ValueError(f"{shape_name}: model config {model.cfg}, step "
                          f"made for {cfg}")
 
@@ -100,10 +199,130 @@ class LMArch:
     smoke_cfg: T.TransformerConfig
     family: ClassVar[str] = "lm"
     opt: AdamWConfig = AdamWConfig()
+    # the reference's beyond-paper train sharding: train_4k shards the
+    # parameters over every mesh axis (ZeRO-3 / FSDP) and the batch over
+    # them all (``fsdp_pspecs``; the model's ``batch_shard_all``)
+    fsdp_train: bool = False
 
     @property
     def shapes(self):
         return LM_SHAPES
+
+    def step_cfg(self, shape_name: str, smoke: bool = False):
+        """The config a step of the shape runs: ``batch_shard_all`` set
+        for a train shape of an ``fsdp_train`` arch at full size, as the
+        reference's ``step_fn`` sets it. It differs from ``cfg`` only in
+        the mesh layout, so a model of either runs the step."""
+        cfg = self.smoke_cfg if smoke else self.cfg
+        if (self.shapes[shape_name].kind == "train" and self.fsdp_train
+                and not smoke):
+            cfg = dataclasses.replace(cfg, batch_shard_all=True)
+        return cfg
+
+    # -- shardings -----------------------------------------------------------
+    def param_pspecs(self, mesh, smoke: bool = False) -> dict:
+        """The reference's tensor- and expert-parallel specs of the
+        parameter tree: attention and FFN weights split over "model" (the
+        q/k/v columns, wo's rows), the embedding's rows and the unembedding's
+        columns too; an MoE's experts over "model" when their count
+        divides it, else each expert's d_ff (granite-3b: 40 experts on a
+        16-way axis). ``smoke`` takes the smoke config's."""
+        cfg = self.smoke_cfg if smoke else self.cfg
+        m = "model"
+        lay = {"wq": P(None, None, m), "wk": P(None, None, m),
+               "wv": P(None, None, m), "wo": P(None, m, None),
+               "ln1": P(None, None), "ln2": P(None, None)}
+        if cfg.qk_norm:
+            lay["qnorm"] = P(None, None)
+            lay["knorm"] = P(None, None)
+        if cfg.moe:
+            msize = mesh_axes(mesh)[m]
+            if cfg.moe.n_experts % msize == 0:
+                moe = {"router": P(None, None, None),
+                       "w_in": P(None, m, None, None),
+                       "w_out": P(None, m, None, None)}
+                if cfg.moe.glu:
+                    moe["w_gate"] = P(None, m, None, None)
+            else:
+                moe = {"router": P(None, None, None),
+                       "w_in": P(None, None, None, m),
+                       "w_out": P(None, None, m, None)}
+                if cfg.moe.glu:
+                    moe["w_gate"] = P(None, None, None, m)
+            lay["moe"] = moe
+        else:
+            lay["w_in"] = P(None, None, m)
+            lay["w_out"] = P(None, m, None)
+            if cfg.glu:
+                lay["w_gate"] = P(None, None, m)
+        specs = {"embed": P(m, None), "ln_f": P(None), "layers": lay}
+        if not cfg.tie_embeddings:
+            specs["unembed"] = P(None, m)
+        return specs
+
+    def fsdp_pspecs(self, mesh, smoke: bool = False) -> dict:
+        """Every weight over ALL mesh axes on its first divisible dim
+        after the layer stack (then the stack itself); small leaves
+        (norms) whole. ``smoke`` takes the smoke config's."""
+        all_ax = tuple(mesh_axes(mesh))
+        n_all = _n_devices(mesh)
+
+        def spec_for(leaf):
+            for dim in range(1, leaf.ndim):          # dim 0: the stack
+                if leaf.shape[dim] % n_all == 0:
+                    ent = [None] * leaf.ndim
+                    ent[dim] = all_ax
+                    return P(*ent)
+            if leaf.ndim and leaf.shape[0] % n_all == 0:
+                ent = [None] * leaf.ndim
+                ent[0] = all_ax
+                return P(*ent)
+            return P(*([None] * leaf.ndim))
+
+        return spec_map(spec_for,
+                        self.state_specs("train_4k", smoke).params)
+
+    def shardings(self, mesh, shape_name: str, smoke: bool = False):
+        """((state specs, batch specs), output specs) of the shape's step,
+        the reference's: the batch over the data axes (when it is more
+        than 1); train the state over ``param_pspecs`` (or
+        ``fsdp_pspecs``, the batch then over every axis when it divides);
+        prefill logits over "model"; decode the KV cache's sequence over
+        "model", or over every axis when the batch is 1 (long_500k).
+        ``smoke`` takes the smoke config's parameters (the shape's batch
+        decides the layout, as at full size)."""
+        d = data_axes(mesh)
+        dax = _dax(mesh)
+        pspecs = self.param_pspecs(mesh, smoke)
+        sh = self.shapes[shape_name]
+        b = sh.sizes["global_batch"]
+        batch_ax = dax if b > 1 else None
+        if sh.kind == "train":
+            if self.fsdp_train:
+                pspecs = self.fsdp_pspecs(mesh, smoke)
+                if b % _n_devices(mesh) == 0:
+                    batch_ax = tuple(mesh_axes(mesh))
+            state = TrainState(pspecs, spec_map(lambda s: s, pspecs),
+                               spec_map(lambda s: s, pspecs), P())
+            batch = dict(tokens=P(batch_ax, None), labels=P(batch_ax, None))
+            out = (state, {"loss": P(), "ce": P(), "gnorm": P()})
+            return (state, batch), out
+        if sh.kind == "prefill":
+            batch = dict(tokens=P(batch_ax, None))
+            out = (P(batch_ax, "model"), P(batch_ax))
+            return (pspecs, batch), out
+        if b == 1:
+            seq_ax = tuple(list(d) + ["model"])
+            cache = T.KVCache(k=P(None, None, None, seq_ax, None),
+                              v=P(None, None, None, seq_ax, None),
+                              length=P(None))
+            batch = dict(token=P(None, None), cache=cache)
+            return (pspecs, batch), (P(None, "model"), cache)
+        cache = T.KVCache(k=P(None, batch_ax, None, "model", None),
+                          v=P(None, batch_ax, None, "model", None),
+                          length=P(batch_ax))
+        batch = dict(token=P(batch_ax, None), cache=cache)
+        return (pspecs, batch), (P(batch_ax, "model"), cache)
 
     def input_specs(self, shape_name: str, smoke: bool = False,
                     batch: Optional[int] = None) -> dict:
@@ -175,7 +394,7 @@ class LMArch:
         ``serve_decode(model, batch) -> (logits [b, V], cache)``, which
         writes the token's K and V into ``batch["cache"]`` in place, as
         the reference's ``serve_prefill`` and ``serve_decode``."""
-        cfg = self.smoke_cfg if smoke else self.cfg
+        cfg = self.step_cfg(shape_name, smoke)
         kind = self.shapes[shape_name].kind
         opt = self.opt
         if kind == "prefill":
@@ -194,7 +413,8 @@ class LMArch:
             _check_model(model, cfg, shape_name)
             _check_state(model, state, shape_name)
             grads = model.grad_tree()
-            loss, ce = model.loss_fn(batch["tokens"], batch["labels"])
+            loss, ce = model.loss_fn(batch["tokens"], batch["labels"],
+                                     layout=cfg)
             loss.backward()
             state, gnorm = adamw_update(state, grads, opt)
             return state, {"loss": loss.detach(), "ce": ce.detach(),
@@ -255,6 +475,7 @@ class GNNArch:
     family: ClassVar[str] = "gnn"
     opt: AdamWConfig = AdamWConfig(lr=1e-3)
     layers: Optional[int] = None
+    shard_nodes: bool = False   # the reference's perf option (gatedgcn)
 
     @property
     def shapes(self):
@@ -277,6 +498,9 @@ class GNNArch:
     def config(self, shape_name: str, smoke: bool = False):
         """The model config of a shape (its depth cut to ``layers``)."""
         cfg = self.make_cfg(self._dims(shape_name, smoke)["d_feat"], smoke)
+        if self.shard_nodes and not smoke and "shard_nodes" in getattr(
+                cfg, "_fields", ()):
+            cfg = cfg._replace(shard_nodes=True)
         if self.layers is not None:
             depth = "n_blocks" if hasattr(cfg, "n_blocks") else "n_layers"
             cfg = cfg._replace(**{depth: self.layers})
@@ -330,6 +554,21 @@ class GNNArch:
         d = getattr(cfg, "d_hidden", getattr(cfg, "channels", 64))
         L = getattr(cfg, "n_layers", getattr(cfg, "n_blocks", 2))
         return 2.0 * (s["n_edges"] + s["n_nodes"]) * d * d * L * 3
+
+    def shardings(self, mesh, shape_name: str):
+        """((state specs, batch specs), output specs), the reference's:
+        the state whole on every device; the edge relations (senders,
+        receivers, edge features, triplets) over the data axes, the node
+        relations whole."""
+        dax = _dax(mesh)
+        pspec = spec_map(lambda _: P(), self.state_specs(shape_name))
+        batch = {}
+        for k, v in self.input_specs(shape_name).items():
+            if k in ("senders", "receivers", "t_kj", "t_ji", "edge_feat"):
+                batch[k] = P(dax) if v.ndim == 1 else P(dax, None)
+            else:
+                batch[k] = P(*([None] * v.ndim))
+        return (pspec, batch), (pspec, {"loss": P(), "gnorm": P()})
 
     def loss_fn(self, shape_name: str, smoke: bool = False) -> Callable:
         """``loss(model, batch)``, with gradients: cross-entropy of the
@@ -444,6 +683,23 @@ class RecsysArch:
         mult = 3.0 if sh.kind == "recsys_train" else 1.0
         return 4.0 * cfg.n_fields * cfg.embed_dim * sh.sizes["batch"] * mult
 
+    def shardings(self, mesh, shape_name: str):
+        """((state specs, batch specs), output specs), the reference's:
+        the tables' rows over "model", the batch (or the candidates) over
+        the data axes."""
+        dax = _dax(mesh)
+        pspec = {"v": P("model", None), "w": P("model", None), "b": P()}
+        kind = self.shapes[shape_name].kind
+        if kind == "recsys_train":
+            state = TrainState(pspec, spec_map(lambda s: s, pspec),
+                               spec_map(lambda s: s, pspec), P())
+            batch = dict(ids=P(dax, None), labels=P(dax))
+            return (state, batch), (state, {"loss": P(), "gnorm": P()})
+        if kind == "recsys_serve":
+            return (pspec, dict(ids=P(dax, None))), P(dax)
+        batch = dict(context_ids=P(None), candidate_ids=P(dax))
+        return (pspec, batch), P(dax)
+
     def init_smoke(self, generator: torch.Generator) -> dict:
         """Parameters of the smoke config, drawn from ``generator`` on
         its device."""
@@ -486,74 +742,103 @@ class RecsysArch:
         return retrieve
 
 
-# -- traffic models: a step's HBM bytes on one device --------------------------
-# The reference's formulas (its EXPERIMENTS.md, Roofline) at a 1 x 1 mesh,
-# where every tree is whole on the one device: the dry run's memory time
-# and its "fits the card" test read them.
+# -- traffic models: a step's HBM bytes on one device of a mesh --------------
+# The reference's formulas (its EXPERIMENTS.md, Roofline): the dry run's
+# memory time and its "fits the card" test read them. At ``ONE_CARD``
+# every tree is whole on the one device.
 
 def _tree_bytes(spec_tree) -> int:
     """Bytes of every tensor of a tree (specs or real tensors)."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(spec_tree))
 
 
-def lm_traffic_model(arch: LMArch, shape_name: str,
+def _sharded_bytes(spec_tree, pspec_tree, mesh) -> int:
+    """Bytes on one device of a tree of tensors laid out by its specs: a
+    leaf's bytes over the product of its spec's axis sizes (floored, as
+    the reference's)."""
+    sizes = mesh_axes(mesh)
+
+    def leaf_bytes(t, spec):
+        denom = math.prod(sizes[a] for e in spec for a in axes_of(e))
+        return t.numel() * t.element_size() // max(denom, 1)
+    return sum(spec_leaves(spec_map(leaf_bytes, spec_tree, pspec_tree)))
+
+
+def _dp(mesh) -> int:
+    """The data-parallel degree: every axis but "model"."""
+    return math.prod(v for k, v in mesh_axes(mesh).items() if k != "model")
+
+
+def lm_traffic_model(arch: LMArch, mesh, shape_name: str,
                      batch: Optional[int] = None) -> dict:
-    """{"bytes", "state_bytes", "act_bytes"} of one step: train reads
-    the parameters three times and writes them (bf16, taken as 2/10 of
-    the state), reads and writes the gradients and the float32 moments,
-    and moves 3 L b s d_model bf16 activations; prefill reads the
-    parameters and moves L b s d_model activations; decode reads the
-    parameters and reads and writes the cache (its inputs). Plus the
-    inputs once. ``batch`` replaces the shape's batch."""
+    """{"bytes", "state_bytes", "act_bytes"} of one step on one device
+    of ``mesh``: train reads the parameters three times and writes them
+    (bf16, taken as 2/10 of the state), reads and writes the gradients
+    and the float32 moments, and moves 3 L b s d_model bf16 activations
+    of its b = batch / dp rows; prefill reads the parameters and moves L
+    b s d_model activations; decode reads the parameters and reads and
+    writes the cache (its inputs). Plus the inputs once. ``batch``
+    replaces the shape's batch."""
     sh = arch.shapes[shape_name]
     b = sh.sizes["global_batch"] if batch is None else batch
-    state = _tree_bytes(arch.state_specs(shape_name))
-    io = _tree_bytes(arch.input_specs(shape_name, batch=batch))
+    (state_sp, batch_sp), _ = arch.shardings(mesh, shape_name)
+    state = _sharded_bytes(arch.state_specs(shape_name), state_sp, mesh)
+    io = _sharded_bytes(arch.input_specs(shape_name, batch=batch), batch_sp,
+                        mesh)
+    b_local = max(b // _dp(mesh), 1)
     cfg = arch.cfg
     if sh.kind == "train":
         params = state * 2 // 10
         weights = 5 * params + 8 * (state - params) // 2
-        acts = 3 * cfg.n_layers * b * sh.sizes["seq_len"] * cfg.d_model * 2
+        acts = (3 * cfg.n_layers * b_local * sh.sizes["seq_len"]
+                * cfg.d_model * 2)
         return dict(bytes=weights + acts + io, state_bytes=state,
                     act_bytes=acts)
     if sh.kind == "prefill":
-        acts = cfg.n_layers * b * sh.sizes["seq_len"] * cfg.d_model * 2
+        acts = cfg.n_layers * b_local * sh.sizes["seq_len"] * cfg.d_model * 2
         return dict(bytes=state + acts + io, state_bytes=state,
                     act_bytes=acts)
     return dict(bytes=state + 2 * io, state_bytes=state, act_bytes=0)
 
 
-def gnn_traffic_model(arch: GNNArch, shape_name: str) -> dict:
-    """{"bytes", "state_bytes", "act_bytes"} of one train step: the state
-    read and written (5 times its bytes), a layer's edge traffic (gather
-    the senders' features, write the messages, read them into the
-    segment sum: 3 L E d 16 B with the backward) and node traffic (3 L N
-    d 8 B), and the inputs once. A graph shape has no batch to cut."""
+def gnn_traffic_model(arch: GNNArch, mesh, shape_name: str) -> dict:
+    """{"bytes", "state_bytes", "act_bytes"} of one train step on one
+    device of ``mesh``: the state read and written (5 times its bytes), a
+    layer's edge traffic over the device's E / dp edges (gather the
+    senders' features, write the messages, read them into the segment
+    sum: 3 L E d 16 B with the backward) and node traffic over the whole
+    nodes (3 L N d 8 B), and the inputs once. A graph shape has no batch
+    to cut."""
     s = arch.shapes[shape_name].sizes
-    state = _tree_bytes(arch.state_specs(shape_name))
-    io = _tree_bytes(arch.input_specs(shape_name))
+    (state_sp, batch_sp), _ = arch.shardings(mesh, shape_name)
+    state = _sharded_bytes(arch.state_specs(shape_name), state_sp, mesh)
+    io = _sharded_bytes(arch.input_specs(shape_name), batch_sp, mesh)
     cfg = arch.config(shape_name)
     d = getattr(cfg, "d_hidden", getattr(cfg, "channels", 64))
     L = getattr(cfg, "n_layers", getattr(cfg, "n_blocks", 2))
-    edges = 3 * L * max(s["n_edges"], 1) * d * 4 * 4
+    edges = 3 * L * max(s["n_edges"] // _dp(mesh), 1) * d * 4 * 4
     nodes = 3 * L * s["n_nodes"] * d * 4 * 2
     return dict(bytes=5 * state + edges + nodes + io, state_bytes=state,
                 act_bytes=edges)
 
 
-def recsys_traffic_model(arch: RecsysArch, shape_name: str,
+def recsys_traffic_model(arch: RecsysArch, mesh, shape_name: str,
                          batch: Optional[int] = None) -> dict:
-    """{"bytes", "state_bytes", "act_bytes"} of one step: the table rows
-    it touches (k + 1 float32 a field and row; retrieval one a
-    candidate), six times over to train (AdamW reads and writes them).
-    ``batch`` replaces the shape's batch."""
+    """{"bytes", "state_bytes", "act_bytes"} of one step on one device of
+    ``mesh``: the table rows it touches for its batch / dp rows (k + 1
+    float32 a field and row; retrieval one a candidate of C / dp), six
+    times over to train (AdamW reads and writes them). ``batch`` replaces
+    the shape's batch."""
     sh = arch.shapes[shape_name]
     cfg = arch.cfg
-    state = _tree_bytes(arch.state_specs(shape_name))
+    (state_sp, _), _ = arch.shardings(mesh, shape_name)
+    state = _sharded_bytes(arch.state_specs(shape_name), state_sp, mesh)
+    dp = _dp(mesh)
     if sh.kind == "recsys_retrieval":
-        return dict(bytes=sh.sizes["n_candidates"] * (cfg.embed_dim + 1) * 4,
-                    state_bytes=state, act_bytes=0)
-    b = sh.sizes["batch"] if batch is None else batch
+        c = max(sh.sizes["n_candidates"] // dp, 1)
+        return dict(bytes=c * (cfg.embed_dim + 1) * 4, state_bytes=state,
+                    act_bytes=0)
+    b = max((sh.sizes["batch"] if batch is None else batch) // dp, 1)
     touched = b * cfg.n_fields * (cfg.embed_dim + 1) * 4
     mult = 6 if sh.kind == "recsys_train" else 1
     return dict(bytes=touched * mult, state_bytes=state, act_bytes=0)

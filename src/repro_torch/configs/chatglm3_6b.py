@@ -16,4 +16,5 @@ _SMOKE = TransformerConfig(
     rope_fraction=0.5, tie_embeddings=False, dtype="float32", remat=False,
 )
 
-ARCH = LMArch("chatglm3-6b", _FULL, _SMOKE)
+# fsdp_train: the reference's beyond-paper train sharding (ZeRO-3 / FSDP)
+ARCH = LMArch("chatglm3-6b", _FULL, _SMOKE, fsdp_train=True)

@@ -16,4 +16,5 @@ _SMOKE = TransformerConfig(
     glu=True, dtype="float32", remat=False,
 )
 
-ARCH = LMArch("gemma-7b", _FULL, _SMOKE)
+# fsdp_train: the reference's beyond-paper train sharding (ZeRO-3 / FSDP)
+ARCH = LMArch("gemma-7b", _FULL, _SMOKE, fsdp_train=True)

@@ -15,4 +15,5 @@ _SMOKE = TransformerConfig(
     glu=True, qk_norm=True, dtype="float32", remat=False,
 )
 
-ARCH = LMArch("qwen3-1.7b", _FULL, _SMOKE)
+# fsdp_train: the reference's beyond-paper train sharding (ZeRO-3 / FSDP)
+ARCH = LMArch("qwen3-1.7b", _FULL, _SMOKE, fsdp_train=True)

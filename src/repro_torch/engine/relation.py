@@ -110,6 +110,19 @@ COUNTERS = _CountersView()
 UNSORTED = ("unsorted",)
 
 
+def reset_counters() -> None:
+    """Deprecated: zeroes the ``arrange.*`` registry counters. Prefer
+    ``counter_scope`` (or a registry scope) to a global reset."""
+    for k in _COUNTER_KEYS:
+        _observe.REGISTRY.set(_COUNTER_NS + k, 0)
+
+
+def counters_snapshot() -> dict:
+    """Deprecated: the ``arrange.*`` registry counters as a dict of short
+    keys."""
+    return dict(COUNTERS)
+
+
 @contextlib.contextmanager
 def counter_scope():
     """Yields a dict that, on exit, holds exactly the ``arrange.*``

@@ -201,6 +201,17 @@ def _arrange(cache: Optional[ArrangementCache], rel: Relation,
     return arrange(rel, key_cols)
 
 
+def expand_indices(counts: torch.Tensor, offsets: torch.Tensor,
+                   out_cap: int):
+    """The bounded 'repeat' pattern: output slot j maps to input row i =
+    searchsorted(offsets, j, 'right') with within-group index j -
+    offsets[i-1]. Returns (row_idx, within_idx, valid, total), as the
+    reference's; ``join`` dispatches through ``KernelDispatch.expand``."""
+    del counts  # offsets alone determine the expansion
+    from repro_torch.kernels import ref
+    return ref.expand_indices_ref(offsets, out_cap)
+
+
 def join(left: Relation, right: Relation,
          l_keys: tuple[int, ...], r_keys: tuple[int, ...],
          l_out: tuple[int, ...], r_out: tuple[int, ...],

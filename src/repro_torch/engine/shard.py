@@ -134,6 +134,13 @@ class ShardedRelation:
     def n(self) -> tuple:
         return tuple(b.n for b in self.blocks)
 
+    @property
+    def total(self) -> torch.Tensor:
+        """The live rows of every shard, summed (0-d int64, on shard
+        0's device)."""
+        dev = self.blocks[0].n.device
+        return torch.stack([b.n.to(dev) for b in self.blocks]).sum()
+
     def __repr__(self):
         return (f"ShardedRelation(shards={self.num_shards}, "
                 f"cap={self.capacity}, arity={self.arity})")

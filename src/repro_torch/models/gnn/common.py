@@ -11,6 +11,13 @@ hand-written CUDA kernel on CUDA tensors, its plain torch version on CPU
 tensors, differentiable either way. There is no ``backend`` option: the
 device picks the route, as in the rest of the port.
 
+On a mesh (a DTensor graph, its edge relations over the data axes as
+``GNNArch.shardings`` lays them out) a segment reduction runs through
+``local_map``: each device reduces its edges into a node-sized partial
+(sum, max or min), reduced at once (the nodes are whole on every
+device); ``gather`` of node rows at sharded edge ids runs through
+``local_map`` too, each device taking its edges' rows.
+
 The kernel needs sorted ids, which JAX's ``segment_sum`` does not: the
 models call ``check_sorted`` on the ids they aggregate over, which reads
 the device once for a tensor (and again only after an in-place edit), so
@@ -33,9 +40,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import segment_reduce as SR
-from repro_torch.models.common import parameter, resolve_device, wire_grads
+from repro_torch.models.common import (
+    parameter, redistributed, replicated, resolve_device, settle, wire_grads,
+)
 from repro_torch.training.optim import tree_map
 
 
@@ -77,7 +88,28 @@ def aggregate(messages: torch.Tensor, receivers: torch.Tensor,
               n_nodes: int, op: str = "sum") -> torch.Tensor:
     """messages [E, d] sorted by receiver -> [n_nodes, d]: the vector-
     monoid merge, through the segment-reduce kernel."""
-    return SR.segment_reduce(messages, receivers, n_nodes, op)
+    return segment_reduce(messages, receivers, n_nodes, op)
+
+
+def segment_reduce(values: torch.Tensor, ids: torch.Tensor, n: int,
+                   op: str) -> torch.Tensor:
+    """``kernels.segment_reduce.segment_reduce``; on DTensors through
+    ``local_map``: ``values`` follow the rows of ``ids`` (their shards on
+    the dims where the ids are sharded, whole elsewhere), each device
+    reduces its rows into a partial ``op`` of the [n, ...] result, and
+    the partials are reduced (``settle``: the nodes are whole on every
+    device)."""
+    if not isinstance(ids, DTensor):
+        return SR.segment_reduce(values, ids, n, op)
+    mesh = ids.device_mesh
+    values = replicated(values, ids)
+    rows = tuple(p if p == Shard(0) else Replicate() for p in ids.placements)
+    ids, values = redistributed(ids, rows), redistributed(values, rows)
+    out = tuple(Partial(op) if p == Shard(0) else p for p in rows)
+    return settle(local_map(lambda v, i: SR.segment_reduce(v, i, n, op),
+                            out_placements=list(out),
+                            in_placements=(rows, rows),
+                            device_mesh=mesh)(values, ids))
 
 
 def degree(receivers: torch.Tensor, n_nodes: int) -> torch.Tensor:
@@ -89,9 +121,45 @@ def degree(receivers: torch.Tensor, n_nodes: int) -> torch.Tensor:
 def gather(node_values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The join side, edge(u, v) joined with h(u): rows of
     ``node_values`` at ``idx``, clamped into [0, n - 1] as
-    ``jnp.take(..., mode="clip")`` (never wrapped, never raising)."""
-    n = node_values.shape[0]
-    return node_values.index_select(0, idx.clamp(0, max(n - 1, 0)))
+    ``jnp.take(..., mode="clip")`` (never wrapped, never raising). At
+    sharded ids each device takes its ids' rows (``by_rows``)."""
+    return by_rows(_take, idx, node_values, idx, whole=(0,))
+
+
+def _take(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return values.index_select(0, ids.clamp(0, max(values.shape[0] - 1, 0)))
+
+
+def by_rows(fn, rows: torch.Tensor, *args, whole=()):
+    """``fn(*args)``, whose result has a row for each row of ``rows``
+    (edge- or triplet-level). When ``rows`` is a DTensor split on its
+    first dim, each device runs ``fn`` on its rows through ``local_map``:
+    the tensor args at the indices in ``whole`` (the tables it gathers
+    from, weights) whole on every device, their gradients partial sums
+    over the devices; the other tensors split as ``rows`` is; the result
+    too. DTensor's own rules for these row-local ops break on meshes of
+    uneven or nested splits in torch before 2.13."""
+    if not isinstance(rows, DTensor) or not any(
+            p.is_shard() for p in rows.placements):
+        return fn(*args)
+    mesh = rows.device_mesh
+    split = tuple(p if p == Shard(0) else Replicate() for p in rows.placements)
+    everywhere = (Replicate(),) * mesh.ndim
+    summed = tuple(Partial() if p == Shard(0) else p for p in split)
+    ins, grads, vals = [], [], []
+    for i, a in enumerate(args):
+        if not isinstance(a, torch.Tensor):
+            ins.append(None)
+            grads.append(None)
+            vals.append(a)
+            continue
+        want = everywhere if i in whole else split
+        a = redistributed(replicated(a, rows), want)
+        ins.append(want)
+        grads.append(summed if i in whole else split)
+        vals.append(a)
+    return local_map(fn, out_placements=list(split), in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh)(*vals)
 
 
 def batched_graph_specs(n_graphs: int, nodes_per: int, edges_per: int,
@@ -110,10 +178,10 @@ def segment_softmax(scores: torch.Tensor, receivers: torch.Tensor,
     """Edge softmax grouped by receiver (GAT): segment max -> exp ->
     segment sum. scores [E, H]. A node with no in-edge has max -inf,
     taken as 0."""
-    smax = SR.segment_reduce(scores, receivers, n_nodes, "max")
+    smax = segment_reduce(scores, receivers, n_nodes, "max")
     smax = torch.where(torch.isfinite(smax), smax, 0.0)
     ex = torch.exp(scores - gather(smax, receivers))
-    ssum = SR.segment_reduce(ex, receivers, n_nodes, "sum")
+    ssum = segment_reduce(ex, receivers, n_nodes, "sum")
     return ex / (gather(ssum, receivers) + 1e-9)
 
 

@@ -21,6 +21,7 @@ run as a Python loop over the stacked leaves.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.models.common import act_fn, normal_init
 from repro_torch.models.gnn.common import (
-    GNNModel, aggregate, check_sorted, gather,
+    GNNModel, aggregate, by_rows, check_sorted, gather,
 )
 from repro_torch.models.gnn.geometry import angular_basis, bessel_rbf
 
@@ -82,6 +83,31 @@ def init_params(cfg: DimeNetConfig, generator: torch.Generator,
             "blocks": blocks}
 
 
+def _triplet_basis(vec, rbf, t_kj, t_ji, n_spherical: int):
+    """The triplets' angle basis sbf [T, S*R] from the edges' vectors vec
+    [E, 3] and radial basis rbf [E, R]: edges (k->j) and (j->i)."""
+    v_kj = gather(vec, t_kj)
+    v_ji = gather(vec, t_ji)
+    cosang = (-(v_kj * v_ji).sum(-1)
+              / (torch.linalg.vector_norm(v_kj, dim=-1)
+                 * torch.linalg.vector_norm(v_ji, dim=-1) + 1e-9))
+    ang = angular_basis(cosang, n_spherical)                  # [T, S]
+    return (ang[:, :, None] * gather(rbf, t_kj)[:, None, :]
+            ).reshape(ang.shape[0], -1)                       # [T, S*R]
+
+
+def _triplet_messages(m, sbf, t_kj, w_kj, w_sbf, w_bil):
+    """Each triplet's bilinear message [T, d] from the incoming edge's
+    message m[t_kj] and the triplet's basis sbf."""
+    T = t_kj.shape[0]
+    B, d, f = w_bil.shape
+    m_kj = gather(m, t_kj) @ w_kj                             # [T, d]
+    bil = sbf @ w_sbf                                         # [T, B]
+    # einsum("tb,td,bdf->tf") as one product over (b, d)
+    return ((bil[:, :, None] * m_kj[:, None, :]).reshape(T, B * d)
+            @ w_bil.reshape(B * d, f))
+
+
 class DimeNet(GNNModel):
     STACKED = "blocks"
     init_params = staticmethod(init_params)
@@ -99,28 +125,18 @@ class DimeNet(GNNModel):
         dist = torch.sqrt((vec * vec).sum(-1) + 1e-12)        # [E]
         rbf = bessel_rbf(dist, cfg.n_radial, cfg.cutoff)      # [E, R]
 
-        # triplet angle basis: edges (k->j) and (j->i)
-        v_kj = gather(vec, g.t_kj)
-        v_ji = gather(vec, g.t_ji)
-        cosang = (-(v_kj * v_ji).sum(-1)
-                  / (torch.linalg.vector_norm(v_kj, dim=-1)
-                     * torch.linalg.vector_norm(v_ji, dim=-1) + 1e-9))
-        ang = angular_basis(cosang, cfg.n_spherical)          # [T, S]
-        sbf = (ang[:, :, None] * gather(rbf, g.t_kj)[:, None, :]
-               ).reshape(ang.shape[0], -1)                    # [T, S*R]
+        sbf = by_rows(functools.partial(_triplet_basis,
+                                        n_spherical=cfg.n_spherical),
+                      g.t_kj, vec, rbf, g.t_kj, g.t_ji, whole=(0, 1))
 
         z = gather(p["embed_z"], g.species)
         m = silu(torch.cat([gather(z, g.senders), gather(z, g.receivers),
                             rbf @ p["embed_rbf"]], dim=-1)
                  @ p["w_msg"])                                # [E, d]
-        T = g.t_kj.shape[0]
         for bp in self.stack:
-            B, d, f = bp["w_bil"].shape
-            m_kj = gather(m, g.t_kj) @ bp["w_kj"]             # [T, d]
-            bil = sbf @ bp["w_sbf"]                           # [T, B]
-            # einsum("tb,td,bdf->tf") as one product over (b, d)
-            inter = ((bil[:, :, None] * m_kj[:, None, :]).reshape(T, B * d)
-                     @ bp["w_bil"].reshape(B * d, f))
+            inter = by_rows(_triplet_messages, g.t_kj, m, sbf, g.t_kj,
+                            bp["w_kj"], bp["w_sbf"], bp["w_bil"],
+                            whole=(0, 3, 4, 5))
             agg = aggregate(inter, g.t_ji, n_edges, "sum")
             rbf_gate = rbf @ bp["w_rbf"]
             m = m + silu(m @ bp["w_self"] + agg * rbf_gate) @ bp["w_out"]

@@ -12,9 +12,11 @@ node payloads, a per-edge map on the join's output); the normalized
 aggregation is two vector-monoid reductions on one arrangement, both
 through the segment-reduce kernel. The layers run as a Python loop over
 the stacked leaves (the reference's ``lax.scan`` computes the same
-thing). The config has no ``backend``, ``unroll`` or ``shard_nodes``:
-the device picks the route, the loop is always unrolled, and there is
-one device.
+thing). The config has no ``backend`` or ``unroll``: the device picks
+the route and the loop is always unrolled. ``shard_nodes`` (the
+reference's perf option, off in every config) places its two
+``maybe_shard`` constraints on a mesh: the nodes' state over "model",
+the edges' over the data axes.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.common import layer_norm, normal_init
+from repro_torch.models.common import layer_norm, maybe_shard, normal_init
 from repro_torch.models.gnn.common import (
     GNNModel, Graph, aggregate, check_sorted, gather,
 )
@@ -34,6 +36,7 @@ class GatedGCNConfig(NamedTuple):
     d_in: int = 1433
     d_edge_in: int = 1
     n_classes: int = 16
+    shard_nodes: bool = False   # node dim over 'model' (perf iteration)
 
 
 def init_params(cfg: GatedGCNConfig, generator: torch.Generator,
@@ -88,4 +91,7 @@ class GatedGCN(GNNModel):
                                           lp["ln_h_b"]))
             e = e + torch.relu(layer_norm(e_new, lp["ln_e_g"],
                                           lp["ln_e_b"]))
+            if cfg.shard_nodes:
+                h = maybe_shard(h, "model", None)
+                e = maybe_shard(e, "dp", None)
         return h @ p["head"]

@@ -20,13 +20,16 @@ channels are gated by learned scalar gates. The config has no
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.models.common import act_fn, normal_init
+from repro_torch.models.common import act_fn, normal_init, redistributed
 from repro_torch.models.gnn.common import (
-    GNNModel, aggregate, check_sorted, gather,
+    GNNModel, aggregate, by_rows, check_sorted, gather,
 )
 from repro_torch.models.gnn.geometry import (
     bessel_rbf, cg, real_sph_harm, tensor_product_paths,
@@ -73,8 +76,26 @@ def init_params(cfg: NequIPConfig, generator: torch.Generator,
 
 
 def _channel_mix(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("nci,cd->ndi", x, w): x [N, C, i] mixed over channels."""
-    return (x.transpose(1, 2) @ w).transpose(1, 2)
+    """einsum("nci,cd->ndi", x, w): x [N, C, i] mixed over channels. On
+    a mesh, whole on every device through ``local_map`` (DTensor's
+    backward of the product would view a split local tensor that cannot
+    be viewed)."""
+    if not isinstance(x, DTensor):
+        return (x.transpose(1, 2) @ w).transpose(1, 2)
+    whole = [Replicate()] * x.device_mesh.ndim
+    x, w = (redistributed(t, whole) for t in (x, w))
+    return local_map(_channel_mix, out_placements=whole,
+                     in_placements=(whole, whole),
+                     device_mesh=x.device_mesh)(x, w)
+
+
+def _contract_cg(y: torch.Tensor, cg: torch.Tensor) -> torch.Tensor:
+    """einsum("ej,ijk->eik", y, cg): the edges' harmonics y [E, j]
+    contracted with a CG table, each device its edges on a mesh
+    (``by_rows``: torch's DTensor before 2.13 splits the einsum's
+    operands wrongly)."""
+    return by_rows(functools.partial(torch.einsum, "ej,ijk->eik"), y, y, cg,
+                   whole=(1,))
 
 
 class NequIP(GNNModel):
@@ -100,7 +121,10 @@ class NequIP(GNNModel):
                                                         g.senders)
         dist = torch.sqrt((vec * vec).sum(-1) + 1e-12)
         rbf = bessel_rbf(dist, cfg.n_rbf, cfg.cutoff)          # [E, R]
-        sh = {l: real_sph_harm(l, vec).float()
+        # each device its edges' harmonics on a mesh (``by_rows``: torch's
+        # DTensor before 2.13 stacks the components into a wrong layout)
+        sh = {l: by_rows(functools.partial(real_sph_harm, l), vec,
+                         vec).float()
               for l in range(cfg.l_max + 1)}                   # [E, 2l+1]
 
         # initial features: scalars from the species embedding; l > 0 zero
@@ -115,8 +139,7 @@ class NequIP(GNNModel):
             for pi, (l1, l2, l3) in enumerate(self.paths):
                 hs = gather(feats[l1], g.senders)              # [E, C, 2l1+1]
                 # einsum("eci,ej,ijk->eck", hs, y, cg): y contracted first
-                t = torch.einsum("ej,ijk->eik", sh[l2],
-                                 self.cg_tabs[(l1, l2, l3)])
+                t = _contract_cg(sh[l2], self.cg_tabs[(l1, l2, l3)])
                 m = torch.bmm(hs, t) * radial[:, pi, :, None]
                 msgs[l3] = m if l3 not in msgs else msgs[l3] + m
             out = {}

@@ -39,14 +39,29 @@ reads the device from the host.
 
 Inputs in float64 stay float64 throughout (the router included), which
 the checks use as a reference.
+
+On a mesh (x a DTensor), as the reference's ``maybe_shard`` points place
+it: the group axis over the data axes ("dp"), so that routing stays
+local to a device's groups. Route, dispatch and combine run under
+``local_map`` over the groups (``argsort``, ``topk`` and
+``searchsorted`` have no DTensor rules), and the expert products are
+DTensor ``bmm``s on the expert weights' layout: experts over "model"
+(the buffer's move to them, and back for the combine, are the
+collectives) or each expert's d_ff over it. The load-balancing loss is a
+partial sum over the groups' devices.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.models.common import act_fn, normal_init
+from repro_torch.models.common import (
+    act_fn, maybe_shard, normal_init, redistributed,
+)
 
 
 class MoEConfig(NamedTuple):
@@ -254,9 +269,75 @@ def load_balance(probs: torch.Tensor, top_e: torch.Tensor,
 def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig, groups: int = 1):
     """x [T, d] (tokens flattened) -> (y [T, d] in x's dtype, aux load-
     balance loss), routed in ``group_plan(T, groups, cfg)`` groups."""
+    if isinstance(x, DTensor):
+        return _moe_ffn_meshed(params, x, cfg, groups)
     t, d = x.shape
     g, tg, cap = group_plan(t, groups, cfg)
     probs, top_p, top_e = route(params["router"], x.reshape(g, tg, d),
                                 cfg.top_k)
     y = mix(params, x, top_p, top_e, cfg, cap)
     return y, load_balance(probs, top_e, cfg.n_experts)
+
+
+def _experts(params, xin, cfg: MoEConfig):
+    """The (gated) expert FFN on the buffer [E, rows, d]: batched
+    products."""
+    h = torch.bmm(xin, params["w_in"])
+    act = act_fn(cfg.act)
+    if cfg.glu:
+        h = act(torch.bmm(xin, params["w_gate"])) * h
+    else:
+        h = act(h)
+    return torch.bmm(h, params["w_out"])
+
+
+def _moe_ffn_meshed(params, x, cfg: MoEConfig, groups: int):
+    """``moe_ffn`` on DTensors (see the module docstring): the same
+    groups, routes and products, each device routing its own groups."""
+    t, d = x.shape
+    g, tg, cap = group_plan(t, groups, cfg)
+    e, k = cfg.n_experts, cfg.top_k
+    mesh = x.device_mesh
+    # the tokens over the data axes only (a sequence split over "model"
+    # would cut a group), and whole when the groups do not divide them
+    names = mesh.mesh_dim_names
+    rows = tuple(p if p == Shard(0) and names[i] != "model" else Replicate()
+                 for i, p in enumerate(x.placements))
+    if g % math.prod(mesh.size(i) for i, p in enumerate(rows)
+                     if p == Shard(0)):
+        rows = (Replicate(),) * mesh.ndim
+    x = redistributed(x, rows)
+    xg = maybe_shard(x.reshape(g, tg, d), "dp", None, None)
+    at = tuple(p if p == Shard(0) else Replicate() for p in xg.placements)
+    xg = redistributed(xg, at)
+    whole = (Replicate(),) * mesh.ndim
+    router = redistributed(params["router"], whole)
+    by_group = tuple(Shard(1) if p == Shard(0) else p for p in at)
+    aux_at = tuple(Partial() if p == Shard(0) else p for p in at)
+
+    def route_and_dispatch(xl, rl):
+        gl = xl.shape[0]
+        probs, top_p, top_e = route(rl, xl, k)
+        r = routes(top_p, top_e, e, cap, xl.dtype)
+        xin = _Dispatch.apply(xl.reshape(gl * tg, d), r, k)
+        aux = e * probs.mean(1).gather(1, top_e[..., 0]).sum() / (g * tg)
+        return (xin.view(e, gl * cap, d), r.row, r.keep, r.gates,
+                r.src.view(e, gl * cap), r.filled.view(e, gl * cap), aux)
+
+    xin, row, keep, gates, src, filled, aux = local_map(
+        route_and_dispatch,
+        out_placements=(by_group, at, at, at, by_group, by_group, aux_at),
+        in_placements=(at, whole), device_mesh=mesh)(xg, router)
+    out = redistributed(_experts(params, xin, cfg), by_group)
+
+    def combine(ol, row_l, keep_l, gates_l, src_l, filled_l):
+        r = Routes(row_l, keep_l, gates_l, src_l.reshape(-1),
+                   filled_l.reshape(-1))
+        n = row_l.shape[0]
+        y = _Combine.apply(ol.reshape(-1, d), r) * gates_l.reshape(n, 1)
+        return y.view(n // k, k, d).sum(dim=1)
+
+    y = local_map(combine, out_placements=list(at),
+                  in_placements=(by_group, at, at, at, by_group, by_group),
+                  device_mesh=mesh)(out, row, keep, gates, src, filled)
+    return maybe_shard(y, "dp", None, None).reshape(t, d), aux

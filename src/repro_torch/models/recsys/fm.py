@@ -38,10 +38,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from repro_torch.kernels import fm_interaction as FI
 from repro_torch.kernels import segment_reduce as SR
 from repro_torch.models.common import (
-    normal_init, parameter, resolve_device, wire_grads,
+    normal_init, parameter, redistributed, resolve_device, settle,
+    wire_grads,
 )
 
 
@@ -75,8 +79,13 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
 
 def take_clip(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` at ``ids`` (any shape) -> [*ids.shape, d], as
-    ``jnp.take(table, ids.astype(int32), axis=0, mode="clip")``."""
+    ``jnp.take(table, ids.astype(int32), axis=0, mode="clip")``. A DTensor
+    table (its rows over "model") is looked up vocab-parallel
+    (``F.embedding``: each device its rows, then the partial sums
+    reduced)."""
     idx = ids.to(torch.int32).clamp(0, table.shape[0] - 1)
+    if isinstance(table, DTensor):
+        return settle(F.embedding(idx.long(), table))
     rows = table.index_select(0, idx.reshape(-1))
     return rows.reshape(tuple(ids.shape) + tuple(table.shape[1:]))
 
@@ -97,6 +106,25 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
         cnt = SR.segment_reduce(ones, bag_ids, n_bags, "sum")
         out = out / torch.clamp_min(cnt, 1.0)
     return out
+
+
+def _interaction(v: torch.Tensor) -> torch.Tensor:
+    """The FM interaction of v [B, F, k] with unit values, through the
+    kernel; on a DTensor through ``local_map`` over its batch shard."""
+    def one(vl):
+        x = torch.ones((1, 1), dtype=vl.dtype, device=vl.device)
+        return FI.fm_interaction(x.expand(vl.shape[0], vl.shape[1]), vl)
+    if not isinstance(v, DTensor):
+        return one(v)
+    at = tuple(p if p == Shard(0) else Replicate() for p in v.placements)
+    v = redistributed(v, at)
+    return local_map(one, out_placements=list(at), in_placements=(at,),
+                     device_mesh=v.device_mesh)(v)
+
+
+def _log_likelihood(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The log-likelihood of each 0/1 label under its logit."""
+    return y * F.logsigmoid(logits) + (1 - y) * F.logsigmoid(-logits)
 
 
 class FM(nn.Module):
@@ -153,16 +181,23 @@ class FM(nn.Module):
         B, nf = ids.shape
         v = take_clip(self.v, ids)                  # [B, F, k]
         w = take_clip(self.w, ids)[..., 0]          # [B, F]
-        x = torch.ones((1, 1), dtype=v.dtype, device=v.device).expand(B, nf)
-        return self.b + w.sum(-1) + FI.fm_interaction(x, v)
+        return self.b + w.sum(-1) + _interaction(v)
 
     def loss_fn(self, ids, labels) -> torch.Tensor:
         """Mean binary cross-entropy of the logits against 0/1 labels
         (with gradients when the model was built with ``train``)."""
         logits = self(ids)
         y = self._ids(labels).float()
-        return -(y * F.logsigmoid(logits)
-                 + (1 - y) * F.logsigmoid(-logits)).mean()
+        if not isinstance(logits, DTensor):
+            return -_log_likelihood(logits, y).mean()
+        # on a mesh each device takes its rows (DTensor has no rule for
+        # logsigmoid's backward)
+        at = [p if p == Shard(0) else Replicate() for p in logits.placements]
+        mesh = logits.device_mesh
+        logits, y = (redistributed(t, at) for t in (logits, y))
+        return -local_map(_log_likelihood, out_placements=at,
+                          in_placements=(at, at),
+                          device_mesh=mesh)(logits, y).mean()
 
     def retrieval_scores(self, context_ids, candidate_ids) -> torch.Tensor:
         """context_ids [F] (one query), candidate_ids [C] -> scores [C]:

@@ -106,22 +106,23 @@ def test_model_flops_and_traffic_match_the_reference(name):
             want = jmodel(ra, mesh, shape)
             state, inputs = (JB._tree_bytes(ra.state_specs(shape)),
                              JB._tree_bytes(ra.input_specs(shape)))
-        assert model(pa, shape) == want, shape
+        assert model(pa, B.ONE_CARD, shape) == want, shape
         assert B._tree_bytes(pa.state_specs(shape)) == state
         assert B._tree_bytes(pa.input_specs(shape)) == inputs
 
 
 def test_a_cut_batch_scales_the_reckoning():
     a = get_arch("qwen3-1.7b")
-    full, cut = (B.lm_traffic_model(a, "decode_32k", batch=b)
+    full, cut = (B.lm_traffic_model(a, B.ONE_CARD, "decode_32k", batch=b)
                  for b in (None, 16))
     kv = 2 * 28 * 8 * 32768 * 128 * 2
     assert cut["state_bytes"] == full["state_bytes"]
     assert cut["bytes"] - cut["state_bytes"] == 2 * (16 * kv + 16 * 4 * 2)
     assert a.input_specs("decode_32k", batch=16)["cache"].k.shape[1] == 16
     fm = get_arch("fm")
-    assert B.recsys_traffic_model(fm, "serve_bulk", batch=512) == (
-        B.recsys_traffic_model(fm, "serve_p99"))
+    assert B.recsys_traffic_model(fm, B.ONE_CARD, "serve_bulk",
+                                  batch=512) == (
+        B.recsys_traffic_model(fm, B.ONE_CARD, "serve_p99"))
 
 
 def _models(name):
